@@ -1,0 +1,22 @@
+"""Architecture registry: ``--arch <id>`` resolution.
+
+Only configurations whose model path has been ported are registered.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import chatglm3_6b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "chatglm3-6b": chatglm3_6b,
+}
+
+ARCH_IDS = list(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _MODULES[arch].CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _MODULES[arch].reduced()

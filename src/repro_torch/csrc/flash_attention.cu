@@ -1,0 +1,251 @@
+// Forward flash attention (online softmax) for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention/kernel.py: flash_attention_kernel
+// (body _attn_kernel).  Same function: scale 1/sqrt(D); GQA maps query head
+// h to kv head h / (Hq / Hkv); masks causal, sliding window, chunk-local and
+// kv length, a masked score is -2^30 (not -inf); m, l and acc are fp32; the
+// output is acc / max(l, 1e-30) in the input type; q_offset is the position
+// of the first query (cache-relative decode), a runtime value.
+//
+// Layout: model layout, all contiguous: q, o (B, Sq, Hq, D); k, v
+// (B, Skv, Hkv, D), k and v 16-byte aligned.  Keys at positions >= kv_len
+// are never read.
+//
+// Bound: operations at the prefill shape (B=8, S=1024, D=128: ~512 flops per
+// key and query against ~0.5 byte), bytes in decode (one query row against
+// the whole K/V cache).  Design, simple first: one block of 128 threads per
+// (q tile, query head, batch).  The TPU's sequential kv grid axis becomes a
+// loop inside the block over 64-key tiles, read with 16-byte loads and
+// staged through shared memory as fp32; under the causal mask the loop
+// covers only the tiles that hold an unmasked key of the q tile.  Each thread owns a register micro-tile of
+// RPT rows x 4 keys of the score tile and RPT rows x D/16 columns of the
+// output accumulator, so the running max, sum and rescale of a row stay in
+// the registers of the 16 threads that share it (reduced with shuffles).
+// Products run on the fp32 cores (no wgmma/TMA yet), so the kernel sits far
+// from the tensor-core bound; decode tiles hold 8 query rows (RPT = 1) and
+// prefill tiles 64 (RPT = 8).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;   // 8 row groups x 16 column groups
+constexpr int kBKV = 64;        // keys per tile: 16 column groups x 4
+constexpr float kNegInf = -1073741824.f;   // -2^30, as the reference
+
+struct Params {
+  int Sq, Skv, Hq, Hkv;
+  int causal, window, chunk, q_offset, kv_len;
+  float scale;
+};
+
+template <int D, int RPT>
+constexpr size_t smem_floats() {
+  return (size_t)(8 * RPT) * (D + 1) + (size_t)kBKV * (D + 1) +
+         (size_t)kBKV * D + (size_t)(8 * RPT) * (kBKV + 1);
+}
+
+template <typename T, int D, int RPT>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       Params p) {
+  constexpr int BQ = 8 * RPT;
+  constexpr int DPT = D / 16;          // output columns per thread
+  constexpr int QS = D + 1, KS = D + 1, PS = kBKV + 1;   // padded strides
+  constexpr int kVec = 16 / sizeof(T);                    // elements per load
+  static_assert(kBKV * D % (kVec * kThreads) == 0, "tile load must divide");
+  extern __shared__ float smem[];
+  float* Qs = smem;                    // [BQ][D+1]
+  float* Ks = Qs + BQ * QS;            // [kBKV][D+1]
+  float* Vs = Ks + kBKV * KS;          // [kBKV][D]
+  float* Ps = Vs + kBKV * D;           // [BQ][kBKV+1]
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int nq = min(BQ, p.Sq - q0);
+
+  for (int idx = tid; idx < BQ * D; idx += kThreads) {
+    const int r = idx / D, dd = idx % D;
+    Qs[r * QS + dd] =
+        r < nq ? to_f32(q[((size_t)(b * p.Sq + q0 + r) * p.Hq + h) * D + dd])
+               : 0.f;
+  }
+
+  // keys that can be unmasked for some row of this q tile
+  const int q_first = p.q_offset + q0, q_last = q_first + nq - 1;
+  int kv_lo = 0, kv_hi = p.kv_len;
+  if (p.causal) {
+    kv_hi = min(kv_hi, q_last + 1);
+    if (p.window) kv_lo = max(kv_lo, q_first - p.window + 1);
+    if (p.chunk) kv_lo = max(kv_lo, q_first / p.chunk * p.chunk);
+  }
+
+  float m[RPT], l[RPT], acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kv0 = kv_lo / kBKV * kBKV; kv0 < kv_hi; kv0 += kBKV) {
+    __syncthreads();   // the previous tile's K, V and P are consumed
+    // 16-byte vector loads, unrolled so that they are all in flight at once
+#pragma unroll
+    for (int it = 0; it < kBKV * D / kVec / kThreads; ++it) {
+      const int vi = tid + it * kThreads;
+      const int c = vi / (D / kVec), d0 = vi % (D / kVec) * kVec;
+      const int kp = kv0 + c;
+      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = kraw;   // zero: no NaN
+      if (kp < p.kv_len) {
+        const size_t off = ((size_t)(b * p.Skv + kp) * p.Hkv + hk) * D + d0;
+        kraw = *reinterpret_cast<const uint4*>(k + off);
+        vraw = *reinterpret_cast<const uint4*>(v + off);
+      }
+      const T* ke = reinterpret_cast<const T*>(&kraw);
+      const T* ve = reinterpret_cast<const T*>(&vraw);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        Ks[c * KS + d0 + e] = to_f32(ke[e]);
+        Vs[c * D + d0 + e] = to_f32(ve[e]);
+      }
+    }
+    __syncthreads();
+
+    float s[RPT][4];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int dd = 0; dd < D; ++dd) {
+      float qv[RPT], kv[4];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(tr + 8 * i) * QS + dd];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * KS + dd];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int qp = p.q_offset + q0 + tr + 8 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = kv0 + tc + 16 * j;
+        bool ok = kp < p.kv_len;
+        if (p.causal) ok = ok && kp <= qp;
+        if (p.window) ok = ok && kp > qp - p.window;
+        if (p.chunk) ok = ok && kp / p.chunk == qp / p.chunk;
+        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // the 16 threads of a row are 16 consecutive lanes of one warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pj = expf(s[i][j] - m_new);
+        Ps[(tr + 8 * i) * PS + tc + 16 * j] = pj;
+        sum += pj;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBKV; ++c) {
+      float pv[RPT], vv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(tr + 8 * i) * PS + c];
+#pragma unroll
+      for (int cc = 0; cc < DPT; ++cc) vv[cc] = Vs[c * D + tc + 16 * cc];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int cc = 0; cc < DPT; ++cc)
+          acc[i][cc] = fmaf(pv[i], vv[cc], acc[i][cc]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = tr + 8 * i;
+    if (r >= nq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* orow = o + ((size_t)(b * p.Sq + q0 + r) * p.Hq + h) * D;
+#pragma unroll
+    for (int cc = 0; cc < DPT; ++cc)
+      orow[tc + 16 * cc] = from_f32<T>(acc[i][cc] / denom);
+  }
+}
+
+template <typename T, int D, int RPT>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<D, RPT>() * sizeof(float);
+  auto kern = flash_attention_kernel<T, D, RPT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + 8 * RPT - 1) / (8 * RPT), p.Hq, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
+                       int B, int D, const Params& p, cudaStream_t s) {
+  const bool small = p.Sq <= 8;   // decode: 8-row q tiles
+#define REPRO_CASE(DD)                                                   \
+  case DD:                                                               \
+    return small ? launch<T, DD, 1>(q, k, v, o, B, p, s)                 \
+                 : launch<T, DD, 8>(q, k, v, o, B, p, s);
+  switch (D) {
+    REPRO_CASE(16)
+    REPRO_CASE(32)
+    REPRO_CASE(64)
+    REPRO_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_CASE
+}
+
+}  // namespace
+
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int dtype, int B,
+                                   int Sq, int Skv, int Hq, int Hkv, int D,
+                                   int causal, int window, int chunk,
+                                   int q_offset, int kv_len, float scale,
+                                   void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  const Params p{Sq, Skv, Hq, Hkv, causal, window, chunk, q_offset, kv_len,
+                 scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return dispatch_d<float>(q, k, v, o, B, D, p, s);
+  if (dtype == kBFloat16)
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, D, p, s);
+  return cudaErrorInvalidValue;
+}

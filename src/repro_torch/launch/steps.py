@@ -1,0 +1,25 @@
+"""Prefill and decode step builders (counterpart: ``repro/launch/steps.py``
+``make_prefill_step`` / ``make_decode_step``).
+
+Steps take the reference's batch dicts.  There is no ``jit``: PyTorch runs
+eagerly, and the kernels launch on the current CUDA stream.
+"""
+from __future__ import annotations
+
+from repro_torch.models.transformer import Transformer
+
+
+def make_prefill_step(model: Transformer, max_len: int):
+    """``prefill_step(batch) -> (last logits (B, 1, V), cache)``; batch keys:
+    ``tokens`` (B, S)."""
+    def prefill_step(batch):
+        return model.prefill(batch["tokens"], max_len=max_len)
+    return prefill_step
+
+
+def make_decode_step(model: Transformer):
+    """``decode_step(batch) -> (logits (B, 1, V), cache)``; batch keys:
+    ``token`` (B, 1), ``pos`` (int), ``caches`` (the prefill's cache)."""
+    def decode_step(batch):
+        return model.decode_step(batch["token"], batch["pos"], batch["caches"])
+    return decode_step
