@@ -7,18 +7,30 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero (no phase's failure is caught):
 
 1. device: the card's name and power limit;
-2. build: every ``src/repro_torch/csrc/*.cu`` compiled with nvcc for sm_90a;
+2. build: every ``src/repro_torch/csrc/*.cu`` compiled with nvcc for sm_90a,
+   all at once;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the serve path's shapes and at small ragged/masked ones, and timed
-   beside its bound and one library call (a yardstick the port never calls);
-4. serve: chatglm3-6b at its published widths and 28 layers in bf16, random
-   weights from a seeded CUDA generator, 8 prompts of 1024 tokens and 32
-   greedy tokens through ``repro_torch.launch.serve.generate``; the launch
-   counts of that run are checked exactly and the decode logits are held
-   against one full forward;
-5. the same check in fp32 at full width with 2 layers, and the reduced
-   config's CUDA logits against its plain CPU path (which the CPU tests hold
-   against the JAX reference).
+   at the serve paths' shapes and at small ragged/masked ones, in fp32 and
+   bf16, and timed beside its bound and one library call where one exists
+   (a yardstick the port never calls): RMSNorm (both forms), flash attention
+   (head_dim 128 and 256, windowed prefill, decode over a wrapped rolling
+   buffer with key positions), the RG-LRU scan and the Mamba scan (with its
+   final state);
+4. serve: chatglm3-6b, recurrentgemma-2b and falcon-mamba-7b, each at its
+   published widths and full depth in bf16, random weights from a seeded
+   CUDA generator, 8 prompts and 32 greedy tokens through
+   ``repro_torch.launch.serve.generate`` (recurrentgemma's prompt of 4096
+   tokens is twice its attention window, so the window cuts in during
+   prefill and the rolling buffer wraps at the first decode step); the
+   launch counts of each run are checked exactly and its decode logits are
+   held against one full forward;
+5. the same check in fp32 at full width with 2 or 3 layers, and each
+   reduced config's CUDA logits (forward and generate) against its plain
+   CPU path (which the CPU tests hold against the JAX reference).
+
+``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
+check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
+contract line.
 
 Before the last line: one JSON line ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power-limit line.  Last line:
@@ -26,6 +38,7 @@ Before the last line: one JSON line ``{"kernels": [...]}`` and the
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -44,28 +57,49 @@ from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 
-# tests/test_kernels.py:15 of the reference
+DEV = "cuda"
+# tests/test_kernels.py:15 of the reference; its RG-LRU test takes 5x
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RGLRU_TOL_MULT = 5
 # H100 SXM data sheet (dense): bytes/s of HBM3, flop/s by input type
 # (bf16 on the tensor cores, fp32 outside them: TF32 is switched off here)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# serve shape of phase 4 (and the kernels' main-path shapes)
-ARCH, BATCH, PROMPT, NEW = "chatglm3-6b", 8, 1024, 32
+# serve runs of phase 4: (arch, batch, prompt, new tokens); the kernels'
+# main-path shapes follow from them
+SERVES = (("chatglm3-6b", 8, 1024, 32),
+          ("recurrentgemma-2b", 8, 4096, 32),
+          ("falcon-mamba-7b", 8, 1024, 32))
 # decode logits vs one full forward, relative RMS error over all logits.
 # bf16: both sides round every product to 8 mantissa bits (2^-9 = 2e-3
 # relative per rounding) but at different places (cuBLAS picks other kernels
-# for 8 rows than for 8440), and the differences add up over 28 layers; a
-# wrong cache slot, position or mask gives errors of order 1.
-SERVE_REL_TOL_BF16 = 5e-2
+# for 8 rows than for 8440; the recurrent layers' decode step is plain torch
+# ops where the prefill runs the scan kernels), and the differences grow
+# with depth, to 0.055 over falcon-mamba-7b's 64 layers: no fixed number
+# fits every depth.  So a bf16 run is held against its own rounding floor,
+# measured in the same run: the decode logits may be no further from the
+# fp32 forward of the same weights than FLOOR_MULT times the bf16 forward
+# is.  The two distances agree within 1% on all three models (they differ
+# only in where bf16 rounds); a wrong cache slot, key position, recurrent
+# state or conv history adds an error of order 1 and fails.
+FLOOR_MULT = 1.1
 # fp32 (TF32 off): sums in another order only (~1e-6); bf16 arithmetic or
 # TF32 would give >= 1e-3 and fail it.
 SERVE_REL_TOL_FP32 = 1e-4
+# the kernels' launch counters; the residual RMSNorm form is counted apart
+COUNTERS = {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
+            "rglru_scan": rglru_scan, "mamba_scan": mamba_scan}
+KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rglru_scan",
+           "mamba_scan")
 
 
 def log(*a) -> None:
@@ -91,7 +125,7 @@ class Timer:
     sleep kernel, so host-side launch work is not counted."""
 
     def __init__(self):
-        self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        self.flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
         self.start = torch.cuda.Event(enable_timing=True)
         self.end = torch.cuda.Event(enable_timing=True)
 
@@ -109,21 +143,43 @@ class Timer:
         return statistics.median(times)
 
 
-def rmsnorm_bound_ms(n: int, d: int, dt: torch.dtype) -> float:
-    es = torch.tensor([], dtype=dt).element_size()
-    nbytes = 2 * n * d * es + d * es        # x read, y written, w read
-    flops = 4 * n * d                       # square, sum, scale, weight
-    return max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]) * 1e3
+def esize(dt: torch.dtype) -> int:
+    return torch.tensor([], dtype=dt).element_size()
+
+
+def bound(nbytes: int, flops: int, dt: torch.dtype) -> dict:
+    """The least time of the work: the larger of its bytes over the memory
+    rate and its operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dt]
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rmsnorm_work(n: int, d: int, dt: torch.dtype, residual: bool) -> dict:
+    es = esize(dt)
+    rows = 4 if residual else 2             # x (+ r) read, y (+ x + r) written
+    return bound(rows * n * d * es + d * es, (5 if residual else 4) * n * d,
+                 torch.float32)
+
+
+def rolling_kpos(pos: int, L: int) -> torch.Tensor:
+    """Key positions of a rolling buffer of L slots after position ``pos``
+    was written (position p in slot p % L; -1: unwritten)."""
+    s = torch.arange(L)
+    p = pos - (pos - s) % L
+    return torch.where(p >= 0, p, -1).to(torch.int32)
 
 
 def flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=True, window=0, chunk=0,
-               q_offset=0, kv_len=None):
-    """(bytes, flops) this call needs: q, o and the keys any query can see,
-    once each; 4*D flops per unmasked (query, key) pair."""
+               q_offset=0, kv_len=None, k_pos=None) -> dict:
+    """q, o and the keys any query can see, once each; 4*D flops per
+    unmasked (query, key) pair."""
     kv_len = Skv if kv_len is None else kv_len
     qp = q_offset + torch.arange(Sq)[:, None]
-    kp = torch.arange(Skv)[None, :]
-    ok = (kp < kv_len) & (qp >= 0)              # (Sq, Skv)
+    slot = torch.arange(Skv)[None, :]
+    kp = slot if k_pos is None else k_pos.cpu().long()[None, :]
+    ok = (slot < kv_len) & (kp >= 0) & (qp >= 0)   # (Sq, Skv)
     if causal:
         ok &= kp <= qp
     if window:
@@ -131,15 +187,31 @@ def flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=True, window=0, chunk=0,
     if chunk:
         ok &= kp // chunk == qp // chunk
     keys_needed = int(ok.any(0).sum())
-    es = torch.tensor([], dtype=dt).element_size()
-    nbytes = (2 * B * Sq * Hq * D + 2 * B * keys_needed * Hkv * D) * es
-    return nbytes, 4 * D * B * Hq * int(ok.sum())
+    nbytes = (2 * B * Sq * Hq * D + 2 * B * keys_needed * Hkv * D) * esize(dt)
+    return bound(nbytes, 4 * D * B * Hq * int(ok.sum()), dt)
 
 
-def flash_bound_ms(nbytes: int, flops: int, dt) -> tuple:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dt]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                        else "operations")
+def sdpa_call(q, k, v, causal, window, q_offset, kv_len, k_pos):
+    """One ``scaled_dot_product_attention`` call computing what the flash
+    kernel computes (the mask built beforehand, not timed)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not window and k_pos is None:          # a prefix of the keys
+        n = Skv if kv_len is None else kv_len
+        kt, vt = kt[:, :, :n], vt[:, :, :n]
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal and Sq > 1, enable_gqa=True)
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    slot = torch.arange(Skv, device=q.device)[None, :]
+    kp = slot if k_pos is None else k_pos.long()[None, :]
+    mask = (slot < (Skv if kv_len is None else kv_len)) & (kp >= 0) \
+        & (qp >= 0)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
 def phase_device() -> str:
@@ -158,83 +230,198 @@ def phase_build() -> None:
     log(f"[build] {', '.join(_build.sources())} built in {secs:.1f} s")
 
 
-def phase_kernels(timer: Timer) -> dict:
-    g = torch.Generator(device="cuda").manual_seed(1234)
-
-    def rn(*shape, dt):
-        return torch.randn(*shape, generator=g, device="cuda").to(dt)
-
-    d = get_config(ARCH).d_model
-    rows = {}
-    # ---- RMSNorm: both forms, both dtypes; serve shapes + a ragged one
-    rms_cases = []
+def kernels_rmsnorm(timer: Timer, rn) -> dict:
+    """Both forms, both dtypes; serve shapes (prefill and decode rows of
+    chatglm3-6b and falcon-mamba-7b at d 4096, recurrentgemma-2b's prefill
+    at d 2560) + a ragged one.  Timed in bf16 at the prefill shapes."""
+    d = get_config("chatglm3-6b").d_model
+    d_rg = get_config("recurrentgemma-2b").d_model
+    shapes = ((8 * 1024, d, True), (8, d, True), (8 * 4096, d_rg, True),
+              (37, 130, False))
+    plain, resid = [], []
     for dt in (torch.float32, torch.bfloat16):
-        for n, dd in ((BATCH * PROMPT, d), (BATCH, d), (37, 130)):
+        for n, dd, serve in shapes:
             x, r = rn(n, dd, dt=dt), rn(n, dd, dt=dt)
             w = (rn(dd, dt=torch.float32) * 0.1 + 1.0).to(dt)
-            err = close(fused_rmsnorm(x, w), rmsnorm_ref(x, w), TOL[dt])
+            base = {"shape": [n, dd], "dtype": str(dt)[6:], "tol": TOL[dt]}
+            case = dict(base, max_abs_err=close(
+                fused_rmsnorm(x, w), rmsnorm_ref(x, w), TOL[dt]))
             y, res = fused_rmsnorm(x, w, r)
             yr, resr = rmsnorm_ref(x, w, r)
-            err_r = max(close(y, yr, TOL[dt]), close(res, resr, TOL[dt]))
-            case = {"shape": [n, dd], "dtype": str(dt)[6:], "tol": TOL[dt],
-                    "max_abs_err": err, "residual_max_abs_err": err_r}
-            if dt == torch.bfloat16 and dd == d:       # the serve path's
+            case_r = dict(base, max_abs_err=max(close(y, yr, TOL[dt]),
+                                                close(res, resr, TOL[dt])))
+            if dt == torch.bfloat16 and serve:
                 case.update(
                     ms=timer.ms(lambda: fused_rmsnorm(x, w)),
                     plain_ms=timer.ms(lambda: rmsnorm_ref(x, w)),
                     library_ms=timer.ms(
                         lambda: F.rms_norm(x, (dd,), w, eps=1e-6)),
-                    bound_ms=rmsnorm_bound_ms(n, dd, dt), bound_by="bytes")
+                    **rmsnorm_work(n, dd, dt, residual=False))
+                # no single PyTorch call adds and normalises
+                case_r.update(
+                    ms=timer.ms(lambda: fused_rmsnorm(x, w, r)),
+                    plain_ms=timer.ms(lambda: rmsnorm_ref(x, w, r)),
+                    library_ms=None, **rmsnorm_work(n, dd, dt, residual=True))
             log(f"[kernels] rmsnorm {case}")
-            rms_cases.append(case)
-    rows["rmsnorm"] = rms_cases
+            log(f"[kernels] rmsnorm_residual {case_r}")
+            plain.append(case)
+            resid.append(case_r)
+    return {"rmsnorm": plain, "rmsnorm_residual": resid}
 
-    # ---- flash attention: serve prefill/decode + small ragged/masked
-    cfg = get_config(ARCH)
+
+def kernels_flash(timer: Timer, rn) -> list:
+    """Serve prefill/decode of chatglm3-6b (D 128, causal, GQA 16:1) and of
+    recurrentgemma-2b (D 256, window 2048, MQA 10:1; decode over the
+    4096-slot rolling buffer, wrapped, with key positions) + small
+    ragged/masked ones.  Timed in bf16 at the serve shapes."""
+    cfg = get_config("chatglm3-6b")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    buf = PROMPT + NEW
-    pos = PROMPT + 16
+    _, B, P, N = SERVES[0]
+    pos = P + 16
+    rg = get_config("recurrentgemma-2b")
+    _, B_rg, P_rg, N_rg = SERVES[1]
+    W = rg.attn_window
+    L = min(2 * W, P_rg + N_rg)               # the rolling buffer: 4096 slots
+    pos_rg = P_rg + 16                        # mid-decode: the buffer wrapped
     shapes = [
-        ("prefill", (BATCH, PROMPT, PROMPT, hq, hkv, hd), {}),
-        ("decode", (BATCH, 1, buf, hq, hkv, hd),
+        ("prefill", (B, P, P, hq, hkv, hd), {}),
+        ("decode", (B, 1, P + N, hq, hkv, hd),
          dict(q_offset=pos, kv_len=pos + 1)),
-        ("decode_whole_buffer", (BATCH, 1, buf, hq, hkv, hd),
+        ("decode_whole_buffer", (B, 1, P + N, hq, hkv, hd),
          dict(q_offset=pos)),
+        ("prefill_d256_window", (B_rg, P_rg, P_rg, rg.n_heads,
+                                 rg.n_kv_heads, rg.head_dim),
+         dict(window=W)),
+        ("decode_d256_rolling", (B_rg, 1, L, rg.n_heads, rg.n_kv_heads,
+                                 rg.head_dim),
+         dict(q_offset=pos_rg, kv_len=L, window=W,
+              k_pos=rolling_kpos(pos_rg, L))),
         ("mqa_ragged", (1, 33, 33, 8, 1, 16), {}),
         ("gqa_ragged", (2, 80, 80, 4, 2, 32), {}),
         ("window", (2, 96, 96, 4, 2, 32), dict(window=16)),
         ("chunk", (2, 96, 96, 4, 2, 32), dict(chunk=32)),
         ("bidir", (2, 96, 96, 4, 2, 32), dict(causal=False)),
         ("decode_d32", (2, 1, 64, 4, 2, 32), dict(q_offset=40, kv_len=41)),
+        ("d256_ragged_window", (2, 70, 70, 4, 1, 256), dict(window=16)),
+        # a 16-slot buffer, window 8, after position 21; then a partly
+        # written one (slots 6.. unwritten: -1) read in full
+        ("kpos_wrapped", (2, 1, 16, 4, 1, 32),
+         dict(q_offset=21, window=8, k_pos=rolling_kpos(21, 16))),
+        ("kpos_partial_d256", (2, 1, 16, 4, 1, 256),
+         dict(q_offset=5, window=8, k_pos=rolling_kpos(5, 16))),
     ]
-    fa_cases = []
+    timed = ("prefill", "decode", "prefill_d256_window", "decode_d256_rolling")
+    cases = []
     for dt in (torch.float32, torch.bfloat16):
-        for name, (B, Sq, Skv, Hq, Hkv, D), kw in shapes:
-            q, k, v = rn(B, Sq, Hq, D, dt=dt), rn(B, Skv, Hkv, D, dt=dt), \
-                rn(B, Skv, Hkv, D, dt=dt)
+        for name, (Bq, Sq, Skv, Hq, Hkv, D), kw in shapes:
+            kw = dict(kw)
+            if "k_pos" in kw:
+                kw["k_pos"] = kw["k_pos"].to(DEV)
+            q, k, v = rn(Bq, Sq, Hq, D, dt=dt), rn(Bq, Skv, Hkv, D, dt=dt), \
+                rn(Bq, Skv, Hkv, D, dt=dt)
             err = close(flash_attention(q, k, v, **kw),
                         attention_ref(q, k, v, **kw), TOL[dt])
-            case = {"case": name, "shape": [B, Sq, Skv, Hq, Hkv, D], **kw,
-                    "dtype": str(dt)[6:], "tol": TOL[dt], "max_abs_err": err}
-            if dt == torch.bfloat16 and name in ("prefill", "decode"):
-                n_kv = kw.get("kv_len", Skv)
-                qt, kt, vt = (t.transpose(1, 2) for t in
-                              (q, k[:, :n_kv], v[:, :n_kv]))
+            case = {"case": name, "shape": [Bq, Sq, Skv, Hq, Hkv, D],
+                    **{a: b for a, b in kw.items() if a != "k_pos"},
+                    "k_pos": "k_pos" in kw, "dtype": str(dt)[6:],
+                    "tol": TOL[dt], "max_abs_err": err}
+            if dt == torch.bfloat16 and name in timed:
+                lib = sdpa_call(q, k, v, True, kw.get("window", 0),
+                                kw.get("q_offset", 0), kw.get("kv_len"),
+                                kw.get("k_pos"))
                 case.update(
                     ms=timer.ms(lambda: flash_attention(q, k, v, **kw)),
                     plain_ms=timer.ms(lambda: attention_ref(q, k, v, **kw),
                                       reps=5),
-                    library_ms=timer.ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=name == "prefill",
-                            enable_gqa=True)))
-                nbytes, flops = flash_work(B, Sq, Skv, Hq, Hkv, D, dt, **kw)
-                case["bytes"], case["flops"] = nbytes, flops
-                case["bound_ms"], case["bound_by"] = flash_bound_ms(
-                    nbytes, flops, dt)
+                    library_ms=timer.ms(lib),
+                    **flash_work(Bq, Sq, Skv, Hq, Hkv, D, dt, **kw))
             log(f"[kernels] flash_attention {case}")
-            fa_cases.append(case)
-    rows["flash_attention"] = fa_cases
+            cases.append(case)
+            del q, k, v
+    return cases
+
+
+def kernels_rglru(timer: Timer, g) -> list:
+    """recurrentgemma-2b's prefill shape (B 8, S 4096, W 2560; fp32 on the
+    model path) + the reference test's shapes, ragged ones included."""
+    rg = get_config("recurrentgemma-2b")
+    _, B, P, _ = SERVES[1]
+    shapes = ((B, P, rg.rnn_width, True), (1, 32, 16, False),
+              (2, 50, 20, False), (1, 9, 129, False), (3, 7, 129, False))
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for Bs, S, Wd, serve in shapes:
+            a = (torch.rand(Bs, S, Wd, generator=g, device=DEV) * 0.49
+                 + 0.5).to(dt)
+            b = torch.randn(Bs, S, Wd, generator=g, device=DEV).to(dt)
+            tol = TOL[dt] * RGLRU_TOL_MULT
+            case = {"shape": [Bs, S, Wd], "dtype": str(dt)[6:], "tol": tol,
+                    "max_abs_err": close(rglru_scan(a, b),
+                                         rglru_scan_ref(a, b), tol)}
+            if serve:
+                # no single PyTorch call computes a linear recurrence
+                case.update(
+                    ms=timer.ms(lambda: rglru_scan(a, b)),
+                    plain_ms=timer.ms(lambda: rglru_scan_ref(a, b), reps=3),
+                    library_ms=None,
+                    **bound(3 * a.numel() * esize(dt), 2 * a.numel(),
+                            torch.float32))
+            log(f"[kernels] rglru_scan {case}")
+            cases.append(case)
+            del a, b
+    return cases
+
+
+def kernels_mamba(timer: Timer, g) -> list:
+    """falcon-mamba-7b's prefill shape (B 8, S 1024, Di 8192, N 16; fp32 on
+    the model path) + the reference test's shapes and ragged ones, each N
+    of {4, 8, 16}; the final state is checked too."""
+    fm = get_config("falcon-mamba-7b")
+    _, B, P, _ = SERVES[2]
+    shapes = ((B, P, fm.d_inner, fm.ssm_state, True), (1, 32, 16, 4, False),
+              (2, 40, 24, 8, False), (1, 7, 130, 16, False),
+              (2, 9, 130, 4, False), (1, 50, 130, 8, False))
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for Bs, S, Di, N, serve in shapes:
+            da = (torch.rand(Bs, S, Di, N, generator=g, device=DEV) * 0.49
+                  + 0.5).to(dt)
+            dbx = (torch.randn(Bs, S, Di, N, generator=g, device=DEV)
+                   * 0.1).to(dt)
+            c = torch.randn(Bs, S, N, generator=g, device=DEV).to(dt)
+            y, h_last = mamba_scan(da, dbx, c)
+            yr, hr = mamba_scan_ref(da, dbx, c)
+            case = {"shape": [Bs, S, Di, N], "dtype": str(dt)[6:],
+                    "tol": TOL[dt], "max_abs_err": close(y, yr, TOL[dt]),
+                    "h_last_max_abs_err": close(h_last, hr, TOL[dt])}
+            del y, h_last, yr, hr
+            if serve:
+                es = esize(dt)
+                nbytes = ((2 * da.numel() + c.numel() + Bs * S * Di) * es
+                          + Bs * Di * N * 4)
+                case.update(
+                    ms=timer.ms(lambda: mamba_scan(da, dbx, c)),
+                    plain_ms=timer.ms(lambda: mamba_scan_ref(da, dbx, c),
+                                      reps=3),
+                    library_ms=None,
+                    **bound(nbytes, 4 * da.numel(), torch.float32))
+            log(f"[kernels] mamba_scan {case}")
+            cases.append(case)
+            del da, dbx, c
+    return cases
+
+
+def phase_kernels(timer: Timer) -> dict:
+    g = torch.Generator(device=DEV).manual_seed(1234)
+
+    def rn(*shape, dt):
+        return torch.randn(*shape, generator=g, device=DEV).to(dt)
+
+    rows = kernels_rmsnorm(timer, rn)
+    rows["flash_attention"] = kernels_flash(timer, rn)
+    rows["rglru_scan"] = kernels_rglru(timer, g)
+    rows["mamba_scan"] = kernels_mamba(timer, g)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -243,100 +430,182 @@ def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def serve_check(cfg, batch, prompt, new, tol, label, warm=False):
+def reset_counts() -> None:
+    for f in COUNTERS.values():
+        f.launches = 0
+    fused_rmsnorm.residual_launches = 0
+
+
+def read_counts() -> dict:
+    counts = {name: f.launches for name, f in COUNTERS.items()}
+    counts["rmsnorm_residual"] = fused_rmsnorm.residual_launches
+    counts["rmsnorm"] -= counts["rmsnorm_residual"]
+    return {k: counts[k] for k in KERNELS}
+
+
+def expected_launches(cfg, new: int) -> dict:
+    """What ``generate`` launches: one prefill and new - 1 decode steps run
+    every norm (two a layer outside the ssm family, one inside, plus the
+    final one) and every attention layer; the scans run in the prefill only
+    (a decode step is plain torch ops); the residual form is not on the
+    path."""
+    kinds = cfg.layer_kinds()
+    norms = len(kinds) * (1 if cfg.family == "ssm" else 2) + 1
+    return {"rmsnorm": norms * new, "rmsnorm_residual": 0,
+            "flash_attention": sum(k.startswith("attn") for k in kinds) * new,
+            "rglru_scan": kinds.count("rglru"),
+            "mamba_scan": kinds.count("mamba")}
+
+
+def serve_check(cfg, batch, prompt, new, label, warm=False):
     """generate() then one forward over prompt + generated tokens; the
-    decode logits must match the forward's at the same positions."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    model = Transformer(cfg, "cuda", generator=g)
+    decode logits must match the forward's at the same positions (only
+    those are unembedded: recurrentgemma-2b's (8, 4127, 256000) fp32 logits
+    would take 34 GB): in fp32 within SERVE_REL_TOL_FP32, in bf16 within the
+    rounding floor (FLOOR_MULT), for which the model is then cast to fp32."""
+    g = torch.Generator(device=DEV).manual_seed(0)
+    model = Transformer(cfg, DEV, generator=g)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
-                            device="cuda")
+                            device=DEV)
     if warm:                      # cuBLAS handles, allocator: not timed
         generate(model, prompts[:, :16], 2)
     torch.cuda.reset_peak_memory_stats()
-    fused_rmsnorm.launches = flash_attention.launches = 0
+    reset_counts()
     out = generate(model, prompts, new)
-    launches = {"rmsnorm": fused_rmsnorm.launches,
-                "flash_attention": flash_attention.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if out.tokens.shape != (batch, new) or out.logits.shape != (
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
         raise AssertionError(f"{label}: bad generate output")
     full = torch.cat([prompts, out.tokens[:, :-1]], 1)
-    ref = model(full)[:, prompt - 1:]
+    ref = model(full, last=new)
     err = rel_rms(out.logits, ref)
     agree = (out.logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    bf16 = cfg.param_dtype == "bfloat16"
+    if bf16:                      # the same weights in fp32 arithmetic
+        ref32 = model.float()(full, last=new)
+        floor = rel_rms(ref, ref32)
+        check = {"decode_rel_rms_vs_fp32_forward": rel_rms(out.logits, ref32),
+                 "bf16_forward_rel_rms_vs_fp32_forward": floor,
+                 "limit": FLOOR_MULT * floor}
+        del ref32
+    else:
+        check = {"limit": SERVE_REL_TOL_FP32}
     res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": batch, "prompt": prompt, "tokens": new,
            "prefill_ms": out.prefill_s * 1e3,
            "decode_ms_per_step": out.decode_s * 1e3 / max(new - 1, 1),
            "decode_tok_per_s": batch * (new - 1) / out.decode_s,
            "peak_mem_gb": peak_gb, "launches": launches,
-           "logits_rel_rms_vs_forward": err, "tol": tol,
+           "logits_rel_rms_vs_forward": err,
            "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
-           "argmax_agreement": agree}
+           "argmax_agreement": agree, **check}
     log(f"[serve] {label} {json.dumps(res)}")
-    if not err <= tol:
-        raise AssertionError(f"{label}: decode logits vs forward relative "
-                             f"RMS error {err:.3e} > {tol:g}")
-    del model
+    checked = check["decode_rel_rms_vs_fp32_forward"] if bf16 else err
+    if not checked <= check["limit"]:
+        raise AssertionError(f"{label}: decode logits relative RMS error "
+                             f"{checked:.3e} > {check['limit']:.3e}")
+    del model, out, ref, full, prompts
     torch.cuda.empty_cache()
     return res
 
 
 def phase_serve() -> dict:
-    cfg = get_config(ARCH)
-    res = serve_check(cfg, BATCH, PROMPT, NEW, SERVE_REL_TOL_BF16,
-                      "bf16 full", warm=True)
-    per_forward = {"rmsnorm": 2 * cfg.n_layers + 1,
-                   "flash_attention": cfg.n_layers}
-    expect = {k: v * NEW for k, v in per_forward.items()}   # 1 prefill + 31
-    if res["launches"] != expect:
-        raise AssertionError(f"launches {res['launches']} != {expect}")
-    return res
+    """Each model in turn (the previous one freed), counts set to 0 just
+    before its run and read just after; they must be exactly as expected."""
+    runs = {}
+    for arch, batch, prompt, new in SERVES:
+        cfg = get_config(arch)
+        res = serve_check(cfg, batch, prompt, new, f"bf16 full {arch}",
+                          warm=True)
+        expect = expected_launches(cfg, new)
+        if res["launches"] != expect:
+            raise AssertionError(f"{arch}: launches {res['launches']} != "
+                                 f"{expect}")
+        runs[arch] = res
+    return runs
 
 
 def phase_fp32() -> None:
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2,
-                              param_dtype="float32")
-    serve_check(cfg, BATCH, 128, 8, SERVE_REL_TOL_FP32, "fp32 2-layer")
-    # the reduced config: CUDA kernels vs the plain CPU path, same weights
-    small = dataclasses.replace(get_reduced(ARCH), param_dtype="float32")
-    gpu = Transformer(small, "cuda", seed=3)
-    cpu = Transformer(small, "cpu")
-    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
-    toks = torch.randint(0, small.vocab, (2, 37),
-                         generator=torch.Generator().manual_seed(4))
-    err = close(gpu(toks.cuda()).cpu(), cpu(toks), 1e-4)
-    log(f"[serve] reduced {small.name} cuda vs cpu plain path: max abs err "
-        f"{err:.3e} (tol 1e-4 abs + rel: fp32, sums in another order)")
+    for arch, layers in (("chatglm3-6b", 2), ("recurrentgemma-2b", 3),
+                         ("falcon-mamba-7b", 2)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  param_dtype="float32")
+        serve_check(cfg, 8, 128, 8, f"fp32 {layers}-layer {arch}")
+    # each reduced config: CUDA kernels vs the plain CPU path, same weights;
+    # recurrentgemma's prompt of 21 is longer than its 16-slot buffer
+    for arch, _, _, _ in SERVES:
+        small = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+        gpu = Transformer(small, DEV, seed=3)
+        cpu = Transformer(small, "cpu")
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+        toks = torch.randint(0, small.vocab, (2, 37),
+                             generator=torch.Generator().manual_seed(4))
+        err = close(gpu(toks.to(DEV)).cpu(), cpu(toks), 1e-4)
+        gen_gpu = generate(gpu, toks[:, :21].to(DEV), 6)
+        gen_cpu = generate(cpu, toks[:, :21], 6)
+        err_gen = close(gen_gpu.logits.cpu(), gen_cpu.logits, 1e-4)
+        log(f"[serve] reduced {small.name} cuda vs cpu plain path: max abs "
+            f"err forward {err:.3e}, generate {err_gen:.3e} (tol 1e-4 abs + "
+            f"rel: fp32, sums in another order)")
 
 
-def kernel_line(rows: dict, launches: dict) -> dict:
-    """One entry per kernel; the numbers are those of the serve prefill
-    shape in bf16, the other cases are listed under ``cases``."""
+def depth_sweep() -> None:
+    """falcon-mamba-7b's serve check (bf16: decode vs forward and the
+    rounding floor) at 8, 16, 32 and 64 layers, and in fp32 at 64."""
+    arch, batch, prompt, new = SERVES[2]
+    for layers, dt in ((8, "bfloat16"), (16, "bfloat16"), (32, "bfloat16"),
+                       (64, "bfloat16"), (64, "float32")):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  param_dtype=dt)
+        serve_check(cfg, batch, prompt, new, f"sweep {dt} {layers}-layer")
+
+
+def kernel_line(rows: dict, runs: dict) -> dict:
+    """One entry per kernel; its top-level numbers are those of its first
+    timed case (a serve shape in bf16, the scans in fp32 as the models run
+    them), the other cases are listed under ``cases``; ``launches`` is the
+    sum over the serve runs, each run's under ``launches_by_run``."""
     meta = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:34 (rmsnorm_kernel)"),
+        "rmsnorm_residual": (
+            "src/repro_torch/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm/kernel.py:34 (rmsnorm_kernel, "
+            "residual form)"),
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:78 "
             "(flash_attention_kernel)"),
+        "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan/kernel.py:39 "
+                       "(rglru_scan_kernel)"),
+        "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                       "src/repro/kernels/mamba_scan/kernel.py:48 "
+                       "(mamba_scan_kernel)"),
     }
     out = []
-    for name, (source, replaces) in meta.items():
+    for name in KERNELS:
+        source, replaces = meta[name]
         main = next(c for c in rows[name] if "ms" in c)
+        by_run = {arch: r["launches"][name] for arch, r in runs.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": main["max_abs_err"], "max_err": main["max_abs_err"],
-            "ms": main["ms"], "kernel_ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "cases": rows[name]})
+            "replaces": replaces, "launches": sum(by_run.values()),
+            "launches_by_run": by_run,
+            "max_abs_err": max(c["max_abs_err"] for c in rows[name]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "cases": rows[name]})
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--depth-sweep", action="store_true",
+                    help="build, then only the falcon-mamba-7b depth sweep "
+                         "(no contract line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -345,11 +614,16 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
+    if args.depth_sweep:
+        depth_sweep()
+        return 0
     rows = phase_kernels(Timer())
-    res = phase_serve()
+    log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
+    runs = phase_serve()
+    log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     phase_fp32()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernel_line(rows, res["launches"])))
+    print(json.dumps(kernel_line(rows, runs)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,44 @@
 """Reference params -> the port's ``Transformer`` state dict.
 
-The reference keeps a dense decoder's params as a pytree whose layers are
-stacked on a leading axis: ``segments/seg0/pos0/<leaf path>`` has shape
-``(n_layers, ...)`` (``repro/models/transformer.py:init_params``).  The port
-has one module per layer, so each stacked leaf is unstacked into
-``layers.<i>.<leaf path>``.  Leaves arrive as numpy arrays (the tests convert
-the JAX pytree with ``np.asarray``), so this module needs no JAX.
+The reference groups a model's layers into *segments*, maximal runs of a
+repeated pattern of layer kinds (``segments`` below, a copy of
+``repro/models/transformer.py:segments``), and stacks each pattern
+position's params on a leading repeat axis: ``segments/seg{s}/pos{p}/<leaf
+path>`` has shape ``(reps, ...)``.  Repeat r of position p of a segment is
+layer ``offset + r * len(pattern) + p``, where ``offset`` counts the layers
+of the segments before it.  The port has one module per layer, so each
+stacked leaf is unstacked into ``layers.<i>.<leaf path>``.  With tied
+embeddings there is no ``unembed``.  Leaves arrive as numpy arrays (the
+tests convert the JAX pytree with ``np.asarray``), so this module needs no
+JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import check_ported
+
+
+def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """(pattern, reps) of each segment, in layer order.  (The reference's
+    MoE interleave, ``moe_every``, is not ported: MoE configs raise.)"""
+    kinds = list(cfg.layer_kinds())
+    plen = 1
+    if cfg.block_pattern or (cfg.attn_chunk and cfg.global_every):
+        plen = len(cfg.block_pattern) or cfg.global_every
+    if plen > 1:
+        reps = len(kinds) // plen
+        segs = []
+        if reps:
+            segs.append((tuple(kinds[:plen]), reps))
+        if len(kinds) % plen:
+            segs.append((tuple(kinds[reps * plen:]), 1))
+        return segs
+    return [(tuple(kinds[:1]), len(kinds))]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -38,19 +62,31 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
 def params_from_jax(np_params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """State dict for ``Transformer(cfg)`` from the reference's params (a
     nested dict of numpy arrays)."""
+    check_ported(cfg)
     segs = np_params["segments"]
-    if list(segs) != ["seg0"] or list(segs["seg0"]) != ["pos0"]:
-        raise NotImplementedError(
-            "only single-segment dense decoders are ported; got segments "
-            f"{ {s: list(p) for s, p in segs.items()} }")
+    layout = segments(cfg)
+    if sorted(segs) != [f"seg{si}" for si in range(len(layout))]:
+        raise ValueError(f"segments {sorted(segs)} do not match the config's "
+                         f"{len(layout)}")
     state = {"embed": _tensor(np_params["embed"]),
-             "unembed": _tensor(np_params["unembed"]),
              "final_norm.scale": _tensor(np_params["final_norm"]["scale"])}
-    for path, stacked in _flatten(segs["seg0"]["pos0"]).items():
-        stacked = np.asarray(stacked)
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"{path}: {stacked.shape[0]} layers stacked, "
-                             f"config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            state[f"layers.{i}.{path}"] = _tensor(stacked[i])
+    if not cfg.tie_embeddings:
+        state["unembed"] = _tensor(np_params["unembed"])
+    offset = 0
+    for si, (pattern, reps) in enumerate(layout):
+        seg = segs[f"seg{si}"]
+        if sorted(seg) != sorted(f"pos{pi}" for pi in range(len(pattern))):
+            raise ValueError(f"seg{si} holds {sorted(seg)}, the config's "
+                             f"pattern {pattern}")
+        for pi in range(len(pattern)):
+            for path, stacked in _flatten(seg[f"pos{pi}"]).items():
+                stacked = np.asarray(stacked)
+                if stacked.shape[0] != reps:
+                    raise ValueError(
+                        f"seg{si}/pos{pi}/{path}: {stacked.shape[0]} layers "
+                        f"stacked, the config has {reps}")
+                for r in range(reps):
+                    i = offset + r * len(pattern) + pi
+                    state[f"layers.{i}.{path}"] = _tensor(stacked[r])
+        offset += reps * len(pattern)
     return state

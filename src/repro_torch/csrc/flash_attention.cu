@@ -6,25 +6,33 @@
 // h to kv head h / (Hq / Hkv); masks causal, sliding window, chunk-local and
 // kv length, a masked score is -2^30 (not -inf); m, l and acc are fp32; the
 // output is acc / max(l, 1e-30) in the input type; q_offset is the position
-// of the first query (cache-relative decode), a runtime value.
+// of the first query (cache-relative decode), a runtime value.  Key slot j
+// sits at position j, or at kpos[j] when the optional int32 vector kpos
+// (Skv,) is given (a rolling cache buffer); a key at a negative position is
+// masked, as the reference masks unwritten cache slots.
 //
 // Layout: model layout, all contiguous: q, o (B, Sq, Hq, D); k, v
-// (B, Skv, Hkv, D), k and v 16-byte aligned.  Keys at positions >= kv_len
-// are never read.
+// (B, Skv, Hkv, D), k and v 16-byte aligned.  Key slots >= kv_len are never
+// read.
 //
 // Bound: operations at the prefill shape (B=8, S=1024, D=128: ~512 flops per
 // key and query against ~0.5 byte), bytes in decode (one query row against
 // the whole K/V cache).  Design, simple first: one block of 128 threads per
 // (q tile, query head, batch).  The TPU's sequential kv grid axis becomes a
 // loop inside the block over 64-key tiles, read with 16-byte loads and
-// staged through shared memory as fp32; under the causal mask the loop
-// covers only the tiles that hold an unmasked key of the q tile.  Each thread owns a register micro-tile of
-// RPT rows x 4 keys of the score tile and RPT rows x D/16 columns of the
-// output accumulator, so the running max, sum and rescale of a row stay in
-// the registers of the 16 threads that share it (reduced with shuffles).
+// staged through shared memory as fp32 with their positions; under the
+// causal mask, and without kpos, the loop covers only the tiles that hold an
+// unmasked key of the q tile (with kpos it visits every slot below kv_len,
+// since a slot no longer tells its position; kpos is a template switch, so
+// the code without it is the code before key positions existed).  Each thread owns a register
+// micro-tile of RPT rows x 4 keys of the score tile and RPT rows x D/16
+// columns of the output accumulator, so the running max, sum and rescale of
+// a row stay in the registers of the 16 threads that share it (reduced with
+// shuffles).
 // Products run on the fp32 cores (no wgmma/TMA yet), so the kernel sits far
 // from the tensor-core bound; decode tiles hold 8 query rows (RPT = 1) and
-// prefill tiles 64 (RPT = 8).
+// prefill tiles 64 (RPT = 8), or 32 (RPT = 4) at D = 256, where 64 rows
+// would give each thread 128 fp32 accumulators and 209 KB of shared memory.
 #include "common.cuh"
 
 namespace {
@@ -34,6 +42,7 @@ constexpr int kBKV = 64;        // keys per tile: 16 column groups x 4
 constexpr float kNegInf = -1073741824.f;   // -2^30, as the reference
 
 struct Params {
+  const int* kpos;   // (Skv,) key positions, or nullptr: slot j at position j
   int Sq, Skv, Hq, Hkv;
   int causal, window, chunk, q_offset, kv_len;
   float scale;
@@ -45,7 +54,9 @@ constexpr size_t smem_floats() {
          (size_t)kBKV * D + (size_t)(8 * RPT) * (kBKV + 1);
 }
 
-template <typename T, int D, int RPT>
+// kPos: the launch has key positions (p.kpos); without, the mask and the
+// tile range are computed from the slot index alone.
+template <typename T, int D, int RPT, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -60,6 +71,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = Qs + BQ * QS;            // [kBKV][D+1]
   float* Vs = Ks + kBKV * KS;          // [kBKV][D]
   float* Ps = Vs + kBKV * D;           // [BQ][kBKV+1]
+  __shared__ int Kp[kPos ? kBKV : 1];  // the tile's key positions
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
@@ -76,7 +88,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // keys that can be unmasked for some row of this q tile
   const int q_first = p.q_offset + q0, q_last = q_first + nq - 1;
   int kv_lo = 0, kv_hi = p.kv_len;
-  if (p.causal) {
+  if (p.causal && !kPos) {
     kv_hi = min(kv_hi, q_last + 1);
     if (p.window) kv_lo = max(kv_lo, q_first - p.window + 1);
     if (p.chunk) kv_lo = max(kv_lo, q_first / p.chunk * p.chunk);
@@ -93,9 +105,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kv0 = kv_lo / kBKV * kBKV; kv0 < kv_hi; kv0 += kBKV) {
     __syncthreads();   // the previous tile's K, V and P are consumed
-    // 16-byte vector loads, unrolled so that they are all in flight at once
-#pragma unroll
-    for (int it = 0; it < kBKV * D / kVec / kThreads; ++it) {
+    if (kPos && tid < kBKV)
+      Kp[tid] = kv0 + tid < p.kv_len ? p.kpos[kv0 + tid] : -1;
+    // 16-byte vector loads, unrolled so that (up to 16 a thread) they are in
+    // flight at once
+    constexpr int kLoads = kBKV * D / kVec / kThreads;
+#pragma unroll (kLoads < 16 ? kLoads : 16)
+    for (int it = 0; it < kLoads; ++it) {
       const int vi = tid + it * kThreads;
       const int c = vi / (D / kVec), d0 = vi % (D / kVec) * kVec;
       const int kp = kv0 + c;
@@ -139,8 +155,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kp = kv0 + tc + 16 * j;
-        bool ok = kp < p.kv_len;
+        // the key's position and whether it is written (without kpos: the
+        // slot itself, written below kv_len)
+        const int kp = kPos ? Kp[tc + 16 * j] : kv0 + tc + 16 * j;
+        bool ok = kPos ? kp >= 0 : kp < p.kv_len;
         if (p.causal) ok = ok && kp <= qp;
         if (p.window) ok = ok && kp > qp - p.window;
         if (p.chunk) ok = ok && kp / p.chunk == qp / p.chunk;
@@ -197,11 +215,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int RPT>
+template <typename T, int D, int RPT, bool kPos>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D, RPT>() * sizeof(float);
-  auto kern = flash_attention_kernel<T, D, RPT>;
+  auto kern = flash_attention_kernel<T, D, RPT, kPos>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -212,19 +230,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// decode (Sq <= 8) takes 8-row q tiles, prefill RPT * 8 rows
+template <typename T, int D, int RPT>
+cudaError_t dispatch_tile(const void* q, const void* k, const void* v,
+                          void* o, int B, const Params& p, cudaStream_t s) {
+  const bool small = p.Sq <= 8;
+  if (p.kpos)
+    return small ? launch<T, D, 1, true>(q, k, v, o, B, p, s)
+                 : launch<T, D, RPT, true>(q, k, v, o, B, p, s);
+  return small ? launch<T, D, 1, false>(q, k, v, o, B, p, s)
+               : launch<T, D, RPT, false>(q, k, v, o, B, p, s);
+}
+
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int B, int D, const Params& p, cudaStream_t s) {
-  const bool small = p.Sq <= 8;   // decode: 8-row q tiles
-#define REPRO_CASE(DD)                                                   \
-  case DD:                                                               \
-    return small ? launch<T, DD, 1>(q, k, v, o, B, p, s)                 \
-                 : launch<T, DD, 8>(q, k, v, o, B, p, s);
+#define REPRO_CASE(DD, RPT) \
+  case DD:                  \
+    return dispatch_tile<T, DD, RPT>(q, k, v, o, B, p, s);
   switch (D) {
-    REPRO_CASE(16)
-    REPRO_CASE(32)
-    REPRO_CASE(64)
-    REPRO_CASE(128)
+    REPRO_CASE(16, 8)
+    REPRO_CASE(32, 8)
+    REPRO_CASE(64, 8)
+    REPRO_CASE(128, 8)
+    REPRO_CASE(256, 4)
     default:
       return cudaErrorInvalidValue;
   }
@@ -233,16 +262,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// kpos: (Skv,) int32 key positions, or nullptr.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
-                                   int Sq, int Skv, int Hq, int Hkv, int D,
-                                   int causal, int window, int chunk,
-                                   int q_offset, int kv_len, float scale,
-                                   void* stream) {
+                                   const void* v, void* o, const void* kpos,
+                                   int dtype, int B, int Sq, int Skv, int Hq,
+                                   int Hkv, int D, int causal, int window,
+                                   int chunk, int q_offset, int kv_len,
+                                   float scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  const Params p{Sq, Skv, Hq, Hkv, causal, window, chunk, q_offset, kv_len,
-                 scale};
+  const Params p{static_cast<const int*>(kpos), Sq, Skv, Hq, Hkv, causal,
+                 window, chunk, q_offset, kv_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return dispatch_d<float>(q, k, v, o, B, D, p, s);
   if (dtype == kBFloat16)

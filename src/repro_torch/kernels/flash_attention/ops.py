@@ -19,7 +19,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _i = ctypes.c_int
 
 
@@ -28,7 +28,7 @@ def _fn():
     """The C entry point, its library built and loaded at first use."""
     lib = _build.library("flash_attention")
     f = lib.flash_attention_fwd
-    f.argtypes = [ctypes.c_void_p] * 4 + [_i] * 12 + [ctypes.c_float,
+    f.argtypes = [ctypes.c_void_p] * 5 + [_i] * 12 + [ctypes.c_float,
                                                        ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
@@ -36,17 +36,21 @@ def _fn():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
-                    q_offset: int = 0, kv_len: Optional[int] = None):
+                    q_offset: int = 0, kv_len: Optional[int] = None,
+                    k_pos: Optional[torch.Tensor] = None):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     Query i sits at position ``q_offset + i`` (an int read at run time, not
-    compiled in), key j at position j.  Only the first ``kv_len`` keys
-    (default: all) are read; the rest are masked, as the reference masks
-    unwritten cache slots.
+    compiled in), key slot j at position j, or at ``k_pos[j]`` when the
+    int32 vector ``k_pos`` (Skv,) is given (a rolling cache buffer; a
+    negative position is masked).  Only the first ``kv_len`` slots (default:
+    all) are read; the rest are masked, as the reference masks unwritten
+    cache slots.
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             chunk=chunk, q_offset=q_offset, kv_len=kv_len)
+                             chunk=chunk, q_offset=q_offset, kv_len=kv_len,
+                             k_pos=k_pos)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
@@ -68,8 +72,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "one device")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: k and v must be 16-byte aligned")
+    if k_pos is not None and (
+            k_pos.shape != (Skv,) or k_pos.dtype != torch.int32
+            or k_pos.device != q.device or not k_pos.is_contiguous()):
+        raise ValueError(f"flash_attention: k_pos must be a contiguous int32 "
+                         f"({Skv},) tensor on {q.device}")
     o = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if k_pos is None else k_pos.data_ptr(),
                 code(q, "flash_attention q"), B, Sq, Skv, Hq, Hkv, D,
                 int(causal), window, chunk, int(q_offset), kv_len,
                 1.0 / math.sqrt(D),

@@ -13,12 +13,14 @@ NEG_INF = -2.0 ** 30
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   chunk: int = 0, q_offset: int = 0,
-                  kv_len: Optional[int] = None):
+                  kv_len: Optional[int] = None,
+                  k_pos: Optional[torch.Tensor] = None):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
-    Query i sits at position ``q_offset + i``, key j at position j; keys at
-    ``j >= kv_len`` are masked.  Scores, softmax and the product with V are
-    fp32; the result is cast to q's dtype.
+    Query i sits at position ``q_offset + i``, key slot j at position j or
+    ``k_pos[j]``; slots ``j >= kv_len`` and keys at negative positions are
+    masked.  Scores, softmax and the product with V are fp32; the result is
+    cast to q's dtype.
     """
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -29,8 +31,9 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(D)
     q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = k_pos < kv_len
+    slot = torch.arange(Skv, device=q.device)
+    k_pos = (slot if k_pos is None else k_pos.long())[None, :]
+    mask = (slot[None, :] < kv_len) & (k_pos >= 0)
     if causal:
         mask = mask & (k_pos <= q_pos)
     if window:

@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/rmsnorm/ops.py:fused_rmsnorm`` and its Pallas
 kernel ``rmsnorm_kernel``.  The leading dims are flattened into rows.  A CPU
 tensor takes the plain version (``ref.py``); a CUDA tensor launches the
-kernel, and every launch adds one to ``fused_rmsnorm.launches``.
+kernel, and every launch adds one to ``fused_rmsnorm.launches`` (and a
+launch of the residual form also to ``fused_rmsnorm.residual_launches``).
 """
 from __future__ import annotations
 
@@ -61,7 +62,11 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rmsnorm_fwd")
     fused_rmsnorm.launches += 1
-    return y if res is None else (y, res)
+    if res is None:
+        return y
+    fused_rmsnorm.residual_launches += 1
+    return y, res
 
 
-fused_rmsnorm.launches = 0
+fused_rmsnorm.launches = 0            # every launch
+fused_rmsnorm.residual_launches = 0   # the launches of the residual form

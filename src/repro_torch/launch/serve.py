@@ -1,9 +1,10 @@
 """Batched greedy serving: prefill a batch of prompts, then decode through
-the KV cache (counterpart: ``examples/serve_decode.py``).
+the caches (counterpart: ``examples/serve_decode.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \
         [--layers N] [--batch 8] [--prompt-len 1024] [--tokens 32]
 
+with ARCH one of chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b; it
 runs the configuration at its published widths with random weights from
 ``--seed`` on the CUDA card and prints one JSON line of timings, taken after
 a short untimed warm-up (which also builds the kernels).

@@ -1,4 +1,5 @@
-"""Shared model building blocks: dtypes, RMSNorm, RoPE, init, activations.
+"""Shared model building blocks: dtypes, params, RMSNorm, RoPE, init,
+activations.
 
 Counterpart: ``repro/models/common.py``.  Mesh and sharding helpers are not
 ported (one card).  ``rmsnorm`` goes through the fused kernel's wrapper, so a
@@ -19,6 +20,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def param(t: torch.Tensor) -> torch.nn.Parameter:
+    """A frozen parameter (the port serves only)."""
+    return torch.nn.Parameter(t, requires_grad=False)
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):

@@ -1,0 +1,85 @@
+"""RG-LRU recurrent block (recurrentgemma-2b / Griffin [arXiv:2402.19427]).
+
+Counterpart: ``repro/models/rglru.py`` (``rglru_init``, ``rglru_mix``):
+
+    r_t = sigmoid(W_a x_t + b_a),  i_t = sigmoid(W_x x_t + b_x)
+    a_t = exp(c * r_t * log(a_hat)),  log(a_hat) = -softplus(Lambda), c = 8
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+inside the Griffin recurrent block: two linear branches (D -> W), a causal
+conv (width 4) on the recurrent one, the RG-LRU, and a GELU-gated output
+projection (W -> D).  A multi-token call (prefill) runs the recurrence
+through the scan kernel (``kernels/rglru_scan``); a one-token call (decode)
+is the reference's elementwise step on the cached state, in plain torch ops.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.models.common import act_fn, dense_init, param
+from repro_torch.models.mamba import causal_conv, conv_history
+
+C = 8.0
+
+
+class RGLRU(nn.Module):
+    """Params and init as the reference's ``rglru_init``: ``lambda`` such
+    that a^c is uniform in [0.9, 0.999]; ``b_a``, ``b_i`` and ``lambda`` stay
+    fp32."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        d, w, k = cfg.d_model, cfg.rnn_width, cfg.ssm_conv
+        self.cfg = cfg
+        self.in_x = param(dense_init(d, w, dtype, device, generator))
+        self.in_gate = param(dense_init(d, w, dtype, device, generator))
+        conv = torch.randn(k, w, device=device, generator=generator)
+        self.conv_w = param((conv / math.sqrt(k)).to(dtype))
+        self.conv_b = param(torch.zeros(w, dtype=dtype, device=device))
+        self.w_a = param(dense_init(w, w, dtype, device, generator))
+        self.b_a = param(torch.zeros(w, device=device))
+        self.w_i = param(dense_init(w, w, dtype, device, generator))
+        self.b_i = param(torch.zeros(w, device=device))
+        u = torch.rand(w, device=device, generator=generator) * 0.099 + 0.9
+        # the reference's leaf name, a Python keyword: no attribute syntax
+        self.register_parameter(
+            "lambda", param(torch.log(torch.expm1(-torch.log(u) / C))))
+        self.out_proj = param(dense_init(w, d, dtype, device, generator))
+
+    def forward(self, x: torch.Tensor, pos: int = 0,
+                cache: Optional[Dict[str, torch.Tensor]] = None):
+        """x (B, S, d) -> (B, S, d).  A multi-token call starts at position
+        0 from a zero state; a one-token call continues from ``cache`` (this
+        layer's ``h``/``conv``).  Writes the new state into ``cache``."""
+        S = x.shape[1]
+        if S > 1 and pos:
+            raise ValueError("a multi-token call starts at position 0")
+        state = hist = None
+        if cache is not None and S == 1:
+            state, hist = cache["h"], cache["conv"]
+        xb = x @ self.in_x
+        gate = act_fn("gelu")(x @ self.in_gate)
+        xc = causal_conv(xb, self.conv_w, self.conv_b, hist)
+        r = torch.sigmoid((xc @ self.w_a).float() + self.b_a)
+        i = torch.sigmoid((xc @ self.w_i).float() + self.b_i)
+        log_a_hat = -F.softplus(self.get_parameter("lambda"))
+        a = torch.exp(C * r * log_a_hat)                        # B,S,W fp32
+        b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * xc.float()
+        if S == 1:
+            h0 = torch.zeros_like(a[:, 0]) if state is None else state
+            h_last = a[:, 0] * h0 + b[:, 0]
+            hs = h_last[:, None]
+        else:
+            hs = rglru_scan(a, b)
+            h_last = hs[:, -1].clone()
+        if cache is not None:
+            cache["h"] = h_last
+            cache["conv"] = conv_history(xb, hist, self.cfg.ssm_conv).to(
+                cache["conv"].dtype)
+        return (hs.to(x.dtype) * gate) @ self.out_proj

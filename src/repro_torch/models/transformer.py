@@ -1,27 +1,30 @@
-"""Dense decoder LM: forward, KV cache, prefill and greedy-decode steps.
+"""Decoder LM: forward, decode caches, prefill and greedy-decode steps.
 
 Counterpart: ``repro/models/transformer.py`` (``_attn_apply``,
 ``_mlp_apply``, ``_layer_apply``, ``_unembed``, ``forward``, ``init_cache``,
-``prefill``, ``decode_step``).  The reference stacks each segment's layers
-on a leading axis and scans them; here every layer is its own module and a
-Python loop runs them (``repro_torch.convert`` unstacks reference params).
+``prefill``, ``decode_step``).  The reference stacks the layers of each
+segment on a leading axis and scans them; here every layer is its own module
+and a Python loop runs them (``repro_torch.convert`` unstacks reference
+params).  Layer kinds: full causal attention (``attn``), sliding-window
+attention with a rolling cache (``attn_local``), the RG-LRU block
+(``rglru``) and the Mamba-1 block (``mamba``); an ``ssm``-family layer has
+no MLP.
 
 Numerics follow the reference: the residual stream, projections and MLP run
 in the param dtype; RMSNorm is fp32 inside and rounds to the dtype (through
 the fused kernel, plain form: ``x + mix`` is rounded before it is
-normalised, as the reference does); RoPE angles are fp32; the logits are
-``x @ unembed`` in the dtype, then cast to fp32.  Attention keeps its
-probabilities in fp32 (the flash kernel's numerics), where the reference's
-dense path rounds them to the dtype before P.V; the two agree tightly in
-fp32 only.
+normalised, as the reference does); RoPE angles are fp32; recurrent states
+are fp32; the logits are ``x @ unembed`` (or ``x @ embed.T`` when tied) in
+the dtype, then cast to fp32.  Attention keeps its probabilities in fp32
+(the flash kernel's numerics), where the reference's dense path rounds them
+to the dtype before P.V; the two agree tightly in fp32 only.
 
-Only dense full-causal attention layers with a SwiGLU MLP and RMSNorm are
-ported; other kinds raise ``NotImplementedError`` naming their slice.
+Other model features raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,28 +34,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.common import (act_fn, apply_rope, dense_init,
-                                       dtype_of, embed_init, rmsnorm)
+                                       dtype_of, embed_init, param, rmsnorm)
+from repro_torch.models.mamba import Mamba
+from repro_torch.models.rglru import RGLRU
 
 _LATER = "a later slice of the port (ROADMAP.md, queue A)"
-_RG = "the recurrentgemma-2b slice"
-_SLICE_OF_KIND = {
-    "rglru": f"{_RG} (rglru_scan)",
-    "attn_local": f"{_RG} (rolling window cache)",
-    "mamba": "the falcon-mamba-7b slice (mamba_scan)",
-}
+PORTED_KINDS = ("attn", "attn_local", "rglru", "mamba")
+PORTED_MLPS = ("swiglu", "geglu")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for anything this slice does not run."""
-    for kind in sorted(set(cfg.layer_kinds()) - {"attn"}):
+    """Raise ``NotImplementedError`` for anything the port does not run."""
+    for kind in sorted(set(cfg.layer_kinds()) - set(PORTED_KINDS)):
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind!r} is not ported yet; it comes "
-            f"with {_SLICE_OF_KIND.get(kind, _LATER)}")
+            f"with {_LATER}")
     unported = (
         ("n_experts (MoE)", cfg.n_experts, "the MoE slice"),
-        ("tie_embeddings", cfg.tie_embeddings, _RG),
-        (f"mlp={cfg.mlp!r}", cfg.mlp != "swiglu",
-         _RG if cfg.mlp == "geglu" else _LATER),
+        (f"mlp={cfg.mlp!r}", cfg.mlp not in PORTED_MLPS, _LATER),
         (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm", _LATER),
         ("is_encdec", cfg.is_encdec, _LATER),
         ("img_tokens", cfg.img_tokens, _LATER),
@@ -64,111 +63,149 @@ def check_ported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {what} is not ported yet; it comes with {where}")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)   # serving only
+LayerCache = Dict[str, torch.Tensor]
 
 
 @dataclass
-class KVCache:
-    """Per-layer K/V buffers (n_layers, B, max_len, Hkv, D) in the model's
-    dtype.  Slot i holds position i; ``length`` slots are written."""
-    k: torch.Tensor
-    v: torch.Tensor
+class Cache:
+    """Decode caches, one dict per layer (the reference's ``init_cache``,
+    unstacked), updated in place; ``length`` positions are written.
+
+    - attention: ``k``, ``v`` (B, L, Hkv, D) in the model's dtype.  A full
+      causal layer has L = max_len and slot i holds position i.  A
+      sliding-window layer has a rolling buffer of L = min(2 * window,
+      max_len) slots, position p in slot p % L, and ``kpos`` (L,) int32, the
+      position in each slot (-1: unwritten).
+    - RG-LRU: ``h`` (B, W) fp32 and ``conv`` (B, K-1, W).
+    - Mamba: ``ssm`` (B, Di, N) fp32 and ``conv`` (B, K-1, Di).
+    """
+    layers: List[LayerCache]
     length: int = 0
 
 
 class RMSNorm(nn.Module):
     def __init__(self, d: int, dtype, device):
         super().__init__()
-        self.scale = _param(torch.ones(d, dtype=dtype, device=device))
+        self.scale = param(torch.ones(d, dtype=dtype, device=device))
 
     def forward(self, x):
         return rmsnorm(self.scale, x)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
+                 generator):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         self.cfg = cfg
-        self.wq = _param(dense_init(d, cfg.n_heads * hd, dtype, device, generator))
-        self.wk = _param(dense_init(d, cfg.n_kv_heads * hd, dtype, device, generator))
-        self.wv = _param(dense_init(d, cfg.n_kv_heads * hd, dtype, device, generator))
-        self.wo = _param(dense_init(cfg.n_heads * hd, d, dtype, device, generator))
+        self.window = cfg.attn_window if kind == "attn_local" else 0
+        self.wq = param(dense_init(d, cfg.n_heads * hd, dtype, device, generator))
+        self.wk = param(dense_init(d, cfg.n_kv_heads * hd, dtype, device, generator))
+        self.wv = param(dense_init(d, cfg.n_kv_heads * hd, dtype, device, generator))
+        self.wo = param(dense_init(cfg.n_heads * hd, d, dtype, device, generator))
         if cfg.qkv_bias:
             for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                                 ("bv", cfg.n_kv_heads)):
-                setattr(self, name, _param(torch.zeros(
+                setattr(self, name, param(torch.zeros(
                     width * hd, dtype=dtype, device=device)))
 
     def _proj(self, x, w, bias_name):
         y = x @ w
         return y + getattr(self, bias_name) if self.cfg.qkv_bias else y
 
-    def forward(self, x, q_offset: int = 0,
-                cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-        """x: (B, S, d).  With ``cache_kv`` (this layer's K/V buffers) the new
-        K/V are written to slots ``q_offset .. q_offset+S-1`` in place.  A
+    def forward(self, x, pos: int = 0, cache: Optional[LayerCache] = None):
+        """x: (B, S, d), the tokens at positions ``pos .. pos+S-1``.  A
         prompt (S > 1, from position 0) attends over its own K/V; a decode
-        step (S == 1) over the first ``q_offset + 1`` cache slots."""
+        step (S == 1) over the cache.  With ``cache`` (this layer's) the new
+        K/V are written into it, a prompt longer than a rolling buffer
+        leaving its last L tokens."""
         cfg = self.cfg
         B, S, _ = x.shape
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         q = self._proj(x, self.wq, "bq").view(B, S, hq, hd)
         k = self._proj(x, self.wk, "bk").view(B, S, hkv, hd)
         v = self._proj(x, self.wv, "bv").view(B, S, hkv, hd)
-        pos = torch.arange(q_offset, q_offset + S, device=x.device)
-        q = apply_rope(q, pos, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-        k = apply_rope(k, pos, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-        if cache_kv is None or S > 1:
-            if q_offset:
+        positions = torch.arange(pos, pos + S, device=x.device)
+        q = apply_rope(q, positions, fraction=cfg.rope_fraction,
+                       theta=cfg.rope_theta)
+        k = apply_rope(k, positions, fraction=cfg.rope_fraction,
+                       theta=cfg.rope_theta)
+        if cache is None or S > 1:
+            if pos:
                 raise ValueError("a multi-token call starts at position 0")
-            out = attention(q, k, v, q_offset=0)
-        if cache_kv is not None:
-            ck, cv = cache_kv
-            if q_offset + S > ck.shape[1]:
-                raise ValueError(f"cache of {ck.shape[1]} slots is full at "
-                                 f"position {q_offset + S - 1}")
-            ck[:, q_offset:q_offset + S] = k
-            cv[:, q_offset:q_offset + S] = v
+            out = attention(q, k, v, window=self.window)
+        if cache is not None:
+            ck, cv, kpos = cache["k"], cache["v"], cache.get("kpos")
+            L = ck.shape[1]
+            if kpos is None and pos + S > L:
+                raise ValueError(f"cache of {L} slots is full at position "
+                                 f"{pos + S - 1}")
+            if S <= L:            # no wrap within the call
+                slot = pos % L
+                ck[:, slot:slot + S] = k
+                cv[:, slot:slot + S] = v
+                if kpos is not None:
+                    kpos[slot:slot + S] = positions
+            else:                 # a prompt longer than the rolling buffer
+                slots = positions[-L:] % L
+                ck[:, slots] = k[:, -L:]
+                cv[:, slots] = v[:, -L:]
+                kpos[slots] = positions[-L:].to(kpos.dtype)
             if S == 1:
-                out = attention(q, ck, cv, q_offset=q_offset,
-                                kv_len=q_offset + 1)
+                out = attention(q, ck, cv, q_offset=pos,
+                                kv_len=min(pos + 1, L), k_pos=kpos,
+                                window=self.window)
         return out.reshape(B, S, hq * hd) @ self.wo
 
 
 class MLP(nn.Module):
+    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU (``jax.nn.gelu``)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device, generator):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.w_gate = _param(dense_init(d, f, dtype, device, generator))
-        self.w_up = _param(dense_init(d, f, dtype, device, generator))
-        self.w_down = _param(dense_init(f, d, dtype, device, generator))
+        self.act = act_fn("silu" if cfg.mlp == "swiglu" else "gelu")
+        self.w_gate = param(dense_init(d, f, dtype, device, generator))
+        self.w_up = param(dense_init(d, f, dtype, device, generator))
+        self.w_down = param(dense_init(f, d, dtype, device, generator))
 
     def forward(self, x):
-        return (act_fn("silu")(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+        return (self.act(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
 
 
 class Layer(nn.Module):
-    """Pre-norm residual layer: attention, then SwiGLU MLP."""
+    """Pre-norm residual layer: a token mixer of its kind, then (outside the
+    ``ssm`` family) a gated MLP."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
+                 generator):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
-        self.attn = Attention(cfg, dtype, device, generator)
-        self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-        self.mlp = MLP(cfg, dtype, device, generator)
+        # the mixer under the reference's name of its params
+        self.mixer = "attn" if kind.startswith("attn") else kind
+        if self.mixer == "attn":
+            self.attn = Attention(cfg, kind, dtype, device, generator)
+        elif kind == "rglru":
+            self.rglru = RGLRU(cfg, dtype, device, generator)
+        else:
+            self.mamba = Mamba(cfg, dtype, device, generator)
+        if cfg.family != "ssm":
+            self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+            self.mlp = MLP(cfg, dtype, device, generator)
 
-    def forward(self, x, q_offset: int = 0, cache_kv=None):
-        x = x + self.attn(self.norm1(x), q_offset, cache_kv)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, pos: int = 0, cache: Optional[LayerCache] = None):
+        x = x + getattr(self, self.mixer)(self.norm1(x), pos, cache)
+        if hasattr(self, "mlp"):
+            x = x + self.mlp(self.norm2(x))
+        return x
 
 
 class Transformer(nn.Module):
-    """Dense decoder LM with random weights drawn in the reference's scheme
+    """Decoder LM with random weights drawn in the reference's scheme
     (normal/sqrt(d_in) projections, 0.02 embeddings, zero biases, unit norm
-    scales) from ``generator``, or from a generator seeded with ``seed``.
-    Load reference weights with ``load_state_dict(params_from_jax(...))``."""
+    scales, the recurrent blocks' own) from ``generator``, or from a
+    generator seeded with ``seed``.  Load reference weights with
+    ``load_state_dict(params_from_jax(...))``."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
                  seed: int = 0, generator: Optional[torch.Generator] = None):
@@ -179,13 +216,14 @@ class Transformer(nn.Module):
             generator = torch.Generator(device=device).manual_seed(seed)
         dtype = dtype_of(cfg.param_dtype)
         self.cfg, self.dtype = cfg, dtype
-        self.embed = _param(embed_init(cfg.vocab, cfg.d_model, dtype, device,
-                                       generator))
+        self.embed = param(embed_init(cfg.vocab, cfg.d_model, dtype, device,
+                                      generator))
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
-        self.unembed = _param(dense_init(cfg.d_model, cfg.vocab, dtype, device,
-                                         generator))
-        self.layers = nn.ModuleList(Layer(cfg, dtype, device, generator)
-                                    for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.unembed = param(dense_init(cfg.d_model, cfg.vocab, dtype,
+                                            device, generator))
+        self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device, generator)
+                                    for kind in cfg.layer_kinds())
 
     @property
     def device(self) -> torch.device:
@@ -193,36 +231,59 @@ class Transformer(nn.Module):
 
     def _unembed(self, x):
         x = self.final_norm(x)
-        return (x @ self.unembed.to(x.dtype)).float()
+        w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
+        return (x @ w).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, vocab) fp32, no cache."""
+    def forward(self, tokens: torch.Tensor,
+                last: Optional[int] = None) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, vocab) fp32, no cache; with
+        ``last``, the logits of the last ``last`` positions only."""
         x = F.embedding(tokens, self.embed)
         for layer in self.layers:
             x = layer(x)
+        if last is not None:
+            x = x[:, -last:].contiguous()
         return self._unembed(x)
 
-    def init_cache(self, batch: int, max_len: int) -> KVCache:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        return KVCache(torch.zeros(shape, dtype=self.dtype, device=self.device),
-                       torch.zeros(shape, dtype=self.dtype, device=self.device))
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        layers: List[LayerCache] = []
+        for kind in cfg.layer_kinds():
+            if kind.startswith("attn"):
+                L = (min(2 * cfg.attn_window, max_len) if kind == "attn_local"
+                     else max_len)
+                shape = (batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
+                c = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+                if kind == "attn_local":
+                    c["kpos"] = torch.full((L,), -1, dtype=torch.int32,
+                                           device=dev)
+            else:
+                width, state = ((cfg.rnn_width, "h") if kind == "rglru"
+                                else (cfg.d_inner, "ssm"))
+                shape = (batch, width) + ((cfg.ssm_state,) if kind == "mamba"
+                                          else ())
+                c = {state: torch.zeros(shape, device=dev),
+                     "conv": torch.zeros(batch, cfg.ssm_conv - 1, width,
+                                         dtype=dt, device=dev)}
+            layers.append(c)
+        return Cache(layers)
 
     def prefill(self, tokens: torch.Tensor,
-                max_len: int) -> Tuple[torch.Tensor, KVCache]:
-        """Run the prompt (B, S) from position 0, filling a fresh cache of
-        ``max_len`` slots.  Returns (last-position logits (B, 1, V), cache)."""
+                max_len: int) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt (B, S) from position 0, filling a fresh cache for
+        ``max_len`` positions.  Returns (last-position logits (B, 1, V),
+        cache)."""
         B, S = tokens.shape
         cache = self.init_cache(B, max_len)
         x = F.embedding(tokens, self.embed)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, 0, (cache.k[i], cache.v[i]))
+        for layer, c in zip(self.layers, cache.layers):
+            x = layer(x, 0, c)
         cache.length = S
         return self._unembed(x[:, -1:].contiguous()), cache
 
     def decode_step(self, token: torch.Tensor, pos: int,
-                    cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                    cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """One token (B, 1) at position ``pos`` for the whole batch.  Updates
         ``cache`` in place (the reference returns a new one) and returns
         (logits (B, 1, V), cache)."""
@@ -231,7 +292,7 @@ class Transformer(nn.Module):
             raise ValueError(f"decode at position {pos} but the cache holds "
                              f"{cache.length} positions")
         x = F.embedding(token, self.embed)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, pos, (cache.k[i], cache.v[i]))
+        for layer, c in zip(self.layers, cache.layers):
+            x = layer(x, pos, c)
         cache.length = pos + 1
         return self._unembed(x), cache

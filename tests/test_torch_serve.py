@@ -20,19 +20,22 @@ from repro_torch.models.transformer import Transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "chatglm3-6b"
+ARCHS = ["chatglm3-6b", "recurrentgemma-2b", "falcon-mamba-7b"]
 
 
-def _model(dtype="float32", seed=0):
-    cfg = dataclasses.replace(get_reduced(ARCH), param_dtype=dtype)
+def _model(dtype="float32", seed=0, arch=ARCH):
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype=dtype)
     return Transformer(cfg, device="cpu", seed=seed)
 
 
-def test_generate_matches_forward():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_forward(arch):
     """Each decode step's logits equal the full forward's at that position
     (fp32; 1e-5: the same arithmetic over a cache instead of a prompt), and
-    each token is the argmax of its logits."""
-    model = _model()
-    B, S, G = 3, 10, 6
+    each token is the argmax of its logits.  recurrentgemma's prompt of 20
+    is longer than its rolling buffer of 16 slots."""
+    model = _model(arch=arch)
+    B, S, G = 3, 20, 6
     prompts = torch.randint(0, model.cfg.vocab, (B, S),
                             generator=torch.Generator().manual_seed(1))
     out = generate(model, prompts, G)
@@ -55,8 +58,9 @@ def test_steps_match_model_methods():
     assert lg3.shape == (2, 1, model.cfg.vocab) and cache.length == 6
 
 
-def test_generate_bfloat16_is_finite():
-    model = _model("bfloat16")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_bfloat16_is_finite(arch):
+    model = _model("bfloat16", arch=arch)
     prompts = torch.randint(0, model.cfg.vocab, (2, 7),
                             generator=torch.Generator().manual_seed(4))
     out = generate(model, prompts, 4)
@@ -75,11 +79,13 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_serve_cli_on_cpu(capsys):
-    summary = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
-                          "--prompt-len", "8", "--tokens", "3", "--layers", "1"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_on_cpu(capsys, arch):
+    summary = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "8", "--tokens",
+                          "3", "--layers", "1"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert printed["arch"] == ARCH and printed["layers"] == 1
+    assert printed["arch"] == arch and printed["layers"] == 1
     assert summary["device"] == "cpu" and summary["peak_mem_gb"] is None
 
 
@@ -107,4 +113,6 @@ def test_port_imports_neither_jax_nor_reference():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "repro_torch.models.transformer" in out["modules"]
     assert "repro_torch.launch.serve" in out["modules"]
+    assert "repro_torch.models.mamba" in out["modules"]
+    assert "repro_torch.kernels.rglru_scan.ops" in out["modules"]
     assert out["bad"] == []
