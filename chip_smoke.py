@@ -8,7 +8,8 @@ non-zero (no phase's failure is caught):
 
 1. device: the card's name and power limit;
 2. build: every ``src/repro_torch/csrc/*.cu`` compiled with nvcc for sm_90a,
-   all at once;
+   all at once; the tensor-core flash prefill's SASS must show both
+   products as wgmma (HGMMA) and its loads as TMA;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serve paths' shapes and at small ragged/masked ones, in fp32 and
    bf16, and timed beside its bound and one library call where one exists
@@ -56,6 +57,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import plan as flash_plan  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
@@ -230,6 +232,27 @@ def phase_build() -> None:
     log(f"[build] {', '.join(_build.sources())} built in {secs:.1f} s")
 
 
+def phase_sass() -> None:
+    """The tensor-core prefill's two products are wgmma in the built code
+    (``cuobjdump -sass``): Q.K^T as HGMMA 64x64x16 from shared memory, P.V
+    as HGMMA 64xDx16 with P in registers and V transposed (``tnspB``) at
+    each head_dim, fed by TMA loads (UTMALDG)."""
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._lib_path("flash_prefill_tc"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma = [line for line in sass.splitlines() if "HGMMA." in line]
+    qk = sum("HGMMA.64x64x16" in x and "tnspB" not in x for x in hgmma)
+    pv = {d: sum(f"HGMMA.64x{d}x16" in x and "tnspB" in x for x in hgmma)
+          for d in (64, 128, 256)}
+    tma = sass.count("UTMALDG")
+    log(f"[sass] flash_prefill_tc: Q.K^T {qk} HGMMA 64x64x16; P.V by "
+        f"head_dim {pv} HGMMA 64xDx16 (tnspB); {tma} UTMALDG")
+    if not qk or not all(pv.values()) or not tma:
+        raise AssertionError("flash_prefill_tc: a product is not wgmma or "
+                             "the loads are not TMA")
+
+
 def kernels_rmsnorm(timer: Timer, rn) -> dict:
     """Both forms, both dtypes; serve shapes (prefill and decode rows of
     chatglm3-6b and falcon-mamba-7b at d 4096, recurrentgemma-2b's prefill
@@ -269,11 +292,18 @@ def kernels_rmsnorm(timer: Timer, rn) -> dict:
     return {"rmsnorm": plain, "rmsnorm_residual": resid}
 
 
-def kernels_flash(timer: Timer, rn) -> list:
-    """Serve prefill/decode of chatglm3-6b (D 128, causal, GQA 16:1) and of
-    recurrentgemma-2b (D 256, window 2048, MQA 10:1; decode over the
-    4096-slot rolling buffer, wrapped, with key positions) + small
-    ragged/masked ones.  Timed in bf16 at the serve shapes."""
+def flash_cases() -> list:
+    """Phase 3's flash-attention cases: (name, (B, Sq, Skv, Hq, Hkv, D),
+    keyword arguments), key positions as CPU tensors.  Serve prefill/decode
+    of chatglm3-6b (D 128, causal, GQA 16:1) and of recurrentgemma-2b (D
+    256, window 2048, MQA 10:1; decode over the 4096-slot rolling buffer,
+    wrapped, with key positions), then small ragged/masked ones that reach
+    each kernel of the plan (``ops.plan``): the tensor-core prefill at D 64,
+    128 and 256 with ragged S, window, chunk, bidirectional and G 1, 10 and
+    16; the split decode with splits of several tiles and kv_len not a
+    multiple of them, several queries, two row groups, a partly written
+    rolling buffer; the SIMT kernel (fp32, D 16/32, key positions in
+    prefill)."""
     cfg = get_config("chatglm3-6b")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     _, B, P, N = SERVES[0]
@@ -283,7 +313,7 @@ def kernels_flash(timer: Timer, rn) -> list:
     W = rg.attn_window
     L = min(2 * W, P_rg + N_rg)               # the rolling buffer: 4096 slots
     pos_rg = P_rg + 16                        # mid-decode: the buffer wrapped
-    shapes = [
+    return [
         ("prefill", (B, P, P, hq, hkv, hd), {}),
         ("decode", (B, 1, P + N, hq, hkv, hd),
          dict(q_offset=pos, kv_len=pos + 1)),
@@ -309,23 +339,76 @@ def kernels_flash(timer: Timer, rn) -> list:
          dict(q_offset=21, window=8, k_pos=rolling_kpos(21, 16))),
         ("kpos_partial_d256", (2, 1, 16, 4, 1, 256),
          dict(q_offset=5, window=8, k_pos=rolling_kpos(5, 16))),
+        ("tc_d64_g1_ragged", (1, 200, 200, 2, 2, 64), {}),
+        ("tc_d64_bidir", (2, 1000, 1000, 4, 2, 64), dict(causal=False)),
+        ("tc_d128_g16_ragged", (2, 1000, 1000, 16, 1, 128), {}),
+        ("tc_d128_chunk", (2, 200, 200, 4, 2, 128), dict(chunk=64)),
+        ("tc_d128_offset", (1, 100, 300, 4, 2, 128),
+         dict(q_offset=200, kv_len=300)),
+        # window across both warpgroups; 130 rows: the last block's second
+        # warpgroup has none (its Q box wholly out of bounds)
+        ("tc_d128_window_130", (1, 130, 130, 4, 2, 128), dict(window=50)),
+        ("tc_d256_g10_window", (1, 200, 200, 10, 1, 256), dict(window=64)),
+        ("tc_d256_g10_ragged", (1, 1000, 1000, 10, 1, 256),
+         dict(window=300)),
+        ("tc_d256_bidir", (1, 200, 200, 10, 1, 256), dict(causal=False)),
+        # 3-tile splits over 997 of 1000 slots; 4 and 8 queries (two row
+        # groups of 16); chunks; a rolling buffer written up to 1000
+        ("decode_ragged_splits", (8, 1, 1000, 64, 8, 128),
+         dict(q_offset=996, kv_len=997)),
+        ("decode_sq4", (2, 4, 300, 8, 2, 64), dict(q_offset=296, kv_len=300)),
+        ("decode_sq8_row_groups", (1, 8, 256, 8, 2, 32), dict(q_offset=248)),
+        ("decode_chunk_d16", (2, 3, 200, 4, 1, 16),
+         dict(q_offset=150, kv_len=153, chunk=64)),
+        ("decode_bidir", (2, 1, 130, 4, 2, 64), dict(causal=False)),
+        ("decode_rolling_partial", (2, 1, L, rg.n_heads, rg.n_kv_heads,
+                                    rg.head_dim),
+         dict(q_offset=1000, kv_len=L, window=W,
+              k_pos=rolling_kpos(1000, L))),
+        ("kpos_prefill", (1, 24, 24, 4, 2, 64),
+         dict(window=8, k_pos=torch.arange(24, dtype=torch.int32))),
     ]
-    timed = ("prefill", "decode", "prefill_d256_window", "decode_d256_rolling")
+
+
+# the bf16 serve shapes, each with the kernel it must run
+FLASH_TIMED = {"prefill": "tc_prefill", "decode": "split_decode",
+               "prefill_d256_window": "tc_prefill",
+               "decode_d256_rolling": "split_decode"}
+
+
+def kernels_flash(timer: Timer, rn) -> list:
+    """Each case of ``flash_cases`` in fp32 and bf16 against the plain
+    version, with the kernel it ran (``impl``: the plan's, and at the serve
+    shapes the one named in FLASH_TIMED); timed in bf16 at the serve
+    shapes."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
-        for name, (Bq, Sq, Skv, Hq, Hkv, D), kw in shapes:
+        for name, (Bq, Sq, Skv, Hq, Hkv, D), kw in flash_cases():
             kw = dict(kw)
             if "k_pos" in kw:
                 kw["k_pos"] = kw["k_pos"].to(DEV)
             q, k, v = rn(Bq, Sq, Hq, D, dt=dt), rn(Bq, Skv, Hkv, D, dt=dt), \
                 rn(Bq, Skv, Hkv, D, dt=dt)
-            err = close(flash_attention(q, k, v, **kw),
-                        attention_ref(q, k, v, **kw), TOL[dt])
+            before = dict(flash_attention.impl_launches)
+            out = flash_attention(q, k, v, **kw)
+            impl = next(i for i, n in flash_attention.impl_launches.items()
+                        if n > before[i])
+            how = flash_plan(Bq, Sq, Hq, Hkv, D, dt, kw.get("kv_len", Skv),
+                             "k_pos" in kw)
+            serve = dt == torch.bfloat16 and name in FLASH_TIMED
+            if impl != how.impl or (serve and impl != FLASH_TIMED[name]):
+                raise AssertionError(f"flash {name}: ran {impl}, planned "
+                                     f"{how.impl}")
+            err = close(out, attention_ref(q, k, v, **kw), TOL[dt])
             case = {"case": name, "shape": [Bq, Sq, Skv, Hq, Hkv, D],
                     **{a: b for a, b in kw.items() if a != "k_pos"},
                     "k_pos": "k_pos" in kw, "dtype": str(dt)[6:],
-                    "tol": TOL[dt], "max_abs_err": err}
-            if dt == torch.bfloat16 and name in timed:
+                    "impl": impl, "tol": TOL[dt], "max_abs_err": err}
+            if how.impl == "split_decode":
+                case.update(splits=how.splits,
+                            tiles_per_split=how.tiles_per_split,
+                            blocks=how.blocks)
+            if serve:
                 lib = sdpa_call(q, k, v, True, kw.get("window", 0),
                                 kw.get("q_offset", 0), kw.get("kv_len"),
                                 kw.get("k_pos"))
@@ -337,7 +420,7 @@ def kernels_flash(timer: Timer, rn) -> list:
                     **flash_work(Bq, Sq, Skv, Hq, Hkv, D, dt, **kw))
             log(f"[kernels] flash_attention {case}")
             cases.append(case)
-            del q, k, v
+            del q, k, v, out
     return cases
 
 
@@ -434,6 +517,8 @@ def reset_counts() -> None:
     for f in COUNTERS.values():
         f.launches = 0
     fused_rmsnorm.residual_launches = 0
+    flash_attention.impl_launches = dict.fromkeys(
+        flash_attention.impl_launches, 0)
 
 
 def read_counts() -> dict:
@@ -457,6 +542,13 @@ def expected_launches(cfg, new: int) -> dict:
             "mamba_scan": kinds.count("mamba")}
 
 
+def expected_flash_impls(cfg, new: int) -> dict:
+    """Which flash kernel a bf16 ``generate`` runs: every attention layer's
+    prefill on the tensor cores, its new - 1 decode steps split."""
+    attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    return {"split_decode": attn * (new - 1), "tc_prefill": attn, "simt": 0}
+
+
 def serve_check(cfg, batch, prompt, new, label, warm=False):
     """generate() then one forward over prompt + generated tokens; the
     decode logits must match the forward's at the same positions (only
@@ -473,6 +565,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
     reset_counts()
     out = generate(model, prompts, new)
     launches = read_counts()
+    flash_impls = dict(flash_attention.impl_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if out.tokens.shape != (batch, new) or out.logits.shape != (
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
@@ -497,6 +590,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
            "decode_ms_per_step": out.decode_s * 1e3 / max(new - 1, 1),
            "decode_tok_per_s": batch * (new - 1) / out.decode_s,
            "peak_mem_gb": peak_gb, "launches": launches,
+           "flash_impls": flash_impls,
            "logits_rel_rms_vs_forward": err,
            "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
            "argmax_agreement": agree, **check}
@@ -512,7 +606,8 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
 
 def phase_serve() -> dict:
     """Each model in turn (the previous one freed), counts set to 0 just
-    before its run and read just after; they must be exactly as expected."""
+    before its run and read just after; they must be exactly as expected,
+    and so must the flash kernel each attention call went to."""
     runs = {}
     for arch, batch, prompt, new in SERVES:
         cfg = get_config(arch)
@@ -522,6 +617,10 @@ def phase_serve() -> dict:
         if res["launches"] != expect:
             raise AssertionError(f"{arch}: launches {res['launches']} != "
                                  f"{expect}")
+        impls = expected_flash_impls(cfg, new)
+        if res["flash_impls"] != impls:
+            raise AssertionError(f"{arch}: flash kernels "
+                                 f"{res['flash_impls']} != {impls}")
         runs[arch] = res
     return runs
 
@@ -614,6 +713,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
+    phase_sass()
     if args.depth_sweep:
         depth_sweep()
         return 0

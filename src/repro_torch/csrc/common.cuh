@@ -21,3 +21,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);   // round to nearest even, as XLA/PyTorch do
 }
+
+// Lets kernel ``Kern`` take ``bytes`` of dynamic shared memory, set once per
+// device (the attribute outlives the launch).
+template <auto Kern>
+inline cudaError_t allow_smem(size_t bytes) {
+  static unsigned ready = 0;   // bit d: set on device d
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (ready >> dev & 1u)) return e;
+  e = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) ready |= 1u << dev;
+  return e;
+}

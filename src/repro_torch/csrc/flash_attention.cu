@@ -1,8 +1,13 @@
-// Forward flash attention (online softmax) for Hopper (sm_90a).
+// Forward flash attention (online softmax) for Hopper (sm_90a), SIMT: the
+// prefill path for fp32, for bf16 at head_dim 16 and 32, and for calls with
+// key positions and more than 8 query rows.  The wrapper's plan
+// (repro_torch/kernels/flash_attention/ops.py:plan) sends bf16 prefill at
+// head_dim 64-256 to csrc/flash_prefill_tc.cu and every call of at most 8
+// query rows to csrc/flash_decode.cu.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention/kernel.py: flash_attention_kernel
-// (body _attn_kernel).  Same function: scale 1/sqrt(D); GQA maps query head
+// src/repro/kernels/flash_attention/kernel.py:78 (flash_attention_kernel,
+// body _attn_kernel).  Same function: scale 1/sqrt(D); GQA maps query head
 // h to kv head h / (Hq / Hkv); masks causal, sliding window, chunk-local and
 // kv length, a masked score is -2^30 (not -inf); m, l and acc are fp32; the
 // output is acc / max(l, 1e-30) in the input type; q_offset is the position
@@ -15,24 +20,22 @@
 // (B, Skv, Hkv, D), k and v 16-byte aligned.  Key slots >= kv_len are never
 // read.
 //
-// Bound: operations at the prefill shape (B=8, S=1024, D=128: ~512 flops per
-// key and query against ~0.5 byte), bytes in decode (one query row against
-// the whole K/V cache).  Design, simple first: one block of 128 threads per
-// (q tile, query head, batch).  The TPU's sequential kv grid axis becomes a
+// Bound: operations at prefill shapes (~512 flops per key and query at D
+// 128 against ~0.5 byte).  It is the fp32 parity path: products on the fp32
+// cores, where fp32 inputs have to run anyway (TF32 would not hold the
+// reference's 2e-5), so it stays simple.  One block of 128 threads per (q
+// tile, query head, batch).  The TPU's sequential kv grid axis becomes a
 // loop inside the block over 64-key tiles, read with 16-byte loads and
-// staged through shared memory as fp32 with their positions; under the
-// causal mask, and without kpos, the loop covers only the tiles that hold an
-// unmasked key of the q tile (with kpos it visits every slot below kv_len,
-// since a slot no longer tells its position; kpos is a template switch, so
-// the code without it is the code before key positions existed).  Each thread owns a register
-// micro-tile of RPT rows x 4 keys of the score tile and RPT rows x D/16
-// columns of the output accumulator, so the running max, sum and rescale of
-// a row stay in the registers of the 16 threads that share it (reduced with
-// shuffles).
-// Products run on the fp32 cores (no wgmma/TMA yet), so the kernel sits far
-// from the tensor-core bound; decode tiles hold 8 query rows (RPT = 1) and
-// prefill tiles 64 (RPT = 8), or 32 (RPT = 4) at D = 256, where 64 rows
-// would give each thread 128 fp32 accumulators and 209 KB of shared memory.
+// staged through shared memory as fp32 with their positions; without kpos
+// the loop covers only the tiles that hold an unmasked key of the q tile
+// (with kpos it visits every slot below kv_len, since a slot no longer
+// tells its position; kpos is a template switch).  Each thread owns a
+// register micro-tile of RPT rows x 4 keys of the score tile and RPT rows x
+// D/16 columns of the output accumulator, so the running max, sum and
+// rescale of a row stay in the registers of the 16 threads that share it
+// (reduced with shuffles).  Tiles hold 64 query rows (RPT = 8), or 32 (RPT
+// = 4) at D = 256, where 64 rows would give each thread 128 fp32
+// accumulators and 209 KB of shared memory.
 #include "common.cuh"
 
 namespace {
@@ -219,27 +222,21 @@ template <typename T, int D, int RPT, bool kPos>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D, RPT>() * sizeof(float);
-  auto kern = flash_attention_kernel<T, D, RPT, kPos>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e =
+      allow_smem<flash_attention_kernel<T, D, RPT, kPos>>(smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + 8 * RPT - 1) / (8 * RPT), p.Hq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, D, RPT, kPos><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), p);
   return cudaGetLastError();
 }
 
-// decode (Sq <= 8) takes 8-row q tiles, prefill RPT * 8 rows
 template <typename T, int D, int RPT>
 cudaError_t dispatch_tile(const void* q, const void* k, const void* v,
                           void* o, int B, const Params& p, cudaStream_t s) {
-  const bool small = p.Sq <= 8;
-  if (p.kpos)
-    return small ? launch<T, D, 1, true>(q, k, v, o, B, p, s)
-                 : launch<T, D, RPT, true>(q, k, v, o, B, p, s);
-  return small ? launch<T, D, 1, false>(q, k, v, o, B, p, s)
-               : launch<T, D, RPT, false>(q, k, v, o, B, p, s);
+  return p.kpos ? launch<T, D, RPT, true>(q, k, v, o, B, p, s)
+                : launch<T, D, RPT, false>(q, k, v, o, B, p, s);
 }
 
 template <typename T>

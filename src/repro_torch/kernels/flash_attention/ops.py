@@ -1,14 +1,24 @@
-"""Flash attention, forward: wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention, forward: wrapper of the three CUDA kernels.
 
 Replaces ``repro/kernels/flash_attention/ops.py:flash_attention`` and its
 Pallas kernel ``flash_attention_kernel``.  Model layout (B, S, H, D), no
 transposes.  A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
-launches the kernel, and every launch adds one to
-``flash_attention.launches``.
+launches the kernel that :func:`plan` names, and every call adds one to
+``flash_attention.launches`` and to its kernel's entry of
+``flash_attention.impl_launches``:
+
+- ``split_decode`` (``csrc/flash_decode.cu``): at most 8 query rows, every
+  dtype and head_dim; the keys are split over blocks and the splits merged
+  by a second small kernel;
+- ``tc_prefill`` (``csrc/flash_prefill_tc.cu``): bf16 at head_dim 64, 128
+  or 256 without key positions, on the tensor cores (wgmma, TMA);
+- ``simt`` (``csrc/flash_attention.cu``): the rest of prefill (fp32, bf16 at
+  head_dim 16 or 32, key positions), on the fp32 cores.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -20,18 +30,77 @@ from repro_torch.kernels._dtypes import code
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)
+KV_TILE = 64            # keys of a tile in every kernel
+DECODE_MAX_SQ = 8       # query rows the split decode kernel takes
+DECODE_BLOCK_ROWS = 16  # rows (query heads of a kv head x queries) a block
+MIN_BLOCKS = 2 * 132    # split decode: two blocks per SM of an H100
+IMPLS = ("split_decode", "tc_prefill", "simt")
 _i = ctypes.c_int
 
 
-@functools.cache
-def _fn():
-    """The C entry point, its library built and loaded at first use."""
-    lib = _build.library("flash_attention")
-    f = lib.flash_attention_fwd
-    f.argtypes = [ctypes.c_void_p] * 5 + [_i] * 12 + [ctypes.c_float,
-                                                       ctypes.c_void_p]
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Which kernel runs a call, and how split decode cuts the keys: split
+    s covers the 64-key tiles [s * tiles_per_split, (s + 1) *
+    tiles_per_split) below ``kv_len``; ``blocks`` is the split kernel's
+    grid (0 for the other kernels)."""
+    impl: str
+    splits: int = 0
+    tiles_per_split: int = 0
+    blocks: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
+         kv_len: int, k_pos: bool = False) -> Plan:
+    """The kernel for a call of these shapes (pure Python, no device).
+
+    Decode (``Sq <= 8``) aims at MIN_BLOCKS blocks of the split kernel with
+    splits of whole 64-key tiles: B * Hkv * ceil(G * Sq / 16) blocks per
+    split, and as many splits as that needs, one tile each unless the cache
+    is long enough for more."""
+    if Sq <= DECODE_MAX_SQ:
+        base = B * Hkv * _cdiv(Hq // Hkv * Sq, DECODE_BLOCK_ROWS)
+        tiles = _cdiv(kv_len, KV_TILE)
+        per = max(1, tiles // _cdiv(MIN_BLOCKS, base))
+        splits = max(1, _cdiv(tiles, per))
+        return Plan("split_decode", splits, per, base * splits)
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS and not k_pos:
+        return Plan("tc_prefill")
+    return Plan("simt")
+
+
+def _load(lib: str, name: str, argtypes):
+    f = getattr(_build.library(lib), name)
+    f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f
+
+
+@functools.cache
+def _simt_fn():
+    """The C entry points, their libraries built and loaded at first use."""
+    return _load("flash_attention", "flash_attention_fwd",
+                 [ctypes.c_void_p] * 5 + [_i] * 12
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.cache
+def _decode_fn():
+    return _load("flash_decode", "flash_decode_fwd",
+                 [ctypes.c_void_p] * 7 + [_i] * 14
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.cache
+def _tc_fn():
+    return _load("flash_prefill_tc", "flash_prefill_tc_fwd",
+                 [ctypes.c_void_p] * 4 + [_i] * 11
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -70,23 +139,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.device != q.device or not t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous and on "
                          "one device")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: k and v must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
     if k_pos is not None and (
             k_pos.shape != (Skv,) or k_pos.dtype != torch.int32
             or k_pos.device != q.device or not k_pos.is_contiguous()):
         raise ValueError(f"flash_attention: k_pos must be a contiguous int32 "
                          f"({Skv},) tensor on {q.device}")
+    dtype = code(q, "flash_attention q")
+    how = plan(B, Sq, Hq, Hkv, D, q.dtype, kv_len, k_pos is not None)
     o = torch.empty_like(q)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                None if k_pos is None else k_pos.data_ptr(),
-                code(q, "flash_attention q"), B, Sq, Skv, Hq, Hkv, D,
-                int(causal), window, chunk, int(q_offset), kv_len,
-                1.0 / math.sqrt(D),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_fwd")
+    kpos = None if k_pos is None else k_pos.data_ptr()
+    masks = (int(causal), window, chunk, int(q_offset), kv_len)
+    scale = 1.0 / math.sqrt(D)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if how.impl == "split_decode":
+        rows = B * Hq * Sq * how.splits
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+        part_acc = torch.empty(rows * D, dtype=torch.float32, device=q.device)
+        err = _decode_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kpos,
+            part_ml.data_ptr(), part_acc.data_ptr(), dtype, B, Sq, Skv, Hq,
+            Hkv, D, *masks, how.splits, how.tiles_per_split, scale, stream)
+        _build.check(err, "flash_decode_fwd")
+    elif how.impl == "tc_prefill":
+        err = _tc_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       B, Sq, Skv, Hq, Hkv, D, *masks, scale, stream)
+        _build.check(err, "flash_prefill_tc_fwd")
+    else:
+        err = _simt_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), kpos, dtype, B, Sq, Skv, Hq, Hkv, D,
+                         *masks, scale, stream)
+        _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
+    flash_attention.impl_launches[how.impl] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.impl_launches = dict.fromkeys(IMPLS, 0)

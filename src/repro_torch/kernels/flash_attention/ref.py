@@ -1,14 +1,32 @@
-"""Plain PyTorch attention: the CPU path and the oracle of the CUDA kernel
+"""Plain PyTorch attention: the CPU path and the oracle of the CUDA kernels
 (counterpart: ``repro/kernels/flash_attention/ref.py``, in model layout and
-with the kernel's ``kv_len``)."""
+with the kernels' ``kv_len``); and, for the tests only, the split decode
+kernel's tile skipping and split-then-merge in plain PyTorch."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 NEG_INF = -2.0 ** 30
+KV_TILE = 64
+
+
+def _mask(Sq, Skv, device, *, causal, window, chunk, q_offset, kv_len,
+          k_pos):
+    """(Sq, Skv) bool: which key slots each query may see."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    slot = torch.arange(Skv, device=device)
+    k_pos = (slot if k_pos is None else k_pos.long())[None, :]
+    mask = (slot[None, :] < kv_len) & (k_pos >= 0)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    if chunk:
+        mask = mask & (k_pos // chunk == q_pos // chunk)
+    return mask
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -30,16 +48,94 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)    # B,Hq,Skv,D
     vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(D)
-    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
-    slot = torch.arange(Skv, device=q.device)
-    k_pos = (slot if k_pos is None else k_pos.long())[None, :]
-    mask = (slot[None, :] < kv_len) & (k_pos >= 0)
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window:
-        mask = mask & (k_pos > q_pos - window)
-    if chunk:
-        mask = mask & (k_pos // chunk == q_pos // chunk)
+    mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
+                 chunk=chunk, q_offset=q_offset, kv_len=kv_len, k_pos=k_pos)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     out = torch.matmul(torch.softmax(s, dim=-1), vf)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_tiles(t0: int, t1: int, *, Sq: int, q_offset: int, kv_len: int,
+                 causal: bool = True, window: int = 0, chunk: int = 0,
+                 k_pos: Optional[torch.Tensor] = None) -> List[int]:
+    """The 64-key tiles of [t0, t1) (below kv_len) whose K/V the split
+    decode kernel reads: the rule of ``visible`` in csrc/flash_decode.cu.
+    Without ``k_pos`` a tile is read if it meets the slots the causal,
+    window and chunk bounds of the queries allow; with ``k_pos`` if one of
+    its positions is >= 0 and within those bounds."""
+    q_first, q_last = q_offset, q_offset + Sq - 1
+    t1 = min(t1, -(-kv_len // KV_TILE))
+    out = []
+    for t in range(t0, t1):
+        s0 = t * KV_TILE
+        if k_pos is None:
+            lo, hi = 0, kv_len
+            if causal:
+                hi = min(hi, q_last + 1)
+            if window:
+                lo = max(lo, q_first - window + 1)
+            if chunk:
+                lo = max(lo, q_first // chunk * chunk)
+                hi = min(hi, (q_last // chunk + 1) * chunk)
+            seen = s0 < hi and s0 + KV_TILE > lo
+        else:
+            kp = k_pos[s0:min(s0 + KV_TILE, kv_len)].long()
+            ok = kp >= 0
+            if causal:
+                ok &= kp <= q_last
+            if window:
+                ok &= kp > q_first - window
+            if chunk:
+                ok &= (kp // chunk >= q_first // chunk) & (
+                    kp // chunk <= q_last // chunk)
+            seen = bool(ok.any())
+        if seen:
+            out.append(t)
+    return out
+
+
+def split_decode_ref(q, k, v, *, splits: int, tiles_per_split: int,
+                     causal: bool = True, window: int = 0, chunk: int = 0,
+                     q_offset: int = 0, kv_len: Optional[int] = None,
+                     k_pos: Optional[torch.Tensor] = None):
+    """What the split decode kernel computes, in plain fp32 PyTorch: each
+    split's partial (m, l, acc) over the tiles it reads (``decode_tiles``),
+    with the reference's -2^30 masking, then the merge in split order with
+    the log-sum-exp rule: acc_s, l_s weighted by exp(m_s - max m), output
+    sum acc / max(sum l, 1e-30) in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    kv_len = Skv if kv_len is None else kv_len
+    G = Hq // Hkv
+    qf = q.float().transpose(1, 2)                                # B,Hq,Sq,D
+    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)    # B,Hq,Skv,D
+    vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
+                 chunk=chunk, q_offset=q_offset, kv_len=kv_len, k_pos=k_pos)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        tiles = decode_tiles(s * tiles_per_split, (s + 1) * tiles_per_split,
+                             Sq=Sq, q_offset=q_offset, kv_len=kv_len,
+                             causal=causal, window=window, chunk=chunk,
+                             k_pos=k_pos)
+        if not tiles:                       # a split that read nothing
+            ms.append(torch.full((B, Hq, Sq), NEG_INF, device=q.device))
+            ls.append(torch.zeros(B, Hq, Sq, device=q.device))
+            accs.append(torch.zeros(B, Hq, Sq, D, device=q.device))
+            continue
+        slots = torch.cat([torch.arange(t * KV_TILE,
+                                        min((t + 1) * KV_TILE, kv_len))
+                           for t in tiles])
+        sc = torch.matmul(qf, kf[:, :, slots].transpose(-1, -2)) / math.sqrt(D)
+        sc = torch.where(mask[:, slots], sc, torch.full_like(sc, NEG_INF))
+        m = sc.max(-1).values
+        p = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.matmul(p, vf[:, :, slots]))
+    m = torch.stack(ms)                                  # splits,B,Hq,Sq
+    w = torch.exp(m - m.max(0).values)
+    l_sum = (torch.stack(ls) * w).sum(0)
+    acc = (torch.stack(accs) * w[..., None]).sum(0)
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
