@@ -7,16 +7,21 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero (no phase's failure is caught):
 
 1. device: the card's name and power limit;
-2. build: every ``src/repro_torch/csrc/*.cu`` compiled with nvcc for sm_90a,
-   all at once; the tensor-core flash prefill's SASS must show both
-   products as wgmma (HGMMA) and its loads as TMA;
+2. build: every ``src/repro_torch/csrc/*.cu`` (seven sources) compiled with
+   nvcc for sm_90a, all at once; the tensor-core flash prefill's SASS must
+   show both products as wgmma (HGMMA) and its loads as TMA;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serve paths' shapes and at small ragged/masked ones, in fp32 and
    bf16, and timed beside its bound and one library call where one exists
    (a yardstick the port never calls): RMSNorm (both forms), flash attention
    (head_dim 128 and 256, windowed prefill, decode over a wrapped rolling
-   buffer with key positions), the RG-LRU scan and the Mamba scan (with its
-   final state);
+   buffer with key positions; the SIMT kernel timed in fp32 at phase 5's
+   prefill shapes), the RG-LRU scan and the Mamba scan (with its final
+   state), the GA's group-label kernel (bit-equal to its plain version on
+   mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
+   random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
+   all-one row, and on a graph too long for shared memory, which runs the
+   global-memory variant, at 4096);
 4. serve: chatglm3-6b, recurrentgemma-2b and falcon-mamba-7b, each at its
    published widths and full depth in bf16, random weights from a seeded
    CUDA generator, 8 prompts and 32 greedy tokens through
@@ -27,7 +32,14 @@ non-zero (no phase's failure is caught):
    held against one full forward;
 5. the same check in fp32 at full width with 2 or 3 layers, and each
    reduced config's CUDA logits (forward and generate) against its plain
-   CPU path (which the CPU tests hold against the JAX reference).
+   CPU path (which the CPU tests hold against the JAX reference);
+6. search: the paper's GA (mobilenet_v3 on simba, preset ``paper``, seed 0)
+   and the random backend (resnet50 on eyeriss, 100000 evaluations) through
+   ``repro_torch.search.SearchSession`` on the card; each must give the
+   reference's genome, fitness and evaluation count exactly (GA_RUNS, held
+   equal to the JAX package's by ``tests/test_torch_ga_search.py``), and
+   every engine batch must have launched the label kernel once.  One line
+   per run in ``BENCH_ga.json``'s record schema.
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
@@ -51,6 +63,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -59,6 +72,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import plan as flash_plan  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ga_labels.ops import ga_labels  # noqa: E402
+from repro_torch.kernels.ga_labels.ops import max_shared_words  # noqa: E402
+from repro_torch.kernels.ga_labels.ops import row_words  # noqa: E402
+from repro_torch.kernels.ga_labels.ref import ga_labels_ref  # noqa: E402
+from repro_torch.kernels.ga_labels.ref import label_tables  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
@@ -67,6 +85,8 @@ from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.search import SearchSession, SearchSpec  # noqa: E402
+from repro_torch.search import build_workload  # noqa: E402
 
 DEV = "cuda"
 # tests/test_kernels.py:15 of the reference; its RG-LRU test takes 5x
@@ -99,9 +119,30 @@ FLOOR_MULT = 1.1
 SERVE_REL_TOL_FP32 = 1e-4
 # the kernels' launch counters; the residual RMSNorm form is counted apart
 COUNTERS = {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
-            "rglru_scan": rglru_scan, "mamba_scan": mamba_scan}
+            "rglru_scan": rglru_scan, "mamba_scan": mamba_scan,
+            "ga_labels": ga_labels}
 KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rglru_scan",
-           "mamba_scan")
+           "mamba_scan", "ga_labels")
+# phase 6: the search runs and the reference's results for them (the JAX
+# package's ``repro.search.search`` with the same arguments; pinned equal
+# to it by tests/test_torch_ga_search.py)
+GA_RUNS = {
+    "paper_ga": dict(
+        spec=dict(workload="mobilenet_v3", accelerator="simba", backend="ga",
+                  backend_config={"preset": "paper"}, seed=0),
+        golden=dict(genome_mask=0x15a4a934ac4f175acdd2749a5cdf,
+                    best_fitness=1.5828072147849952, evaluations=59705)),
+    "random": dict(
+        spec=dict(workload="resnet50", accelerator="eyeriss",
+                  backend="random", backend_config={"evaluations": 100000},
+                  seed=0),
+        golden=dict(genome_mask=0x21000000010051082,
+                    best_fitness=1.0263130846327753, evaluations=99998)),
+}
+# phase 3's label-kernel check: genomes per graph and fused-bit densities
+GA_ROWS = 65536
+GA_LONG_ROWS = 4096        # the graph too long for shared memory
+GA_DENSITIES = (0.5, 0.1)
 
 
 def log(*a) -> None:
@@ -367,22 +408,32 @@ def flash_cases() -> list:
               k_pos=rolling_kpos(1000, L))),
         ("kpos_prefill", (1, 24, 24, 4, 2, 64),
          dict(window=8, k_pos=torch.arange(24, dtype=torch.int32))),
+        # phase 5's fp32 prefill shapes (8 x 128 prompts), where the SIMT
+        # kernel runs on a model path
+        ("prefill_s128", (8, 128, 128, hq, hkv, hd), {}),
+        ("prefill_d256_s128_window", (8, 128, 128, rg.n_heads,
+                                      rg.n_kv_heads, rg.head_dim),
+         dict(window=W)),
     ]
 
 
-# the bf16 serve shapes, each with the kernel it must run
-FLASH_TIMED = {"prefill": "tc_prefill", "decode": "split_decode",
-               "prefill_d256_window": "tc_prefill",
-               "decode_d256_rolling": "split_decode"}
+# the timed cases, each with the kernel it must run: the bf16 serve shapes
+# and, in fp32, phase 5's prefills on the SIMT kernel
+FLASH_TIMED = {torch.bfloat16: {"prefill": "tc_prefill",
+                                "decode": "split_decode",
+                                "prefill_d256_window": "tc_prefill",
+                                "decode_d256_rolling": "split_decode"},
+               torch.float32: {"prefill_s128": "simt",
+                               "prefill_d256_s128_window": "simt"}}
 
 
 def kernels_flash(timer: Timer, rn) -> list:
-    """Each case of ``flash_cases`` in fp32 and bf16 against the plain
-    version, with the kernel it ran (``impl``: the plan's, and at the serve
-    shapes the one named in FLASH_TIMED); timed in bf16 at the serve
-    shapes."""
+    """Each case of ``flash_cases`` in bf16 and fp32 against the plain
+    version, with the kernel it ran (``impl``: the plan's, and at the timed
+    shapes the one named in FLASH_TIMED); timed at the FLASH_TIMED shapes
+    (bf16 first: its prefill is the kernel line's headline)."""
     cases = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.bfloat16, torch.float32):
         for name, (Bq, Sq, Skv, Hq, Hkv, D), kw in flash_cases():
             kw = dict(kw)
             if "k_pos" in kw:
@@ -395,8 +446,8 @@ def kernels_flash(timer: Timer, rn) -> list:
                         if n > before[i])
             how = flash_plan(Bq, Sq, Hq, Hkv, D, dt, kw.get("kv_len", Skv),
                              "k_pos" in kw)
-            serve = dt == torch.bfloat16 and name in FLASH_TIMED
-            if impl != how.impl or (serve and impl != FLASH_TIMED[name]):
+            serve = name in FLASH_TIMED[dt]
+            if impl != how.impl or (serve and impl != FLASH_TIMED[dt][name]):
                 raise AssertionError(f"flash {name}: ran {impl}, planned "
                                      f"{how.impl}")
             err = close(out, attention_ref(q, k, v, **kw), TOL[dt])
@@ -494,6 +545,76 @@ def kernels_mamba(timer: Timer, g) -> list:
     return cases
 
 
+def chain_with_skips(n: int, seed: int) -> tuple:
+    """(eu, ev) of an n-node chain with a skip edge (u -> u + 2..8) from
+    about every third node, in producer order as a CompiledGraph orders
+    them."""
+    rng = np.random.default_rng(seed)
+    edges = {(u, u + 1) for u in range(n - 1)}
+    for u in range(0, n - 2, 3):
+        edges.add((u, min(n - 1, u + int(rng.integers(2, 9)))))
+    eu, ev = zip(*sorted(edges))
+    return eu, ev
+
+
+def ga_graphs() -> list:
+    """The label-kernel cases: (name, eu, ev, n, rows); the last one's rows
+    do not fit shared memory (2 n words already too many), so it runs the
+    global-memory variant."""
+    out = []
+    for wl in ("mobilenet_v3", "resnet50"):
+        cg = build_workload(wl).compiled()
+        out.append((wl, cg.eu, cg.ev, cg.n, GA_ROWS))
+    eu, ev = chain_with_skips(1040, seed=5)
+    out.append(("chain1040_skips", eu, ev, 1040, GA_ROWS))
+    n_long = max_shared_words() // 2 + 1000
+    eu, ev = chain_with_skips(n_long, seed=6)
+    out.append((f"chain{n_long}_skips", eu, ev, n_long, GA_LONG_ROWS))
+    return out
+
+
+def kernels_ga(timer: Timer, g) -> list:
+    """The group-label kernel against its plain version on the card, bit for
+    bit, at each graph of ``ga_graphs`` and density of GA_DENSITIES (rows 0
+    and 1 all-zero and all-one); the variant each ran is checked, and each
+    case is timed beside its bytes bound (bits in, int32 labels out, the
+    tables)."""
+    cases = []
+    for name, eu, ev, n, rows in ga_graphs():
+        tb = label_tables(eu, ev, n, DEV)
+        m = len(eu)
+        want = "shared" if row_words(tb) <= max_shared_words() else "global"
+        for density in GA_DENSITIES:
+            bits = (torch.rand(rows, m, generator=g, device=DEV)
+                    < density).to(torch.uint8)
+            bits[0] = 0
+            bits[1] = 1
+            before = dict(ga_labels.variant_launches)
+            out = ga_labels(bits, tb)
+            ran = next(v for v, c in ga_labels.variant_launches.items()
+                       if c > before[v])
+            ref = ga_labels_ref(bits, tb)
+            err = (out.long() - ref).abs().max().item()
+            if ran != want or not torch.equal(out.long(), ref):
+                raise AssertionError(f"ga_labels {name} density {density}: "
+                                     f"ran {ran} (want {want}), max abs "
+                                     f"error {err}")
+            nbytes = bits.numel() + out.numel() * 4 + 4 * sum(
+                x.numel() for x in tb[2:])
+            case = {"case": name, "nodes": n, "edges": m,
+                    "extra_edges": tb.xu.numel(), "rows": rows,
+                    "density": density, "variant": ran, "max_abs_err": err,
+                    "ms": timer.ms(lambda: ga_labels(bits, tb)),
+                    "plain_ms": timer.ms(lambda: ga_labels_ref(bits, tb),
+                                         reps=3),
+                    "library_ms": None,     # no one call labels components
+                    **bound(nbytes, 0, torch.float32)}
+            log(f"[kernels] ga_labels {case}")
+            cases.append(case)
+            del bits, out, ref
+    return cases
+
+
 def phase_kernels(timer: Timer) -> dict:
     g = torch.Generator(device=DEV).manual_seed(1234)
 
@@ -504,6 +625,7 @@ def phase_kernels(timer: Timer) -> dict:
     rows["flash_attention"] = kernels_flash(timer, rn)
     rows["rglru_scan"] = kernels_rglru(timer, g)
     rows["mamba_scan"] = kernels_mamba(timer, g)
+    rows["ga_labels"] = kernels_ga(timer, g)
     torch.cuda.empty_cache()
     return rows
 
@@ -519,6 +641,7 @@ def reset_counts() -> None:
     fused_rmsnorm.residual_launches = 0
     flash_attention.impl_launches = dict.fromkeys(
         flash_attention.impl_launches, 0)
+    ga_labels.variant_launches = dict.fromkeys(ga_labels.variant_launches, 0)
 
 
 def read_counts() -> dict:
@@ -539,7 +662,7 @@ def expected_launches(cfg, new: int) -> dict:
     return {"rmsnorm": norms * new, "rmsnorm_residual": 0,
             "flash_attention": sum(k.startswith("attn") for k in kinds) * new,
             "rglru_scan": kinds.count("rglru"),
-            "mamba_scan": kinds.count("mamba")}
+            "mamba_scan": kinds.count("mamba"), "ga_labels": 0}
 
 
 def expected_flash_impls(cfg, new: int) -> dict:
@@ -649,6 +772,57 @@ def phase_fp32() -> None:
             f"rel: fp32, sums in another order)")
 
 
+def phase_search() -> dict:
+    """Each GA_RUNS search through a ``SearchSession`` on the card, counts
+    set to 0 just before it and read just after: the reference's genome,
+    fitness and evaluations exactly; one label-kernel launch per engine
+    batch, in shared memory, and no other kernel."""
+    runs = {}
+    for label, run in GA_RUNS.items():
+        session = SearchSession(SearchSpec(**run["spec"]), device=DEV)
+        reset_counts()
+        art = session.run()
+        launches = read_counts()
+        variants = dict(ga_labels.variant_launches)
+        eng = session.evaluator.population().stats()
+        got = dict(genome_mask=art.genome_mask, best_fitness=art.best_fitness,
+                   evaluations=art.evaluations)
+        st = art.backend_stats
+        res = {"name": label, **run["spec"],
+               "offspring_evaluated": art.offspring_evaluated,
+               "unique_states": art.evaluations,
+               "best_fitness": art.best_fitness,
+               "genome_mask": hex(art.genome_mask),
+               "evals_per_sec": art.offspring_evaluated / art.wall_s,
+               "batch_evals_per_sec": st["batch_evals_per_sec"],
+               "pop_backend": st["pop_backend"], "wall_s": art.wall_s,
+               "group_cache_entries": st["unique_groups"],
+               "group_hit_rate": st["group_hit_rate"],
+               "pop_batches": st["pop_batches"],
+               "batch_time_s": st["batch_time_s"],
+               "label_launches": eng["label_launches"],
+               "label_time_s": eng["label_time_s"],
+               "label_kernel_s": eng["label_kernel_s"],
+               "label_share_of_batch_time":
+                   eng["label_time_s"] / st["batch_time_s"],
+               "kernel_share_of_batch_time":
+                   eng["label_kernel_s"] / st["batch_time_s"],
+               "launches": launches}
+        log(f"[search] {json.dumps(res)}")
+        if got != run["golden"]:
+            raise AssertionError(f"{label}: {got} != reference "
+                                 f"{run['golden']}")
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["ga_labels"] = eng["batches"]
+        if (st["pop_backend"] != "cuda" or not eng["batches"]
+                or launches != expect or variants["global"]
+                or eng["label_launches"] != eng["batches"]):
+            raise AssertionError(f"{label}: launches {launches}, variants "
+                                 f"{variants}, engine {eng}")
+        runs[label] = res
+    return runs
+
+
 def depth_sweep() -> None:
     """falcon-mamba-7b's serve check (bf16: decode vs forward and the
     rounding floor) at 8, 16, 32 and 64 layers, and in fp32 at 64."""
@@ -663,8 +837,9 @@ def depth_sweep() -> None:
 def kernel_line(rows: dict, runs: dict) -> dict:
     """One entry per kernel; its top-level numbers are those of its first
     timed case (a serve shape in bf16, the scans in fp32 as the models run
-    them), the other cases are listed under ``cases``; ``launches`` is the
-    sum over the serve runs, each run's under ``launches_by_run``."""
+    them, the group labels at mobilenet_v3 and density 0.5), the other cases
+    are listed under ``cases``; ``launches`` is the sum over the main-path
+    runs (serve and search), each run's under ``launches_by_run``."""
     meta = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:34 (rmsnorm_kernel)"),
@@ -682,6 +857,9 @@ def kernel_line(rows: dict, runs: dict) -> dict:
         "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                        "src/repro/kernels/mamba_scan/kernel.py:48 "
                        "(mamba_scan_kernel)"),
+        "ga_labels": ("src/repro_torch/csrc/ga_labels.cu",
+                      "src/repro/core/population.py:598 (_build_jax_labels, "
+                      "jitted JAX, no pallas_call; body :619-646)"),
     }
     out = []
     for name in KERNELS:
@@ -722,6 +900,8 @@ def main(argv=None) -> int:
     runs = phase_serve()
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     phase_fp32()
+    log(f"[time] fp32 done at {time.perf_counter() - t0:.1f} s")
+    runs.update(phase_search())
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rows, runs)))
     print(smi)

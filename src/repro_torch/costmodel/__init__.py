@@ -1,0 +1,17 @@
+"""The paper's cost layer, ported from ``repro.costmodel`` (the ``default``
+mini-Timeloop mapper; the ``tpu`` cost model is not ported)."""
+from repro_torch.costmodel.accelerator import (ARCHS, EYERISS, SIMBA,
+                                               SIMBA2X2, Accelerator)
+from repro_torch.costmodel.base import CostBreakdown, CostModel, GroupKey
+from repro_torch.costmodel.default import DefaultCostModel
+from repro_torch.costmodel.energy import DEFAULT_ENERGY, EnergyModel
+from repro_torch.costmodel.evaluator import Evaluator, ScheduleCost
+from repro_torch.costmodel.mapper import (LayerCost, map_layer,
+                                          resolve_dataflow,
+                                          spatial_utilization)
+
+__all__ = ["ARCHS", "EYERISS", "SIMBA", "SIMBA2X2", "Accelerator",
+           "CostBreakdown", "CostModel", "DEFAULT_ENERGY",
+           "DefaultCostModel", "EnergyModel", "Evaluator", "GroupKey",
+           "LayerCost", "ScheduleCost", "map_layer", "resolve_dataflow",
+           "spatial_utilization"]

@@ -17,6 +17,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.serve import generate
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.transformer import Transformer
+from repro_torch.search import SearchSession, SearchSpec, search
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "chatglm3-6b"
@@ -76,6 +77,10 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
         Transformer(get_reduced(ARCH))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        search("vgg16", "simba", backend="ga")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchSession(SearchSpec(workload="vgg16")).run()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -115,4 +120,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.launch.serve" in out["modules"]
     assert "repro_torch.models.mamba" in out["modules"]
     assert "repro_torch.kernels.rglru_scan.ops" in out["modules"]
+    assert "repro_torch.search" in out["modules"]
+    assert "repro_torch.core.population" in out["modules"]
+    assert "repro_torch.kernels.ga_labels.ops" in out["modules"]
     assert out["bad"] == []
