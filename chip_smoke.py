@@ -20,8 +20,13 @@ non-zero (no phase's failure is caught):
    state), the GA's group-label kernel (bit-equal to its plain version on
    mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
    random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
-   all-one row, and on a graph too long for shared memory, which runs the
-   global-memory variant, at 4096);
+   all-one row, on a graph too long for shared memory at 4096, and at the
+   engine's batches: 64 genomes of mobilenet_v3, 128 of resnet50).  The
+   kernels with variants (RMSNorm: ``vector``, ``generic``; group labels:
+   ``warp``, ``block``, ``global``) must run the variant their plan picks,
+   and every variant that can take a case is forced on it, checked and,
+   where the case is timed, timed beside the others (and the group labels
+   beside a bare launch);
 4. serve: chatglm3-6b, recurrentgemma-2b and falcon-mamba-7b, each at its
    published widths and full depth in bf16, random weights from a seeded
    CUDA generator, 8 prompts and 32 greedy tokens through
@@ -43,7 +48,9 @@ non-zero (no phase's failure is caught):
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
-contract line.
+contract line.  ``--label-sweep`` runs phases 1-2 and then only phase 3's
+label-kernel checks and times on chains of LABEL_SWEEP nodes, to place the
+plan's warp/block crossover; no contract line.
 
 Before the last line: one JSON line ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power-limit line.  Last line:
@@ -73,8 +80,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ops import plan as flash_plan  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ga_labels.ops import ga_labels  # noqa: E402
-from repro_torch.kernels.ga_labels.ops import max_shared_words  # noqa: E402
-from repro_torch.kernels.ga_labels.ops import row_words  # noqa: E402
+from repro_torch.kernels.ga_labels.ops import card as ga_card  # noqa: E402
+from repro_torch.kernels.ga_labels.ops import plan as ga_plan  # noqa: E402
+from repro_torch.kernels.ga_labels.ops import variants as ga_variants  # noqa: E402
 from repro_torch.kernels.ga_labels.ref import ga_labels_ref  # noqa: E402
 from repro_torch.kernels.ga_labels.ref import label_tables  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: E402
@@ -82,6 +90,8 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import plan as rms_plan  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import variants as rms_variants  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -143,6 +153,11 @@ GA_RUNS = {
 GA_ROWS = 65536
 GA_LONG_ROWS = 4096        # the graph too long for shared memory
 GA_DENSITIES = (0.5, 0.1)
+# the engine's batch sizes (phase 6): ~63 new genomes a batch in the paper
+# GA, 128 in the random search
+GA_BATCHES = (("mobilenet_v3", 64), ("resnet50", 128))
+# --label-sweep's chain lengths: 906 to 2772 words a row
+LABEL_SWEEP = (340, 450, 560, 680, 800, 920, 1040)
 
 
 def log(*a) -> None:
@@ -294,10 +309,18 @@ def phase_sass() -> None:
                              "the loads are not TMA")
 
 
+def ran_variant(fn, before: dict) -> str:
+    """The variant whose launch count moved since ``before``."""
+    return next(v for v, c in fn.variant_launches.items() if c > before[v])
+
+
 def kernels_rmsnorm(timer: Timer, rn) -> dict:
     """Both forms, both dtypes; serve shapes (prefill and decode rows of
     chatglm3-6b and falcon-mamba-7b at d 4096, recurrentgemma-2b's prefill
-    at d 2560) + a ragged one.  Timed in bf16 at the prefill shapes."""
+    at d 2560) + a ragged one.  Each case runs the variant ``plan`` picks
+    (``vector`` at the serve shapes); every variant that takes it is forced
+    and checked.  Timed in bf16 at the serve shapes, every variant (``ms``:
+    the plan's), beside a device copy of the same bytes."""
     d = get_config("chatglm3-6b").d_model
     d_rg = get_config("recurrentgemma-2b").d_model
     shapes = ((8 * 1024, d, True), (8, d, True), (8 * 4096, d_rg, True),
@@ -307,29 +330,54 @@ def kernels_rmsnorm(timer: Timer, rn) -> dict:
         for n, dd, serve in shapes:
             x, r = rn(n, dd, dt=dt), rn(n, dd, dt=dt)
             w = (rn(dd, dt=torch.float32) * 0.1 + 1.0).to(dt)
-            base = {"shape": [n, dd], "dtype": str(dt)[6:], "tol": TOL[dt]}
-            case = dict(base, max_abs_err=close(
-                fused_rmsnorm(x, w), rmsnorm_ref(x, w), TOL[dt]))
-            y, res = fused_rmsnorm(x, w, r)
+            want = rms_plan(dd, dt).variant
+            before = dict(fused_rmsnorm.variant_launches)
+            y0 = fused_rmsnorm(x, w)
+            ran = ran_variant(fused_rmsnorm, before)
+            if ran != want or (serve and ran != "vector"):
+                raise AssertionError(f"rmsnorm {n}x{dd} {dt}: ran {ran}, "
+                                     f"planned {want}")
+            variants = rms_variants(dd, dt)
             yr, resr = rmsnorm_ref(x, w, r)
-            case_r = dict(base, max_abs_err=max(close(y, yr, TOL[dt]),
-                                                close(res, resr, TOL[dt])))
+            base = {"shape": [n, dd], "dtype": str(dt)[6:], "tol": TOL[dt],
+                    "variant": want}
+            err, err_r = {}, {}
+            for v in variants:
+                err[v] = close(fused_rmsnorm(x, w, variant=v),
+                               rmsnorm_ref(x, w), TOL[dt])
+                y, res = fused_rmsnorm(x, w, r, variant=v)
+                err_r[v] = max(close(y, yr, TOL[dt]),
+                               close(res, resr, TOL[dt]))
+            close(y0, rmsnorm_ref(x, w), TOL[dt])
+            case = dict(base, max_abs_err=max(err[v] for v in variants),
+                        err_by_variant={v: err[v] for v in variants})
+            case_r = dict(base, max_abs_err=max(err_r[v] for v in variants),
+                          err_by_variant={v: err_r[v] for v in variants})
             if dt == torch.bfloat16 and serve:
+                t = {v: timer.ms(lambda: fused_rmsnorm(x, w, variant=v))
+                     for v in variants}
+                t_r = {v: timer.ms(lambda: fused_rmsnorm(x, w, r, variant=v))
+                       for v in variants}
+                # a device copy moves the plain form's bytes (x read, y
+                # written) and nothing else: the practical floor here
+                yc = torch.empty_like(x)
                 case.update(
-                    ms=timer.ms(lambda: fused_rmsnorm(x, w)),
+                    ms=t[want], ms_by_variant=t,
+                    copy_ms=timer.ms(lambda: yc.copy_(x)),
                     plain_ms=timer.ms(lambda: rmsnorm_ref(x, w)),
                     library_ms=timer.ms(
                         lambda: F.rms_norm(x, (dd,), w, eps=1e-6)),
                     **rmsnorm_work(n, dd, dt, residual=False))
                 # no single PyTorch call adds and normalises
                 case_r.update(
-                    ms=timer.ms(lambda: fused_rmsnorm(x, w, r)),
+                    ms=t_r[want], ms_by_variant=t_r,
                     plain_ms=timer.ms(lambda: rmsnorm_ref(x, w, r)),
                     library_ms=None, **rmsnorm_work(n, dd, dt, residual=True))
             log(f"[kernels] rmsnorm {case}")
             log(f"[kernels] rmsnorm_residual {case_r}")
             plain.append(case)
             resid.append(case_r)
+            del x, r, w, y0, yr, resr
     return {"rmsnorm": plain, "rmsnorm_residual": resid}
 
 
@@ -558,32 +606,55 @@ def chain_with_skips(n: int, seed: int) -> tuple:
 
 
 def ga_graphs() -> list:
-    """The label-kernel cases: (name, eu, ev, n, rows); the last one's rows
-    do not fit shared memory (2 n words already too many), so it runs the
-    global-memory variant."""
+    """The label-kernel cases: (name, eu, ev, n, rows); the 820- and
+    830-node chains sit either side of the plan's warp/block crossover on an
+    H100 (19127 and 19354 words a warp block of eight rows, against a third
+    of a block's shared memory, 19285); the 29928-node chain's rows do not fit shared memory (2 n words
+    already too many), so it runs the global-memory variant; the last ones
+    are the engine's batches."""
     out = []
-    for wl in ("mobilenet_v3", "resnet50"):
-        cg = build_workload(wl).compiled()
+    zoo = {wl: build_workload(wl).compiled()
+           for wl in ("mobilenet_v3", "resnet50")}
+    for wl, cg in zoo.items():
         out.append((wl, cg.eu, cg.ev, cg.n, GA_ROWS))
+    for n in (820, 830):
+        eu, ev = chain_with_skips(n, seed=7)
+        out.append((f"chain{n}_skips", eu, ev, n, GA_ROWS))
     eu, ev = chain_with_skips(1040, seed=5)
     out.append(("chain1040_skips", eu, ev, 1040, GA_ROWS))
-    n_long = max_shared_words() // 2 + 1000
+    n_long = ga_card().shared_words // 2 + 1000
     eu, ev = chain_with_skips(n_long, seed=6)
     out.append((f"chain{n_long}_skips", eu, ev, n_long, GA_LONG_ROWS))
+    for wl, rows in GA_BATCHES:
+        cg = zoo[wl]
+        out.append((wl, cg.eu, cg.ev, cg.n, rows))
     return out
 
 
-def kernels_ga(timer: Timer, g) -> list:
+def ga_table_words(tb, variant: str) -> int:
+    """int32 words of the static tables ``variant`` reads: the chain edge
+    into each node (warp) or the chain's nodes and edge ids (block,
+    global), and the extra edges' ids and end nodes."""
+    chain = ((tb.chain_into,) if variant == "warp"
+             else (tb.chain_nodes, tb.chain_eids))
+    return sum(x.numel() for x in chain + (tb.extra_eids, tb.xu, tb.xv))
+
+
+def kernels_ga(timer: Timer, g, graphs=None) -> list:
     """The group-label kernel against its plain version on the card, bit for
-    bit, at each graph of ``ga_graphs`` and density of GA_DENSITIES (rows 0
-    and 1 all-zero and all-one); the variant each ran is checked, and each
-    case is timed beside its bytes bound (bits in, int32 labels out, the
-    tables)."""
+    bit, at each graph of ``graphs`` (default ``ga_graphs()``) and density of GA_DENSITIES (rows 0
+    and 1 all-zero and all-one): the variant ``plan`` picks must be the one
+    that runs, and every variant that can take the case is forced, checked
+    and timed (``ms``: the plan's), beside the bytes bound (bits in, int32
+    labels out, the tables) and a bare launch (``torch.cuda._sleep(0)``,
+    the floor at the engine's batch sizes)."""
+    bare = timer.ms(lambda: torch.cuda._sleep(0))
     cases = []
-    for name, eu, ev, n, rows in ga_graphs():
+    for name, eu, ev, n, rows in graphs or ga_graphs():
         tb = label_tables(eu, ev, n, DEV)
-        m = len(eu)
-        want = "shared" if row_words(tb) <= max_shared_words() else "global"
+        m, n_extra = len(eu), tb.xu.numel()
+        variants = ga_variants(n, m, n_extra, ga_card().shared_words)
+        how = ga_plan(rows, n, m, n_extra, ga_card())
         for density in GA_DENSITIES:
             bits = (torch.rand(rows, m, generator=g, device=DEV)
                     < density).to(torch.uint8)
@@ -591,20 +662,31 @@ def kernels_ga(timer: Timer, g) -> list:
             bits[1] = 1
             before = dict(ga_labels.variant_launches)
             out = ga_labels(bits, tb)
-            ran = next(v for v, c in ga_labels.variant_launches.items()
-                       if c > before[v])
+            ran = ran_variant(ga_labels, before)
             ref = ga_labels_ref(bits, tb)
-            err = (out.long() - ref).abs().max().item()
-            if ran != want or not torch.equal(out.long(), ref):
-                raise AssertionError(f"ga_labels {name} density {density}: "
-                                     f"ran {ran} (want {want}), max abs "
-                                     f"error {err}")
-            nbytes = bits.numel() + out.numel() * 4 + 4 * sum(
-                x.numel() for x in tb[2:])
+            err = {}
+            for v in variants:
+                got = ga_labels(bits, tb, variant=v).long()
+                err[v] = (got - ref).abs().max().item()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"ga_labels {name} x {rows} density "
+                                         f"{density}: variant {v} max abs "
+                                         f"error {err[v]}")
+            if ran != how.variant or not torch.equal(out.long(), ref):
+                raise AssertionError(f"ga_labels {name} x {rows} density "
+                                     f"{density}: ran {ran} (planned "
+                                     f"{how.variant})")
+            t = {v: timer.ms(lambda: ga_labels(bits, tb, variant=v))
+                 for v in variants}
+            nbytes = (bits.numel() + out.numel() * 4
+                      + 4 * ga_table_words(tb, ran))
             case = {"case": name, "nodes": n, "edges": m,
-                    "extra_edges": tb.xu.numel(), "rows": rows,
-                    "density": density, "variant": ran, "max_abs_err": err,
-                    "ms": timer.ms(lambda: ga_labels(bits, tb)),
+                    "extra_edges": n_extra, "rows": rows,
+                    "density": density, "variant": ran,
+                    "rows_per_block": how.rows_per_block,
+                    "max_abs_err": max(err.values()),
+                    "ms": t[ran], "ms_by_variant": t,
+                    "bare_launch_ms": bare,
                     "plain_ms": timer.ms(lambda: ga_labels_ref(bits, tb),
                                          reps=3),
                     "library_ms": None,     # no one call labels components
@@ -639,6 +721,8 @@ def reset_counts() -> None:
     for f in COUNTERS.values():
         f.launches = 0
     fused_rmsnorm.residual_launches = 0
+    fused_rmsnorm.variant_launches = dict.fromkeys(
+        fused_rmsnorm.variant_launches, 0)
     flash_attention.impl_launches = dict.fromkeys(
         flash_attention.impl_launches, 0)
     ga_labels.variant_launches = dict.fromkeys(ga_labels.variant_launches, 0)
@@ -689,6 +773,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
     out = generate(model, prompts, new)
     launches = read_counts()
     flash_impls = dict(flash_attention.impl_launches)
+    norm_variants = dict(fused_rmsnorm.variant_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if out.tokens.shape != (batch, new) or out.logits.shape != (
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
@@ -713,7 +798,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
            "decode_ms_per_step": out.decode_s * 1e3 / max(new - 1, 1),
            "decode_tok_per_s": batch * (new - 1) / out.decode_s,
            "peak_mem_gb": peak_gb, "launches": launches,
-           "flash_impls": flash_impls,
+           "flash_impls": flash_impls, "rmsnorm_variants": norm_variants,
            "logits_rel_rms_vs_forward": err,
            "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
            "argmax_agreement": agree, **check}
@@ -730,7 +815,8 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
 def phase_serve() -> dict:
     """Each model in turn (the previous one freed), counts set to 0 just
     before its run and read just after; they must be exactly as expected,
-    and so must the flash kernel each attention call went to."""
+    and so must the flash kernel each attention call went to; every norm
+    runs RMSNorm's ``vector`` variant."""
     runs = {}
     for arch, batch, prompt, new in SERVES:
         cfg = get_config(arch)
@@ -744,6 +830,11 @@ def phase_serve() -> dict:
         if res["flash_impls"] != impls:
             raise AssertionError(f"{arch}: flash kernels "
                                  f"{res['flash_impls']} != {impls}")
+        norms = {"vector": expect["rmsnorm"] + expect["rmsnorm_residual"],
+                 "generic": 0}
+        if res["rmsnorm_variants"] != norms:
+            raise AssertionError(f"{arch}: rmsnorm variants "
+                                 f"{res['rmsnorm_variants']} != {norms}")
         runs[arch] = res
     return runs
 
@@ -776,7 +867,7 @@ def phase_search() -> dict:
     """Each GA_RUNS search through a ``SearchSession`` on the card, counts
     set to 0 just before it and read just after: the reference's genome,
     fitness and evaluations exactly; one label-kernel launch per engine
-    batch, in shared memory, and no other kernel."""
+    batch, through the ``warp`` variant, and no other kernel."""
     runs = {}
     for label, run in GA_RUNS.items():
         session = SearchSession(SearchSpec(**run["spec"]), device=DEV)
@@ -807,7 +898,7 @@ def phase_search() -> dict:
                    eng["label_time_s"] / st["batch_time_s"],
                "kernel_share_of_batch_time":
                    eng["label_kernel_s"] / st["batch_time_s"],
-               "launches": launches}
+               "launches": launches, "label_variants": variants}
         log(f"[search] {json.dumps(res)}")
         if got != run["golden"]:
             raise AssertionError(f"{label}: {got} != reference "
@@ -815,7 +906,9 @@ def phase_search() -> dict:
         expect = dict.fromkeys(KERNELS, 0)
         expect["ga_labels"] = eng["batches"]
         if (st["pop_backend"] != "cuda" or not eng["batches"]
-                or launches != expect or variants["global"]
+                or launches != expect
+                or variants != {"warp": eng["batches"], "block": 0,
+                                "global": 0}
                 or eng["label_launches"] != eng["batches"]):
             raise AssertionError(f"{label}: launches {launches}, variants "
                                  f"{variants}, engine {eng}")
@@ -832,6 +925,18 @@ def depth_sweep() -> None:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   param_dtype=dt)
         serve_check(cfg, batch, prompt, new, f"sweep {dt} {layers}-layer")
+
+
+def label_sweep() -> None:
+    """The label kernel's variants on chains with skips from 340 to 1040
+    nodes (906 to 2772 words a row) at 65536 genomes: phase 3's checks and
+    times, to place the plan's warp/block crossover."""
+    graphs = []
+    for n in LABEL_SWEEP:
+        eu, ev = chain_with_skips(n, seed=7)
+        graphs.append((f"chain{n}_skips", eu, ev, n, GA_ROWS))
+    kernels_ga(Timer(), torch.Generator(device=DEV).manual_seed(1234),
+               graphs)
 
 
 def kernel_line(rows: dict, runs: dict) -> dict:
@@ -882,6 +987,9 @@ def main(argv=None) -> int:
     ap.add_argument("--depth-sweep", action="store_true",
                     help="build, then only the falcon-mamba-7b depth sweep "
                          "(no contract line)")
+    ap.add_argument("--label-sweep", action="store_true",
+                    help="build, then only the label kernel's variants on "
+                         "chains of 340-1040 nodes (no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -894,6 +1002,9 @@ def main(argv=None) -> int:
     phase_sass()
     if args.depth_sweep:
         depth_sweep()
+        return 0
+    if args.label_sweep:
+        label_sweep()
         return 0
     rows = phase_kernels(Timer())
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")

@@ -13,7 +13,9 @@ class LabelTables(NamedTuple):
     """A graph's static edge tables, int32 on one device (made once per
     graph): chain edge k is ``chain_nodes[k] -> chain_nodes[k] + 1`` with
     edge id ``chain_eids[k]``; extra (non-chain) edge k is ``xu[k] ->
-    xv[k]`` with id ``extra_eids[k]``."""
+    xv[k]`` with id ``extra_eids[k]``; ``chain_into[i]`` is the id of the
+    chain edge into node i, -1 where there is none (the same chain edges
+    by node, as the CUDA kernel's warp variant reads them)."""
     n: int
     m: int
     chain_nodes: torch.Tensor
@@ -21,6 +23,7 @@ class LabelTables(NamedTuple):
     extra_eids: torch.Tensor
     xu: torch.Tensor
     xv: torch.Tensor
+    chain_into: torch.Tensor
 
 
 def label_tables(eu, ev, n: int, device) -> LabelTables:
@@ -34,9 +37,11 @@ def label_tables(eu, ev, n: int, device) -> LabelTables:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                device=device)
 
+    into = np.full(n, -1, dtype=np.int64)
+    into[eu[chain] + 1] = np.nonzero(chain)[0]
     return LabelTables(n, len(eu), dev(eu[chain]), dev(np.nonzero(chain)[0]),
                        dev(np.nonzero(~chain)[0]), dev(eu[~chain]),
-                       dev(ev[~chain]))
+                       dev(ev[~chain]), dev(into))
 
 
 def ga_labels_ref(bits: torch.Tensor, t: LabelTables) -> torch.Tensor:

@@ -3,13 +3,23 @@
 Replaces ``repro/kernels/rmsnorm/ops.py:fused_rmsnorm`` and its Pallas
 kernel ``rmsnorm_kernel``.  The leading dims are flattened into rows.  A CPU
 tensor takes the plain version (``ref.py``); a CUDA tensor launches the
-kernel, and every launch adds one to ``fused_rmsnorm.launches`` (and a
-launch of the residual form also to ``fused_rmsnorm.residual_launches``).
+variant that :func:`plan` names, and every launch adds one to
+``fused_rmsnorm.launches``, to its variant's entry of
+``fused_rmsnorm.variant_launches`` and, for the residual form, to
+``fused_rmsnorm.residual_launches``:
+
+- ``vector``: a group of threads per row moving 16-byte vectors, the row and
+  its weights in registers, several rows a block in a grid-stride loop; for
+  a d that 16-byte vectors divide and 16-byte aligned tensors;
+- ``generic``: one block per row, scalar accesses, the row in shared
+  memory; any d (the port's first design).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -18,24 +28,105 @@ from repro_torch.kernels._dtypes import code
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _vp = ctypes.c_void_p
+VARIANTS = ("vector", "generic")
+VECTOR_BYTES = 16
+BLOCK = 256             # threads a block of the vector variant
+GROUPS = (32, 64, 128, 256)   # threads a row may take (the block's warps)
+# 32-bit registers of row data a thread may hold: V vectors of 4 words each
+# of this row and the next (x, and r in the residual form) and of w, so 20 V
+# words in the residual form
+REG_BUDGET = 128
+VMAX = REG_BUDGET // 20  # vectors a thread holds (a template argument, 1-6)
+VTARGET = 4             # preferred vectors a thread, among equal fits
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Which variant runs a call and, for ``vector``, its launch shape:
+    ``threads`` per row and ``vectors`` of 16 bytes a thread (thread t of a
+    row holds the vectors t, t + threads, ... of the row; a 256-thread block
+    takes 256 / threads rows)."""
+    variant: str
+    threads: int = 0
+    vectors: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check(variant: Optional[str]) -> None:
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"fused_rmsnorm: unknown variant {variant!r}, not "
+                         f"one of {VARIANTS}")
+
+
+def _vector_shape(d: int, dtype: torch.dtype, aligned: bool):
+    """(threads, vectors) of the vector variant for rows of d
+    values, or None where it cannot take them."""
+    e = VECTOR_BYTES // dtype.itemsize
+    nvec = d // e
+    fits = [(g * _cdiv(nvec, g) - nvec, abs(_cdiv(nvec, g) - VTARGET), g)
+            for g in GROUPS if _cdiv(nvec, g) <= VMAX]
+    if not (aligned and d > 0 and d % e == 0 and fits):
+        return None
+    _, _, g = min(fits)
+    return g, _cdiv(nvec, g)
+
+
+def variants(d: int, dtype: torch.dtype, aligned: bool = True) -> tuple:
+    """The variants that can take rows of d values of ``dtype``, the
+    plan's first."""
+    vector = _vector_shape(d, dtype, aligned) is not None
+    return ("vector", "generic") if vector else ("generic",)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(d: int, dtype: torch.dtype, aligned: bool = True,
+         variant: Optional[str] = None) -> Plan:
+    """The variant for rows of ``d`` values of ``dtype`` (pure Python, no
+    device; cached: a call per launch); ``aligned``: every pointer 16-byte
+    aligned.
+
+    ``vector`` when 16-byte vectors divide d, the pointers are aligned and
+    a row fits 256 threads of at most VMAX vectors; its threads per row are
+    the count of GROUPS that leaves the fewest idle vector slots (threads x
+    vectors - vectors of the row), ties going to the count nearest VTARGET
+    vectors a thread.  Else ``generic``.  The row count does not change the
+    choice (the C entry point sizes the grid from it).  ``variant`` forces
+    one, and raises if it cannot take the call."""
+    _check(variant)
+    can = variants(d, dtype, aligned)
+    variant = variant or can[0]
+    if variant not in can:
+        raise ValueError(f"fused_rmsnorm: the {variant} variant cannot take "
+                         f"d {d} of {dtype} (aligned: {aligned})")
+    if variant == "generic":
+        return Plan("generic")
+    return Plan("vector", *_vector_shape(d, dtype, aligned))
 
 
 @functools.cache
-def _fn():
-    """The C entry point, its library built and loaded at first use."""
+def _fns():
+    """The C entry points, their library built and loaded at first use."""
     lib = _build.library("rmsnorm")
-    f = lib.rmsnorm_fwd
-    f.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_int,
-                  ctypes.c_float, ctypes.c_int, _vp]
-    f.restype = ctypes.c_int
-    return f
+    head = [_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int]
+    lib.rmsnorm_fwd.argtypes = head + [_vp]
+    lib.rmsnorm_vector_fwd.argtypes = head + [ctypes.c_int, ctypes.c_int, _vp]
+    for f in (lib.rmsnorm_fwd, lib.rmsnorm_vector_fwd):
+        f.restype = ctypes.c_int
+    return lib.rmsnorm_fwd, lib.rmsnorm_vector_fwd
 
 
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
                   residual: torch.Tensor | None = None, *,
-                  eps: float = 1e-6):
+                  eps: float = 1e-6, variant: Optional[str] = None):
     """x: (..., D), w: (D,); residual: optional, like x, added in fp32 before
-    the norm.  Returns y, or (y, x + residual) when a residual is given."""
+    the norm.  Returns y, or (y, x + residual) when a residual is given.
+    ``variant`` forces a kernel (``vector`` or ``generic``) instead of the
+    plan's choice; the models never pass it."""
+    _check(variant)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, residual, eps=eps)
     if x.device.type != "cuda":
@@ -55,13 +146,23 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("fused_rmsnorm: residual must match x")
     y = torch.empty_like(x)
     res = None if residual is None else torch.empty_like(x)
-    err = _fn()(x.data_ptr(), None if residual is None else residual.data_ptr(),
-                w.data_ptr(), y.data_ptr(),
-                None if res is None else res.data_ptr(),
-                x.numel() // D, D, eps, dt,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "rmsnorm_fwd")
+    ptrs = [t.data_ptr() for t in tensors + [y] + ([] if res is None
+                                                    else [res])]
+    n = x.numel() // D if D else 0
+    how = plan(D, x.dtype, all(p % VECTOR_BYTES == 0 for p in ptrs), variant)
+    args = (x.data_ptr(), None if residual is None else residual.data_ptr(),
+            w.data_ptr(), y.data_ptr(),
+            None if res is None else res.data_ptr(), n, D, eps, dt)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    generic, vector = _fns()
+    if how.variant == "vector":
+        err = vector(*args, how.threads, how.vectors, stream)
+        _build.check(err, "rmsnorm_vector_fwd")
+    else:
+        err = generic(*args, stream)
+        _build.check(err, "rmsnorm_fwd")
     fused_rmsnorm.launches += 1
+    fused_rmsnorm.variant_launches[how.variant] += 1
     if res is None:
         return y
     fused_rmsnorm.residual_launches += 1
@@ -70,3 +171,4 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
 
 fused_rmsnorm.launches = 0            # every launch
 fused_rmsnorm.residual_launches = 0   # the launches of the residual form
+fused_rmsnorm.variant_launches = dict.fromkeys(VARIANTS, 0)
