@@ -9,15 +9,21 @@ non-zero (no phase's failure is caught):
 1. device: the card's name and power limit;
 2. build: every ``src/repro_torch/csrc/*.cu`` (seven sources) compiled with
    nvcc for sm_90a, all at once; the tensor-core flash prefill's SASS must
-   show both products as wgmma (HGMMA) and its loads as TMA;
+   show both products as wgmma (HGMMA) at each head_dim and its loads as
+   TMA;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serve paths' shapes and at small ragged/masked ones, in fp32 and
    bf16, and timed beside its bound and one library call where one exists
-   (a yardstick the port never calls): RMSNorm (both forms), flash attention
-   (head_dim 128 and 256, windowed prefill, decode over a wrapped rolling
-   buffer with key positions; the SIMT kernel timed in fp32 at phase 5's
-   prefill shapes), the RG-LRU scan and the Mamba scan (with its final
-   state), the GA's group-label kernel (bit-equal to its plain version on
+   (a yardstick the port never calls): RMSNorm (both forms, at the prefill
+   and decode rows of every served model), flash attention (head_dim 128
+   and 256, windowed prefill, decode over a wrapped rolling buffer with key
+   positions; head_dim 96 at phi-3-vision-4.2b's MHA prefill of 1024 image
+   + 1024 text positions and its decode, and ragged cases at D 96 reaching
+   each of the three kernels; the SIMT kernel timed in fp32 at phase 5's
+   prefill shapes; every case also held to its rows' scale, FLASH_ROW_TOL,
+   and the serve decodes shown to fail that check without their newest
+   key), the RG-LRU scan and the Mamba scan
+   (with its final state), the GA's group-label kernel (bit-equal to its plain version on
    mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
    random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
    all-one row, on a graph too long for shared memory at 4096, and at the
@@ -27,17 +33,20 @@ non-zero (no phase's failure is caught):
    and every variant that can take a case is forced on it, checked and,
    where the case is timed, timed beside the others (and the group labels
    beside a bare launch);
-4. serve: chatglm3-6b, recurrentgemma-2b and falcon-mamba-7b, each at its
-   published widths and full depth in bf16, random weights from a seeded
-   CUDA generator, 8 prompts and 32 greedy tokens through
-   ``repro_torch.launch.serve.generate`` (recurrentgemma's prompt of 4096
-   tokens is twice its attention window, so the window cuts in during
-   prefill and the rolling buffer wraps at the first decode step); the
-   launch counts of each run are checked exactly and its decode logits are
-   held against one full forward;
-5. the same check in fp32 at full width with 2 or 3 layers, and each
-   reduced config's CUDA logits (forward and generate) against its plain
-   CPU path (which the CPU tests hold against the JAX reference);
+4. serve: chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b and
+   phi-3-vision-4.2b, each at its published widths and full depth in bf16,
+   random weights from a seeded CUDA generator, 8 prompts and 32 greedy
+   tokens through ``repro_torch.launch.serve.generate`` (recurrentgemma's
+   prompt of 4096 tokens is twice its attention window, so the window cuts
+   in during prefill and the rolling buffer wraps at the first decode step;
+   phi-3-vision's 1024 text tokens follow 1024 image-patch embeddings drawn
+   from the same generator); the launch counts of each run are checked
+   exactly and its decode logits are held against one full forward;
+5. the same check in fp32 at full width with 2 or 3 layers (phi-3-vision
+   with its 1024 image tokens; launch counts exact, every prefill attention
+   on the SIMT kernel), and each reduced config's CUDA logits
+   (forward and generate) against its plain CPU path (which the CPU tests
+   hold against the JAX reference);
 6. search: the paper's GA (mobilenet_v3 on simba, preset ``paper``, seed 0)
    and the random backend (resnet50 on eyeriss, 100000 evaluations) through
    ``repro_torch.search.SearchSession`` on the card; each must give the
@@ -102,15 +111,24 @@ DEV = "cuda"
 # tests/test_kernels.py:15 of the reference; its RG-LRU test takes 5x
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL_MULT = 5
+# flash attention, besides TOL: |out - ref| <= FLASH_ROW_TOL * (RMS of the
+# reference's row + |ref|), a row being one query head's D outputs.  TOL's
+# absolute part is 2e-2 at any scale, near the whole output of a row that
+# averages ~2000 unit-normal keys (RMS ~0.04), where one key dropped moves
+# an output by ~1e-3; against the row's own RMS that is several times the
+# limit.  bf16 rounds P and the output (2^-9 relative), well inside 2e-2.
+FLASH_ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # H100 SXM data sheet (dense): bytes/s of HBM3, flop/s by input type
 # (bf16 on the tensor cores, fp32 outside them: TF32 is switched off here)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# serve runs of phase 4: (arch, batch, prompt, new tokens); the kernels'
-# main-path shapes follow from them
+# serve runs of phase 4: (arch, batch, prompt, new tokens), the prompt in
+# text tokens (phi-3-vision-4.2b's come after its 1024 image tokens); the
+# kernels' main-path shapes follow from them
 SERVES = (("chatglm3-6b", 8, 1024, 32),
           ("recurrentgemma-2b", 8, 4096, 32),
-          ("falcon-mamba-7b", 8, 1024, 32))
+          ("falcon-mamba-7b", 8, 1024, 32),
+          ("phi-3-vision-4.2b", 8, 1024, 32))
 # decode logits vs one full forward, relative RMS error over all logits.
 # bf16: both sides round every product to 8 mantissa bits (2^-9 = 2e-3
 # relative per rounding) but at different places (cuBLAS picks other kernels
@@ -124,6 +142,9 @@ SERVES = (("chatglm3-6b", 8, 1024, 32),
 # only in where bf16 rounds); a wrong cache slot, key position, recurrent
 # state or conv history adds an error of order 1 and fails.
 FLOOR_MULT = 1.1
+# phase 5's prompts in text tokens (phi-3-vision's after its 1024 image
+# tokens)
+FP32_PROMPT = 128
 # fp32 (TF32 off): sums in another order only (~1e-6); bf16 arithmetic or
 # TF32 would give >= 1e-3 and fail it.
 SERVE_REL_TOL_FP32 = 1e-4
@@ -162,6 +183,13 @@ LABEL_SWEEP = (340, 450, 560, 680, 800, 920, 1040)
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def row_scaled_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / (RMS of ref over the last dim + |ref|)."""
+    out, ref = out.float(), ref.float()
+    scale = ref.square().mean(-1, keepdim=True).sqrt() + ref.abs()
+    return ((out - ref).abs() / scale).nan_to_num(0.0, torch.inf).max().item()
 
 
 def close(out: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
@@ -300,7 +328,7 @@ def phase_sass() -> None:
     hgmma = [line for line in sass.splitlines() if "HGMMA." in line]
     qk = sum("HGMMA.64x64x16" in x and "tnspB" not in x for x in hgmma)
     pv = {d: sum(f"HGMMA.64x{d}x16" in x and "tnspB" in x for x in hgmma)
-          for d in (64, 128, 256)}
+          for d in (64, 96, 128, 256)}
     tma = sass.count("UTMALDG")
     log(f"[sass] flash_prefill_tc: Q.K^T {qk} HGMMA 64x64x16; P.V by "
         f"head_dim {pv} HGMMA 64xDx16 (tnspB); {tma} UTMALDG")
@@ -315,22 +343,27 @@ def ran_variant(fn, before: dict) -> str:
 
 
 def kernels_rmsnorm(timer: Timer, rn) -> dict:
-    """Both forms, both dtypes; serve shapes (prefill and decode rows of
-    chatglm3-6b and falcon-mamba-7b at d 4096, recurrentgemma-2b's prefill
-    at d 2560) + a ragged one.  Each case runs the variant ``plan`` picks
-    (``vector`` at the serve shapes); every variant that takes it is forced
-    and checked.  Timed in bf16 at the serve shapes, every variant (``ms``:
-    the plan's), beside a device copy of the same bytes."""
-    d = get_config("chatglm3-6b").d_model
-    d_rg = get_config("recurrentgemma-2b").d_model
-    shapes = ((8 * 1024, d, True), (8, d, True), (8 * 4096, d_rg, True),
-              (37, 130, False))
+    """Both forms, both dtypes; serve shapes (the prefill rows, batch x
+    (image + text positions), and the decode rows, batch, of each SERVES
+    model at its d_model: 4096, 2560 and 3072) + a ragged one.  Each case
+    runs the variant ``plan`` picks (``vector`` at the serve shapes); every
+    variant that takes it is forced and checked.  Timed in bf16 at the serve
+    shapes, every variant (``ms``: the plan's), beside a device copy of the
+    same bytes."""
+    shapes = []
+    for arch, batch, prompt, _ in SERVES:
+        cfg = get_config(arch)
+        for n in (batch * (cfg.img_tokens + prompt), batch):
+            if (n, cfg.d_model, True) not in shapes:
+                shapes.append((n, cfg.d_model, True))
+    shapes.append((37, 130, False))
     plain, resid = [], []
     for dt in (torch.float32, torch.bfloat16):
         for n, dd, serve in shapes:
             x, r = rn(n, dd, dt=dt), rn(n, dd, dt=dt)
             w = (rn(dd, dt=torch.float32) * 0.1 + 1.0).to(dt)
-            want = rms_plan(dd, dt).variant
+            how = rms_plan(dd, dt)
+            want = how.variant
             before = dict(fused_rmsnorm.variant_launches)
             y0 = fused_rmsnorm(x, w)
             ran = ran_variant(fused_rmsnorm, before)
@@ -340,7 +373,8 @@ def kernels_rmsnorm(timer: Timer, rn) -> dict:
             variants = rms_variants(dd, dt)
             yr, resr = rmsnorm_ref(x, w, r)
             base = {"shape": [n, dd], "dtype": str(dt)[6:], "tol": TOL[dt],
-                    "variant": want}
+                    "variant": want, "threads": how.threads,
+                    "vectors": how.vectors}
             err, err_r = {}, {}
             for v in variants:
                 err[v] = close(fused_rmsnorm(x, w, variant=v),
@@ -392,7 +426,10 @@ def flash_cases() -> list:
     16; the split decode with splits of several tiles and kv_len not a
     multiple of them, several queries, two row groups, a partly written
     rolling buffer; the SIMT kernel (fp32, D 16/32, key positions in
-    prefill)."""
+    prefill).  Then head_dim 96: phi-3-vision-4.2b's serve prefill (1024
+    image + 1024 text positions, MHA 32:32) and first decode step (2049 of
+    2080 slots), ragged cases reaching each kernel at D 96, G 1 among them,
+    and phase 5's fp32 prefill (1024 image + 128 text positions)."""
     cfg = get_config("chatglm3-6b")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     _, B, P, N = SERVES[0]
@@ -402,6 +439,11 @@ def flash_cases() -> list:
     W = rg.attn_window
     L = min(2 * W, P_rg + N_rg)               # the rolling buffer: 4096 slots
     pos_rg = P_rg + 16                        # mid-decode: the buffer wrapped
+    arch_v, B_v, P_v, N_v = SERVES[3]
+    phi = get_config(arch_v)
+    heads_v = (phi.n_heads, phi.n_kv_heads, phi.resolved_head_dim)
+    S_v = phi.img_tokens + P_v                # prefill positions: 2048
+    S_fp32 = phi.img_tokens + FP32_PROMPT
     return [
         ("prefill", (B, P, P, hq, hkv, hd), {}),
         ("decode", (B, 1, P + N, hq, hkv, hd),
@@ -462,6 +504,24 @@ def flash_cases() -> list:
         ("prefill_d256_s128_window", (8, 128, 128, rg.n_heads,
                                       rg.n_kv_heads, rg.head_dim),
          dict(window=W)),
+        ("prefill_d96", (B_v, S_v, S_v) + heads_v, {}),
+        ("decode_d96", (B_v, 1, S_v + N_v) + heads_v,
+         dict(q_offset=S_v, kv_len=S_v + 1)),
+        ("tc_d96_g1_ragged", (1, 200, 200, 2, 2, 96), {}),
+        ("tc_d96_window_130", (2, 130, 130, 4, 2, 96), dict(window=50)),
+        ("tc_d96_chunk", (2, 200, 200, 4, 1, 96), dict(chunk=64)),
+        ("tc_d96_bidir", (2, 300, 300, 4, 4, 96), dict(causal=False)),
+        ("tc_d96_offset", (1, 100, 300, 4, 2, 96),
+         dict(q_offset=200, kv_len=300)),
+        ("decode_d96_g1_ragged_splits", (2, 1, 1000, 4, 4, 96),
+         dict(q_offset=996, kv_len=997)),
+        ("decode_d96_sq4", (2, 4, 300, 8, 2, 96),
+         dict(q_offset=296, kv_len=300)),
+        ("kpos_wrapped_d96", (2, 1, 16, 4, 1, 96),
+         dict(q_offset=21, window=8, k_pos=rolling_kpos(21, 16))),
+        ("kpos_prefill_d96", (1, 24, 24, 4, 2, 96),
+         dict(window=8, k_pos=torch.arange(24, dtype=torch.int32))),
+        ("prefill_d96_s1152", (8, S_fp32, S_fp32) + heads_v, {}),
     ]
 
 
@@ -470,16 +530,22 @@ def flash_cases() -> list:
 FLASH_TIMED = {torch.bfloat16: {"prefill": "tc_prefill",
                                 "decode": "split_decode",
                                 "prefill_d256_window": "tc_prefill",
-                                "decode_d256_rolling": "split_decode"},
+                                "decode_d256_rolling": "split_decode",
+                                "prefill_d96": "tc_prefill",
+                                "decode_d96": "split_decode"},
                torch.float32: {"prefill_s128": "simt",
-                               "prefill_d256_s128_window": "simt"}}
+                               "prefill_d256_s128_window": "simt",
+                               "prefill_d96_s1152": "simt"}}
 
 
 def kernels_flash(timer: Timer, rn) -> list:
     """Each case of ``flash_cases`` in bf16 and fp32 against the plain
-    version, with the kernel it ran (``impl``: the plan's, and at the timed
-    shapes the one named in FLASH_TIMED); timed at the FLASH_TIMED shapes
-    (bf16 first: its prefill is the kernel line's headline)."""
+    version, within TOL and FLASH_ROW_TOL, with the kernel it ran (``impl``:
+    the plan's, and at the timed shapes the one named in FLASH_TIMED);
+    timed at the FLASH_TIMED shapes (bf16 first: its prefill is the kernel
+    line's headline).  At each timed decode the plain version without the
+    newest key must fail FLASH_ROW_TOL, or the check could not see a kernel
+    that skips it."""
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         for name, (Bq, Sq, Skv, Hq, Hkv, D), kw in flash_cases():
@@ -498,15 +564,31 @@ def kernels_flash(timer: Timer, rn) -> list:
             if impl != how.impl or (serve and impl != FLASH_TIMED[dt][name]):
                 raise AssertionError(f"flash {name}: ran {impl}, planned "
                                      f"{how.impl}")
-            err = close(out, attention_ref(q, k, v, **kw), TOL[dt])
+            ref = attention_ref(q, k, v, **kw)
+            err = close(out, ref, TOL[dt])
+            row_err = row_scaled_err(out, ref)
+            if not row_err <= FLASH_ROW_TOL[dt]:
+                raise AssertionError(f"flash {name} {dt}: error {row_err:.3e}"
+                                     f" of the rows' scale > "
+                                     f"{FLASH_ROW_TOL[dt]:g}")
             case = {"case": name, "shape": [Bq, Sq, Skv, Hq, Hkv, D],
                     **{a: b for a, b in kw.items() if a != "k_pos"},
                     "k_pos": "k_pos" in kw, "dtype": str(dt)[6:],
-                    "impl": impl, "tol": TOL[dt], "max_abs_err": err}
+                    "impl": impl, "tol": TOL[dt], "max_abs_err": err,
+                    "row_tol": FLASH_ROW_TOL[dt], "row_scaled_err": row_err}
             if how.impl == "split_decode":
                 case.update(splits=how.splits,
                             tiles_per_split=how.tiles_per_split,
                             blocks=how.blocks)
+            if serve and Sq == 1:
+                short = dict(kw, kv_len=kw.get("kv_len", Skv) - 1)
+                miss = row_scaled_err(attention_ref(q, k, v, **short), ref)
+                if not miss > FLASH_ROW_TOL[dt]:
+                    raise AssertionError(f"flash {name}: dropping the newest "
+                                         f"key moves the output {miss:.3e} "
+                                         f"of the rows' scale, within the "
+                                         f"tolerance")
+                case["newest_key_dropped_row_scaled_err"] = miss
             if serve:
                 lib = sdpa_call(q, k, v, True, kw.get("window", 0),
                                 kw.get("q_offset", 0), kw.get("kv_len"),
@@ -519,7 +601,7 @@ def kernels_flash(timer: Timer, rn) -> list:
                     **flash_work(Bq, Sq, Skv, Hq, Hkv, D, dt, **kw))
             log(f"[kernels] flash_attention {case}")
             cases.append(case)
-            del q, k, v, out
+            del q, k, v, out, ref
     return cases
 
 
@@ -750,10 +832,32 @@ def expected_launches(cfg, new: int) -> dict:
 
 
 def expected_flash_impls(cfg, new: int) -> dict:
-    """Which flash kernel a bf16 ``generate`` runs: every attention layer's
-    prefill on the tensor cores, its new - 1 decode steps split."""
+    """Which flash kernel ``generate`` runs: every attention layer's prefill
+    on the tensor cores in bf16, on the SIMT kernel in fp32; its new - 1
+    decode steps split."""
     attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
-    return {"split_decode": attn * (new - 1), "tc_prefill": attn, "simt": 0}
+    impls = {"split_decode": attn * (new - 1), "tc_prefill": 0, "simt": 0}
+    impls["tc_prefill" if cfg.param_dtype == "bfloat16" else "simt"] = attn
+    return impls
+
+
+def check_launches(cfg, new: int, res: dict) -> None:
+    """A serve run's launch counts must be exactly as expected, and so must
+    the flash kernel each attention call went to; every norm runs
+    RMSNorm's ``vector`` variant."""
+    expect = expected_launches(cfg, new)
+    if res["launches"] != expect:
+        raise AssertionError(f"{cfg.name}: launches {res['launches']} != "
+                             f"{expect}")
+    impls = expected_flash_impls(cfg, new)
+    if res["flash_impls"] != impls:
+        raise AssertionError(f"{cfg.name}: flash kernels "
+                             f"{res['flash_impls']} != {impls}")
+    norms = {"vector": expect["rmsnorm"] + expect["rmsnorm_residual"],
+             "generic": 0}
+    if res["rmsnorm_variants"] != norms:
+        raise AssertionError(f"{cfg.name}: rmsnorm variants "
+                             f"{res['rmsnorm_variants']} != {norms}")
 
 
 def serve_check(cfg, batch, prompt, new, label, warm=False):
@@ -766,11 +870,16 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
     model = Transformer(cfg, DEV, generator=g)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
                             device=DEV)
+    img = None
+    if cfg.img_tokens:            # as serve.main draws them
+        img = torch.randn(batch, cfg.img_tokens, cfg.d_model, generator=g,
+                          device=DEV).to(model.dtype)
     if warm:                      # cuBLAS handles, allocator: not timed
-        generate(model, prompts[:, :16], 2)
+        generate(model, prompts[:, :16], 2,
+                 None if img is None else img[:, :16])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = generate(model, prompts, new)
+    out = generate(model, prompts, new, img)
     launches = read_counts()
     flash_impls = dict(flash_attention.impl_launches)
     norm_variants = dict(fused_rmsnorm.variant_launches)
@@ -779,12 +888,12 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
         raise AssertionError(f"{label}: bad generate output")
     full = torch.cat([prompts, out.tokens[:, :-1]], 1)
-    ref = model(full, last=new)
+    ref = model(full, last=new, img_embeds=img)
     err = rel_rms(out.logits, ref)
     agree = (out.logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
     bf16 = cfg.param_dtype == "bfloat16"
     if bf16:                      # the same weights in fp32 arithmetic
-        ref32 = model.float()(full, last=new)
+        ref32 = model.float()(full, last=new, img_embeds=img)
         floor = rel_rms(ref, ref32)
         check = {"decode_rel_rms_vs_fp32_forward": rel_rms(out.logits, ref32),
                  "bf16_forward_rel_rms_vs_fp32_forward": floor,
@@ -793,7 +902,8 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
     else:
         check = {"limit": SERVE_REL_TOL_FP32}
     res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
-           "batch": batch, "prompt": prompt, "tokens": new,
+           "batch": batch, "prompt": prompt, "img_tokens": cfg.img_tokens,
+           "tokens": new,
            "prefill_ms": out.prefill_s * 1e3,
            "decode_ms_per_step": out.decode_s * 1e3 / max(new - 1, 1),
            "decode_tok_per_s": batch * (new - 1) / out.decode_s,
@@ -807,44 +917,36 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
     if not checked <= check["limit"]:
         raise AssertionError(f"{label}: decode logits relative RMS error "
                              f"{checked:.3e} > {check['limit']:.3e}")
-    del model, out, ref, full, prompts
+    del model, out, ref, full, prompts, img
     torch.cuda.empty_cache()
     return res
 
 
 def phase_serve() -> dict:
     """Each model in turn (the previous one freed), counts set to 0 just
-    before its run and read just after; they must be exactly as expected,
-    and so must the flash kernel each attention call went to; every norm
-    runs RMSNorm's ``vector`` variant."""
+    before its run and read just after (``check_launches``)."""
     runs = {}
     for arch, batch, prompt, new in SERVES:
         cfg = get_config(arch)
         res = serve_check(cfg, batch, prompt, new, f"bf16 full {arch}",
                           warm=True)
-        expect = expected_launches(cfg, new)
-        if res["launches"] != expect:
-            raise AssertionError(f"{arch}: launches {res['launches']} != "
-                                 f"{expect}")
-        impls = expected_flash_impls(cfg, new)
-        if res["flash_impls"] != impls:
-            raise AssertionError(f"{arch}: flash kernels "
-                                 f"{res['flash_impls']} != {impls}")
-        norms = {"vector": expect["rmsnorm"] + expect["rmsnorm_residual"],
-                 "generic": 0}
-        if res["rmsnorm_variants"] != norms:
-            raise AssertionError(f"{arch}: rmsnorm variants "
-                                 f"{res['rmsnorm_variants']} != {norms}")
+        check_launches(cfg, new, res)
         runs[arch] = res
     return runs
 
 
-def phase_fp32() -> None:
+def phase_fp32() -> dict:
+    """Phase 5; returns its full-width runs by label, counted as phase 4's
+    are (their prefills are where the SIMT kernel runs on a model path)."""
+    runs = {}
     for arch, layers in (("chatglm3-6b", 2), ("recurrentgemma-2b", 3),
-                         ("falcon-mamba-7b", 2)):
+                         ("falcon-mamba-7b", 2), ("phi-3-vision-4.2b", 2)):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   param_dtype="float32")
-        serve_check(cfg, 8, 128, 8, f"fp32 {layers}-layer {arch}")
+        label = f"fp32 {layers}-layer {arch}"
+        res = serve_check(cfg, 8, FP32_PROMPT, 8, label)
+        check_launches(cfg, 8, res)
+        runs[label] = res
     # each reduced config: CUDA kernels vs the plain CPU path, same weights;
     # recurrentgemma's prompt of 21 is longer than its 16-slot buffer
     for arch, _, _, _ in SERVES:
@@ -852,15 +954,20 @@ def phase_fp32() -> None:
         gpu = Transformer(small, DEV, seed=3)
         cpu = Transformer(small, "cpu")
         cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
-        toks = torch.randint(0, small.vocab, (2, 37),
-                             generator=torch.Generator().manual_seed(4))
-        err = close(gpu(toks.to(DEV)).cpu(), cpu(toks), 1e-4)
-        gen_gpu = generate(gpu, toks[:, :21].to(DEV), 6)
-        gen_cpu = generate(cpu, toks[:, :21], 6)
+        g = torch.Generator().manual_seed(4)
+        toks = torch.randint(0, small.vocab, (2, 37), generator=g)
+        img = (torch.randn(2, small.img_tokens, small.d_model, generator=g)
+               if small.img_tokens else None)
+        img_dev = None if img is None else img.to(DEV)
+        err = close(gpu(toks.to(DEV), img_embeds=img_dev).cpu(),
+                    cpu(toks, img_embeds=img), 1e-4)
+        gen_gpu = generate(gpu, toks[:, :21].to(DEV), 6, img_dev)
+        gen_cpu = generate(cpu, toks[:, :21], 6, img)
         err_gen = close(gen_gpu.logits.cpu(), gen_cpu.logits, 1e-4)
         log(f"[serve] reduced {small.name} cuda vs cpu plain path: max abs "
             f"err forward {err:.3e}, generate {err_gen:.3e} (tol 1e-4 abs + "
             f"rel: fp32, sums in another order)")
+    return runs
 
 
 def phase_search() -> dict:
@@ -944,7 +1051,11 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     timed case (a serve shape in bf16, the scans in fp32 as the models run
     them, the group labels at mobilenet_v3 and density 0.5), the other cases
     are listed under ``cases``; ``launches`` is the sum over the main-path
-    runs (serve and search), each run's under ``launches_by_run``."""
+    runs (serve, phase 5's full-width fp32 runs and search), each run's
+    under ``launches_by_run``.  Flash attention has one entry per kernel
+    that ran (each case's ``impl``, each run's ``flash_impls``)."""
+    flash = "src/repro/kernels/flash_attention/kernel.py:78 " \
+            "(flash_attention_kernel)"
     meta = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:34 (rmsnorm_kernel)"),
@@ -952,10 +1063,9 @@ def kernel_line(rows: dict, runs: dict) -> dict:
             "src/repro_torch/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm/kernel.py:34 (rmsnorm_kernel, "
             "residual form)"),
-        "flash_attention": (
-            "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:78 "
-            "(flash_attention_kernel)"),
+        "tc_prefill": ("src/repro_torch/csrc/flash_prefill_tc.cu", flash),
+        "split_decode": ("src/repro_torch/csrc/flash_decode.cu", flash),
+        "simt": ("src/repro_torch/csrc/flash_attention.cu", flash),
         "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                        "src/repro/kernels/rglru_scan/kernel.py:39 "
                        "(rglru_scan_kernel)"),
@@ -966,19 +1076,30 @@ def kernel_line(rows: dict, runs: dict) -> dict:
                       "src/repro/core/population.py:598 (_build_jax_labels, "
                       "jitted JAX, no pallas_call; body :619-646)"),
     }
-    out = []
+    # (entry, cases, launches by run)
+    entries = []
     for name in KERNELS:
-        source, replaces = meta[name]
-        main = next(c for c in rows[name] if "ms" in c)
-        by_run = {arch: r["launches"][name] for arch, r in runs.items()}
+        if name != "flash_attention":
+            entries.append((name, rows[name], {
+                r: res["launches"][name] for r, res in runs.items()}))
+            continue
+        for impl in flash_attention.impl_launches:
+            entries.append((f"flash_attention_{impl}",
+                            [c for c in rows[name] if c["impl"] == impl],
+                            {r: res.get("flash_impls", {}).get(impl, 0)
+                             for r, res in runs.items()}))
+    out = []
+    for name, cases, by_run in entries:
+        source, replaces = meta[name.removeprefix("flash_attention_")]
+        main = next(c for c in cases if "ms" in c)
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
-            "max_abs_err": max(c["max_abs_err"] for c in rows[name]),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "cases": rows[name]})
+            "library_ms": main["library_ms"], "cases": cases})
     return {"kernels": out}
 
 
@@ -1010,7 +1131,7 @@ def main(argv=None) -> int:
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
     runs = phase_serve()
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
-    phase_fp32()
+    runs.update(phase_fp32())
     log(f"[time] fp32 done at {time.perf_counter() - t0:.1f} s")
     runs.update(phase_search())
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -8,7 +8,8 @@ path>`` has shape ``(reps, ...)``.  Repeat r of position p of a segment is
 layer ``offset + r * len(pattern) + p``, where ``offset`` counts the layers
 of the segments before it.  The port has one module per layer, so each
 stacked leaf is unstacked into ``layers.<i>.<leaf path>``.  With tied
-embeddings there is no ``unembed``.  Leaves arrive as numpy arrays (the
+embeddings there is no ``unembed``; an ``img_tokens`` config carries
+``img_proj`` across as it is.  Leaves arrive as numpy arrays (the
 tests convert the JAX pytree with ``np.asarray``), so this module needs no
 JAX.
 """
@@ -72,6 +73,8 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Ten
              "final_norm.scale": _tensor(np_params["final_norm"]["scale"])}
     if not cfg.tie_embeddings:
         state["unembed"] = _tensor(np_params["unembed"])
+    if cfg.img_tokens:
+        state["img_proj"] = _tensor(np_params["img_proj"])
     offset = 0
     for si, (pattern, reps) in enumerate(layout):
         seg = segs[f"seg{si}"]

@@ -1,9 +1,9 @@
 // Forward flash attention (online softmax) for Hopper (sm_90a), SIMT: the
 // prefill path for fp32, for bf16 at head_dim 16 and 32, and for calls with
-// key positions and more than 8 query rows.  The wrapper's plan
-// (repro_torch/kernels/flash_attention/ops.py:plan) sends bf16 prefill at
-// head_dim 64-256 to csrc/flash_prefill_tc.cu and every call of at most 8
-// query rows to csrc/flash_decode.cu.
+// key positions and more than 8 query rows; head_dim 16, 32, 64, 96, 128 or
+// 256.  The wrapper's plan (repro_torch/kernels/flash_attention/ops.py:plan)
+// sends bf16 prefill at head_dim 64-256 to csrc/flash_prefill_tc.cu and
+// every call of at most 8 query rows to csrc/flash_decode.cu.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:78 (flash_attention_kernel,
@@ -35,7 +35,10 @@
 // rescale of a row stay in the registers of the 16 threads that share it
 // (reduced with shuffles).  Tiles hold 64 query rows (RPT = 8), or 32 (RPT
 // = 4) at D = 256, where 64 rows would give each thread 128 fp32
-// accumulators and 209 KB of shared memory.
+// accumulators and 209 KB of shared memory.  D 96 takes RPT 8: 48
+// accumulators a thread (D / 16 = 6 columns of 8 rows), 89 KB of shared
+// memory; 168 registers in fp32, 165 in bf16 (128 each with key
+// positions; nvcc -Xptxas -v, sm_90a), no spills.
 #include "common.cuh"
 
 namespace {
@@ -249,6 +252,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
     REPRO_CASE(16, 8)
     REPRO_CASE(32, 8)
     REPRO_CASE(64, 8)
+    REPRO_CASE(96, 8)
     REPRO_CASE(128, 8)
     REPRO_CASE(256, 4)
     default:

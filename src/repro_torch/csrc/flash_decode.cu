@@ -1,5 +1,6 @@
 // Flash attention forward, decode: a split over the keys, then a merge
-// (sm_90a; fp32 or bf16; head_dim 16-256; at most 8 query rows).
+// (sm_90a; fp32 or bf16; head_dim 16, 32, 64, 96, 128 or 256; at most 8
+// query rows).
 //
 // Replaces, for queries of at most 8 rows, the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:78 (flash_attention_kernel,
@@ -17,7 +18,9 @@
 // - one block per (key split, kv head and 16 of its G * Sq query rows,
 //   batch): the rows of the block's score tile are the G query heads of the
 //   kv head times Sq, so each K/V tile is read once for all of them, not G
-//   times (chatglm3-6b: G 16, Sq 1: 16 rows; recurrentgemma-2b: 10);
+//   times (chatglm3-6b: G 16, Sq 1: 16 rows; recurrentgemma-2b: 10;
+//   phi-3-vision-4.2b, MHA: G 1, so 1 row of 16, and the block scores and
+//   multiplies 16 rows for it: a redesign candidate, PERF.md);
 // - the split count and split size (whole 64-key tiles) are chosen by the
 //   wrapper (ops.plan) so that the grid holds >= 2 x 132 blocks: chatglm3-6b
 //   decode 17 splits of one tile (272 blocks), recurrentgemma-2b's rolling
@@ -35,7 +38,8 @@
 //   128, fp32 up to 64; a split of one tile takes one stage, so more blocks
 //   fit on an SM); rows are stored with their 16-byte chunks XOR-swizzled
 //   by the row, so neither the score pass (lanes on consecutive keys) nor
-//   the P.V pass (a thread 8 columns) has bank conflicts;
+//   the P.V pass (a thread 8 columns) has bank conflicts (a bf16 row of D
+//   96 is 12 chunks: Layout::kSwzShift);
 // - 256 threads a block: warp w scores rows 2w and 2w + 1 against the
 //   tile's 64 keys (a lane two keys) and runs their online softmax on
 //   those registers (the row max and sum are warp reductions); a thread
@@ -50,8 +54,8 @@
 // Registers and spills (nvcc -Xptxas -v, sm_90a), split kernel: bf16 D 128
 // 77 registers (64 with kpos, 8 bytes spilled), D 256 80 (122 with kpos);
 // fp32 D 128 80 (108), D 256 128 (174); spills otherwise only at D 256
-// without kpos (56 bytes bf16, 40 fp32; on no served path); merge kernel
-// 40.
+// without kpos (56 bytes bf16, 40 fp32; on no served path); D 96: bf16 69
+// (80 with kpos), fp32 64 (64), no spills; merge kernel 40.
 #include <climits>
 
 #include "common.cuh"
@@ -138,10 +142,22 @@ template <typename T, int D>
 struct Layout {
   static constexpr int kVec = 16 / sizeof(T);     // elements of a chunk
   static constexpr int kChunks = D / kVec;        // 16-byte chunks of a row
-  static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
+  // chunk c of row j is stored at c ^ ((j >> kSwzShift) & kSwz): the XOR
+  // stays inside c's aligned group of kSwz + 1 chunks, the largest power
+  // of two (at most 8) that divides the row.  A row of 12 chunks (bf16 D
+  // 96, 192 bytes) puts rows j and j + 1 four chunks apart on the banks,
+  // so the XOR takes j / 2 there: eight consecutive rows then cover all 8
+  // bank groups of a 16-byte column
+  static constexpr int kSwz = (kChunks % 8 == 0   ? 8
+                               : kChunks % 4 == 0 ? 4
+                               : kChunks % 2 == 0 ? 2
+                                                  : 1) -
+                              1;
+  static constexpr int kSwzShift = kChunks > 4 && kChunks % 8 == 4 ? 1 : 0;
   static constexpr int kStages =
       2 * 2 * kBKV * D * (int)sizeof(T) <= 65536 ? 2 : 1;
   static constexpr int kCols = D / 8;             // P.V: 8 columns a thread
+  // (D 96: 12 column groups, 21 row groups; the last 4 threads idle)
   static constexpr int kRowGroups = kThreads / kCols;
   static constexpr int kRPT = (kRows + kRowGroups - 1) / kRowGroups;
   // shared memory with ``stages`` K/V stages
@@ -162,7 +178,7 @@ __host__ __device__ __forceinline__ int stages_of(int tiles_per_split) {
 template <typename T, int D>
 __device__ __forceinline__ int swz(int j, int c) {
   using L = Layout<T, D>;
-  return j * D + (c ^ (j & L::kSwz)) * L::kVec;
+  return j * D + (c ^ ((j >> L::kSwzShift) & L::kSwz)) * L::kVec;
 }
 
 template <typename T, int D, bool kPos>
@@ -528,6 +544,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     REPRO_CASE(16)
     REPRO_CASE(32)
     REPRO_CASE(64)
+    REPRO_CASE(96)
     REPRO_CASE(128)
     REPRO_CASE(256)
     default:

@@ -1,5 +1,5 @@
 // Flash attention forward, prefill, on the tensor cores (sm_90a): bf16,
-// head_dim 64, 128 or 256, more than 8 query rows.
+// head_dim 64, 96, 128 or 256, more than 8 query rows.
 //
 // Replaces, for that dtype and those shapes, the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:78 (flash_attention_kernel,
@@ -28,7 +28,11 @@
 //   contiguous along D: the transpose bit);
 // - Q and a two-stage ring of K/V tiles of 64 keys are loaded by TMA
 //   (cp.async.bulk.tensor, 4-D maps over the model layout (B, S, H, D),
-//   64 x 64 boxes with the 128-byte swizzle the descriptors name) and
+//   boxes of 64 rows by 64 columns with the 128-byte swizzle the
+//   descriptors name; at D 96, whose 192-byte row is no whole number of
+//   128-byte atoms, boxes of 32 columns with the 64-byte swizzle: three
+//   boxes a row, each a whole atom of both operands, the same 6 k16 steps
+//   for Q K^T and one m64n96k16 per 16 keys for P V) and
 //   complete on mbarriers; thread 0 issues every copy, tile t + 2 once all
 //   warps are past tile t (no warp specialisation, no persistent grid yet);
 // - the online softmax stays in registers: a thread holds 2 rows of its
@@ -49,8 +53,12 @@
 // touched inside the asynchronous stage); a producer warp with empty/full
 // barriers instead of the block barrier - a ninth warp caps registers at
 // 168 and D 256 spills (C7512), and setmaxnreg did not lift the cap.
-// Registers and spills (nvcc -Xptxas -v, sm_90a): D 64: 106 registers,
-// D 128: 136, D 256: 201; no spills, no local memory.
+// Also right on the card at D 96 and not kept: 64-column boxes with the
+// 128-byte swizzle, the second box of a row half out of bounds (TMA fills
+// it with zeros) and P V reading one and a half atoms of V - a layout
+// outside the documented canonical ones, for a small difference in time.
+// Registers and spills (nvcc -Xptxas -v, sm_90a): D 64: 104 registers,
+// D 96: 122, D 128: 138, D 256: 201; no spills, no local memory.
 #include <cuda.h>   // CUtensorMap and its enums (the driver function is
                     // fetched at run time: no -lcuda)
 
@@ -59,9 +67,27 @@
 namespace {
 
 constexpr int kBKV = 64;                    // keys per tile
-constexpr int kBox = 64 * 64;               // elements of one 64 x 64 box
 constexpr int kWG = 2;                      // consumer warpgroups a block
 constexpr float kNegInf = -1073741824.f;    // -2^30, as the reference
+
+// The boxes a row of D columns is cut into: 64 columns (128-byte rows, the
+// 128-byte swizzle) where D is a multiple of 64, else 32 (64-byte rows, the
+// 64-byte swizzle), so that every box is a whole swizzle atom of its
+// operand: D 96 is three 32-column boxes.
+__host__ __device__ constexpr int box_cols(int D) {
+  return D % 64 == 0 ? 64 : 32;
+}
+
+template <int D>
+struct Tiles {
+  static constexpr int kCols = box_cols(D);            // columns of a box
+  static constexpr int kNB = D / kCols;                // boxes of a row
+  static constexpr int kBox = kBKV * kCols;   // elements of a box (64 rows)
+  static constexpr int kRowBytes = kCols * 2;          // = the swizzle span
+  static constexpr int kSteps = kCols / 16;   // k16 steps within a box
+  // descriptor swizzle mode (bits 62-63): 1 = 128-byte, 2 = 64-byte
+  static constexpr uint64_t kSwizzle = kCols == 64 ? 1 : 2;
+};
 
 struct Params {
   int Sq, Hq, Hkv;
@@ -126,12 +152,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 
 // ---- wgmma ----
 
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+// shared-memory matrix descriptor of a box of Tiles<D>, swizzled as its
+// TMA map wrote it; offsets in bytes
+template <int D>
 __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) |
+         (Tiles<D>::kSwizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -198,6 +227,37 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 96] += A[64 x 16] B[16 x 96]: A in registers, B MN-major
+// (the transpose bit) in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n96(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -304,6 +364,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (D == 64) wgmma_rs_m64n64(d, a, desc_b);
+  if constexpr (D == 96) wgmma_rs_m64n96(d, a, desc_b);
   if constexpr (D == 128) wgmma_rs_m64n128(d, a, desc_b);
   if constexpr (D == 256) wgmma_rs_m64n256(d, a, desc_b);
 }
@@ -328,24 +389,27 @@ __device__ __forceinline__ void key_range(const Params& p, int q_first,
 }
 
 // K and V tile t (64 keys of kv head hk, batch b) into ring stage st
-template <int NB>
+template <int D>
 __device__ __forceinline__ void load_kv(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, uint64_t* bar,
                                         int st, int t, int hk, int b) {
-  mbar_expect_tx(bar, 2u * NB * kBox * 2);
+  using T = Tiles<D>;
+  mbar_expect_tx(bar, 2u * T::kNB * T::kBox * 2);
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    tma_load_4d(Ks + (st * NB + nb) * kBox, tk, bar, nb * 64, hk, t * kBKV, b);
-    tma_load_4d(Vs + (st * NB + nb) * kBox, tv, bar, nb * 64, hk, t * kBKV, b);
+  for (int nb = 0; nb < T::kNB; ++nb) {
+    tma_load_4d(Ks + (st * T::kNB + nb) * T::kBox, tk, bar, nb * T::kCols, hk,
+                t * kBKV, b);
+    tma_load_4d(Vs + (st * T::kNB + nb) * T::kBox, tv, bar, nb * T::kCols, hk,
+                t * kBKV, b);
   }
 }
 
-// Shared memory: Q [kWG][D/64][64][64], then K and V rings
-// [2][D/64][64][64], each box 128-byte swizzled, 1024-byte aligned.
+// Shared memory: Q [kWG][NB][64][cols], then K and V rings
+// [2][NB][64][cols], each box swizzled, 1024-byte aligned.
 template <int D>
 constexpr size_t smem_bytes() {
-  return (size_t)(kWG + 4) * (D / 64) * kBox * 2 + 1024;
+  return (size_t)(kWG + 4) * Tiles<D>::kNB * Tiles<D>::kBox * 2 + 1024;
 }
 
 template <int D>
@@ -354,8 +418,9 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         __nv_bfloat16* __restrict__ o, Params p) {
+  using TL = Tiles<D>;
   constexpr int BQ = 64 * kWG;              // query rows of the block
-  constexpr int NB = D / 64;                // 64-column boxes of a row
+  constexpr int NB = TL::kNB, kBox = TL::kBox;
   extern __shared__ unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -394,10 +459,10 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int w = 0; w < nwg; ++w)
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
-        tma_load_4d(Qs + (w * NB + nb) * kBox, &tq, &bar_q, nb * 64, h,
-                    q0 + w * 64, b);
+        tma_load_4d(Qs + (w * NB + nb) * kBox, &tq, &bar_q, nb * TL::kCols,
+                    h, q0 + w * 64, b);
     for (int s = 0; s < 2 && s < ntiles; ++s)
-      load_kv<NB>(Ks, Vs, &tk, &tv, &bar_kv[s], s, t_lo + s, hk, b);
+      load_kv<D>(Ks, Vs, &tk, &tv, &bar_kv[s], s, t_lo + s, hk, b);
   }
 
   float oacc[D / 2];
@@ -423,15 +488,17 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int t = t_lo + it, st = it & 1;
     mbar_wait(&bar_kv[st], (it >> 1) & 1);
     if (wrows > 0 && t >= w_tlo && t < w_thi) {   // warpgroup-uniform
-      // S = Q K^T: D/16 steps of k16; within a 64-column box a step moves
-      // the descriptor 32 bytes, a box is 64 rows x 128 bytes further
+      // S = Q K^T: D/16 steps of k16; within a box a step moves the
+      // descriptor 32 bytes, the next box is 64 rows further; the stride
+      // of 8-row groups is 8 rows of the box
       float s[32];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk / 4) * kBox + (kk % 4) * 16;
-        wgmma_ss_m64n64(s, make_desc(Qw + off, 16, 1024),
-                        make_desc(Ks + st * NB * kBox + off, 16, 1024),
+        const int off = (kk / TL::kSteps) * kBox + (kk % TL::kSteps) * 16;
+        wgmma_ss_m64n64(s, make_desc<D>(Qw + off, 16, 8 * TL::kRowBytes),
+                        make_desc<D>(Ks + st * NB * kBox + off, 16,
+                                     8 * TL::kRowBytes),
                         kk > 0);
       }
       wgmma_commit();
@@ -494,22 +561,23 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * j + 3] *= corr[1];
       }
 
-      // O += P V: 4 steps of 16 keys; a step is 16 rows x 128 bytes of
-      // each V box; the boxes (64 columns each) are 64 x 128 bytes apart
+      // O += P V: 4 steps of 16 keys; a step is 16 rows of each V box;
+      // along D the boxes (the swizzle atoms of the MN-major operand) are
+      // a box apart, along the keys 8-row groups 8 rows apart
       reg_fence(oacc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<D>(oacc, pa[kk],
-                    make_desc(Vs + st * NB * kBox + kk * 16 * 64,
-                              kBKV * 128, 1024));
+                    make_desc<D>(Vs + st * NB * kBox + kk * 16 * TL::kCols,
+                                 kBox * 2, 8 * TL::kRowBytes));
       wgmma_commit();
       wgmma_wait_all();
       reg_fence(oacc);
     }
     __syncthreads();   // every warp is done with stage st
     if (tid == 0 && it + 2 < ntiles)
-      load_kv<NB>(Ks, Vs, &tk, &tv, &bar_kv[st], st, t + 2, hk, b);
+      load_kv<D>(Ks, Vs, &tk, &tv, &bar_kv[st], st, t + 2, hk, b);
   }
 
   // l: sum over the quad; out = acc / max(l, 1e-30), as acc times the
@@ -557,8 +625,8 @@ EncodeTiled encode_tiled() {
 }
 
 // The model layout (B, S, H, D), bf16, contiguous, as a 4-D map with
-// 64 (of D) x 1 x 64 (of S) x 1 boxes, 128-byte swizzle, zeros out of
-// bounds.
+// box_cols(D) (of D) x 1 x 64 (of S) x 1 boxes, swizzled by the box's row
+// bytes (128 or 64), zeros out of bounds.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return false;
@@ -566,11 +634,13 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, kBKV, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols(D), 1, kBKV, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             box_cols(D) == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -590,7 +660,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }  // namespace
 
 // q, o (B, Sq, Hq, D), k, v (B, Skv, Hkv, D): bf16, contiguous, 16-byte
-// aligned; D in {64, 128, 256}; Sq > 8 (fewer rows take the split decode
+// aligned; D in {64, 96, 128, 256}; Sq > 8 (fewer rows take the split decode
 // kernel).  Returns the CUDA error of the launch (0 on
 // success; cudaErrorInvalidValue for another D or a tensor map the driver
 // refuses).
@@ -611,6 +681,8 @@ extern "C" int flash_prefill_tc_fwd(const void* q, const void* k,
   switch (D) {
     case 64:
       return launch<64>(tq, tk, tv, o, B, p, s);
+    case 96:
+      return launch<96>(tq, tk, tv, o, B, p, s);
     case 128:
       return launch<128>(tq, tk, tv, o, B, p, s);
     case 256:

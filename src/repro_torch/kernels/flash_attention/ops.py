@@ -8,10 +8,10 @@ launches the kernel that :func:`plan` names, and every call adds one to
 ``flash_attention.impl_launches``:
 
 - ``split_decode`` (``csrc/flash_decode.cu``): at most 8 query rows, every
-  dtype and head_dim; the keys are split over blocks and the splits merged
-  by a second small kernel;
-- ``tc_prefill`` (``csrc/flash_prefill_tc.cu``): bf16 at head_dim 64, 128
-  or 256 without key positions, on the tensor cores (wgmma, TMA);
+  dtype and head_dim of ``HEAD_DIMS``; the keys are split over blocks and
+  the splits merged by a second small kernel;
+- ``tc_prefill`` (``csrc/flash_prefill_tc.cu``): bf16 at head_dim 64, 96,
+  128 or 256 without key positions, on the tensor cores (wgmma, TMA);
 - ``simt`` (``csrc/flash_attention.cu``): the rest of prefill (fp32, bf16 at
   head_dim 16 or 32, key positions), on the fp32 cores.
 """
@@ -29,8 +29,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
-TC_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # any other head_dim raises
+TC_HEAD_DIMS = (64, 96, 128, 256)
 KV_TILE = 64            # keys of a tile in every kernel
 DECODE_MAX_SQ = 8       # query rows the split decode kernel takes
 DECODE_BLOCK_ROWS = 16  # rows (query heads of a kv head x queries) a block
@@ -57,12 +57,16 @@ def _cdiv(a: int, b: int) -> int:
 
 def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
          kv_len: int, k_pos: bool = False) -> Plan:
-    """The kernel for a call of these shapes (pure Python, no device).
+    """The kernel for a call of these shapes (pure Python, no device);
+    raises for a head_dim no kernel takes (not in ``HEAD_DIMS``).
 
     Decode (``Sq <= 8``) aims at MIN_BLOCKS blocks of the split kernel with
     splits of whole 64-key tiles: B * Hkv * ceil(G * Sq / 16) blocks per
     split, and as many splits as that needs, one tile each unless the cache
     is long enough for more."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {D} must be one of "
+                         f"{HEAD_DIMS}")
     if Sq <= DECODE_MAX_SQ:
         base = B * Hkv * _cdiv(Hq // Hkv * Sq, DECODE_BLOCK_ROWS)
         tiles = _cdiv(kv_len, KV_TILE)
@@ -128,9 +132,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D not in HEAD_DIMS or Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"flash_attention: head_dim {D} must be one of "
-                         f"{HEAD_DIMS} and Hq={Hq} a multiple of Hkv={Hkv}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: Hq={Hq} must be a multiple of "
+                         f"Hkv={Hkv}")
     if not 0 <= kv_len <= Skv or q_offset < 0 or window < 0 or chunk < 0:
         raise ValueError("flash_attention: need 0 <= kv_len <= Skv and "
                          "non-negative q_offset, window, chunk")

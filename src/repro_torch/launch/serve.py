@@ -4,10 +4,14 @@ the caches (counterpart: ``examples/serve_decode.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \
         [--layers N] [--batch 8] [--prompt-len 1024] [--tokens 32]
 
-with ARCH one of chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b; it
-runs the configuration at its published widths with random weights from
-``--seed`` on the CUDA card and prints one JSON line of timings, taken after
-a short untimed warm-up (which also builds the kernels).
+with ARCH one of chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b,
+phi-3-vision-4.2b; it runs the configuration at its published widths with
+random weights from ``--seed`` on the CUDA card and prints one JSON line of
+timings, taken after a short untimed warm-up (which also builds the
+kernels).  For phi-3-vision-4.2b each prompt of ``--prompt-len`` text tokens
+comes after the config's 1024 image-patch embeddings, drawn standard normal
+from the same seeded generator (the vision frontend is a stub, as in the
+reference).
 ``--reduced --device cpu`` runs the test-size configuration on the CPU.
 """
 from __future__ import annotations
@@ -17,6 +21,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -39,19 +44,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Transformer, prompts: torch.Tensor,
-             max_new: int) -> Generation:
-    """Greedy continuation of ``prompts`` (B, S): one prefill, then
-    ``max_new - 1`` decode steps, each on the previous step's argmax."""
+def generate(model: Transformer, prompts: torch.Tensor, max_new: int,
+             img_embeds: Optional[torch.Tensor] = None) -> Generation:
+    """Greedy continuation of ``prompts`` (B, S), after the image embeddings
+    (B, N, d) of an ``img_tokens`` model: one prefill over the N + S
+    positions, then ``max_new - 1`` decode steps from position N + S, each
+    on the previous step's argmax."""
     if max_new < 1:
         raise ValueError("max_new must be at least 1")
-    B, S = prompts.shape
+    # positions the prefill fills, image ones first
+    S = prompts.shape[1] + (0 if img_embeds is None else img_embeds.shape[1])
     prefill = make_prefill_step(model, max_len=S + max_new)
     decode = make_decode_step(model)
     dev = prompts.device
+    batch = {"tokens": prompts}
+    if img_embeds is not None:
+        batch["img_embeds"] = img_embeds
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": prompts})
+    logits, cache = prefill(batch)
     cur = logits[:, 0].argmax(-1, keepdim=True)
     _sync(dev)
     t1 = time.perf_counter()
@@ -89,17 +100,21 @@ def main(argv=None) -> dict:
     g = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=g, device=device)
+    img = None
+    if cfg.img_tokens:     # as the reference's train.py draws them
+        img = torch.randn(args.batch, cfg.img_tokens, cfg.d_model,
+                          generator=g, device=device).to(model.dtype)
     # not timed: the kernels' first-use build, cuBLAS handles, the allocator
-    generate(model, prompts[:, :16], 2)
+    generate(model, prompts[:, :16], 2, None if img is None else img[:, :16])
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    out = generate(model, prompts, args.tokens)
+    out = generate(model, prompts, args.tokens, img)
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "batch": args.batch, "prompt_len": args.prompt_len,
-        "tokens": args.tokens,
+        "img_tokens": cfg.img_tokens, "tokens": args.tokens,
         "prefill_ms": out.prefill_s * 1e3,
         "decode_tok_per_s": args.batch * (args.tokens - 1) / out.decode_s
         if args.tokens > 1 else None,

@@ -11,9 +11,11 @@ from repro_torch.models.transformer import Transformer
 
 def make_prefill_step(model: Transformer, max_len: int):
     """``prefill_step(batch) -> (last logits (B, 1, V), cache)``; batch keys:
-    ``tokens`` (B, S)."""
+    ``tokens`` (B, S), and ``img_embeds`` (B, N, d) for an ``img_tokens``
+    config (``max_len`` counts its N positions)."""
     def prefill_step(batch):
-        return model.prefill(batch["tokens"], max_len=max_len)
+        return model.prefill(batch["tokens"], max_len=max_len,
+                             img_embeds=batch.get("img_embeds"))
     return prefill_step
 
 

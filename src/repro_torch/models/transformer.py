@@ -8,7 +8,11 @@ and a Python loop runs them (``repro_torch.convert`` unstacks reference
 params).  Layer kinds: full causal attention (``attn``), sliding-window
 attention with a rolling cache (``attn_local``), the RG-LRU block
 (``rglru``) and the Mamba-1 block (``mamba``); an ``ssm``-family layer has
-no MLP.
+no MLP.  A ``vlm`` config (``img_tokens``) takes precomputed image-patch
+embeddings (B, N, d), projected by ``img_proj`` and put before the token
+embeddings: positions and the causal mask run over the N image tokens, then
+the text, and decoding goes on at position N + S (the vision frontend is a
+stub, as in the reference).
 
 Numerics follow the reference: the residual stream, projections and MLP run
 in the param dtype; RMSNorm is fp32 inside and rounds to the dtype (through
@@ -54,7 +58,6 @@ def check_ported(cfg: ModelConfig) -> None:
         (f"mlp={cfg.mlp!r}", cfg.mlp not in PORTED_MLPS, _LATER),
         (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm", _LATER),
         ("is_encdec", cfg.is_encdec, _LATER),
-        ("img_tokens", cfg.img_tokens, _LATER),
         ("attn_logit_softcap", cfg.attn_logit_softcap, _LATER),
     )
     for what, present, where in unported:
@@ -224,21 +227,46 @@ class Transformer(nn.Module):
                                             device, generator))
         self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device, generator)
                                     for kind in cfg.layer_kinds())
+        if cfg.img_tokens:
+            self.img_proj = param(dense_init(cfg.d_model, cfg.d_model, dtype,
+                                             device, generator))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _embed(self, tokens: torch.Tensor,
+               img_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """Token embeddings (B, S, d), after the projected image embeddings
+        (B, N, d) for an ``img_tokens`` config: (B, N + S, d)."""
+        x = F.embedding(tokens, self.embed)
+        if not self.cfg.img_tokens:
+            if img_embeds is not None:
+                raise ValueError(f"{self.cfg.name} takes no image embeddings")
+            return x
+        if img_embeds is None:
+            raise ValueError(f"{self.cfg.name} needs img_embeds (B, N, "
+                             f"{self.cfg.d_model})")
+        B = tokens.shape[0]
+        if img_embeds.dim() != 3 or img_embeds.shape[0] != B \
+                or img_embeds.shape[2] != self.cfg.d_model:
+            raise ValueError(f"img_embeds {tuple(img_embeds.shape)}: want "
+                             f"({B}, N, {self.cfg.d_model})")
+        img = img_embeds.to(x.dtype) @ self.img_proj
+        return torch.cat([img, x], 1)
 
     def _unembed(self, x):
         x = self.final_norm(x)
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return (x @ w).float()
 
-    def forward(self, tokens: torch.Tensor,
-                last: Optional[int] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, last: Optional[int] = None,
+                img_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, vocab) fp32, no cache; with
-        ``last``, the logits of the last ``last`` positions only."""
-        x = F.embedding(tokens, self.embed)
+        ``last``, the logits of the last ``last`` positions only.  With
+        image embeddings (B, N, d) the logits cover all N + S positions, the
+        image ones first, as the reference's."""
+        x = self._embed(tokens, img_embeds)
         for layer in self.layers:
             x = layer(x)
         if last is not None:
@@ -269,17 +297,18 @@ class Transformer(nn.Module):
             layers.append(c)
         return Cache(layers)
 
-    def prefill(self, tokens: torch.Tensor,
-                max_len: int) -> Tuple[torch.Tensor, Cache]:
-        """Run the prompt (B, S) from position 0, filling a fresh cache for
-        ``max_len`` positions.  Returns (last-position logits (B, 1, V),
-        cache)."""
-        B, S = tokens.shape
-        cache = self.init_cache(B, max_len)
-        x = F.embedding(tokens, self.embed)
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                img_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt (B, S), after the image embeddings (B, N, d) of an
+        ``img_tokens`` config, from position 0, filling a fresh cache for
+        ``max_len`` positions (image ones included).  Returns
+        (last-position logits (B, 1, V), cache holding N + S positions)."""
+        cache = self.init_cache(tokens.shape[0], max_len)
+        x = self._embed(tokens, img_embeds)
         for layer, c in zip(self.layers, cache.layers):
             x = layer(x, 0, c)
-        cache.length = S
+        cache.length = x.shape[1]
         return self._unembed(x[:, -1:].contiguous()), cache
 
     def decode_step(self, token: torch.Tensor, pos: int,

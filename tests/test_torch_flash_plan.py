@@ -19,8 +19,9 @@ import torch
 
 from repro.kernels import flash_attention as jax_flash_attention
 from repro.models.attention import dense_attention
-from repro_torch.kernels.flash_attention.ops import (KV_TILE, MIN_BLOCKS,
-                                                     TC_HEAD_DIMS, plan)
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, KV_TILE,
+                                                     MIN_BLOCKS, TC_HEAD_DIMS,
+                                                     plan)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      decode_tiles,
                                                      split_decode_ref)
@@ -84,8 +85,8 @@ def test_plan_picks_the_kernel_for_each_phase3_case(name, shape, kw, dtype):
     else:
         want = "simt"
     assert how.impl == want
-    if dtype == torch.bfloat16 and name in CHIP_SMOKE.FLASH_TIMED:
-        assert how.impl == CHIP_SMOKE.FLASH_TIMED[name]
+    if name in CHIP_SMOKE.FLASH_TIMED[dtype]:
+        assert how.impl == CHIP_SMOKE.FLASH_TIMED[dtype][name]
 
 
 def test_serve_shapes_take_the_redesigned_kernels():
@@ -103,6 +104,31 @@ def test_serve_shapes_take_the_redesigned_kernels():
                     "k_pos" in kw).impl == impl
     (B, Sq, _, Hq, Hkv, D), _ = shapes["prefill"]
     assert plan(B, Sq, Hq, Hkv, D, torch.float32, Sq).impl == "simt"
+
+
+@pytest.mark.parametrize("dtype,Sq,k_pos,impl", [
+    (torch.bfloat16, 2048, False, "tc_prefill"),   # phi-3-vision prefill
+    (torch.bfloat16, 9, False, "tc_prefill"),
+    (torch.bfloat16, 24, True, "simt"),            # key positions
+    (torch.float32, 2048, False, "simt"),
+    (torch.bfloat16, 1, False, "split_decode"),    # phi-3-vision decode
+    (torch.float32, 1, False, "split_decode"),
+    (torch.bfloat16, 8, True, "split_decode"),
+])
+def test_plan_at_head_dim_96(dtype, Sq, k_pos, impl):
+    """phi-3-vision-4.2b's head_dim reaches all three kernels."""
+    assert 96 in HEAD_DIMS and 96 in TC_HEAD_DIMS
+    assert plan(8, Sq, 32, 32, 96, dtype, 2080, k_pos).impl == impl
+
+
+@pytest.mark.parametrize("D", [8, 48, 80, 112, 160, 512])
+@pytest.mark.parametrize("Sq", [1, 2048])
+def test_plan_raises_for_head_dims_without_a_kernel(D, Sq):
+    """No fallback: a head_dim no kernel takes raises, decode and prefill,
+    whatever the dtype."""
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head_dim"):
+            plan(2, Sq, 4, 4, D, dtype, 2048)
 
 
 # ---- how split decode cuts the keys ----
@@ -144,6 +170,14 @@ def test_decode_serve_shapes_fill_the_card():
     assert (glm.splits, glm.tiles_per_split, glm.blocks) == (17, 1, 272)
     assert (rg.splits, rg.tiles_per_split, rg.blocks) == (64, 1, 512)
     assert min(glm.blocks, rg.blocks) >= 264
+
+
+def test_decode_mha_uses_one_row_of_sixteen():
+    """phi-3-vision-4.2b's decode (MHA, G 1): one block per (split, head,
+    batch) with 1 of its 16 rows used; 3 splits of 16 tiles over 2049
+    slots, 768 blocks (the G 1 row waste PERF.md records)."""
+    how = plan(8, 1, 32, 32, 96, torch.bfloat16, 2049)
+    assert (how.splits, how.tiles_per_split, how.blocks) == (3, 16, 768)
 
 
 # ---- which tiles are read ----
@@ -204,7 +238,11 @@ def _pair(a: np.ndarray):
     (2, 16, 2, 32, 300, 230, 231, 0),     # kv_len below the buffer
     (2, 10, 1, 32, 300, 299, None, 100),  # window
     (4, 32, 16, 32, 700, 699, None, 0),   # 64 blocks a split: splits of 2
-])                                        # tiles, the last one of 1
+                                          # tiles, the last one of 1
+    (2, 8, 8, 96, 700, 650, 651, 0),      # D 96, MHA (G 1)
+    (2, 4, 4, 96, 300, 299, None, 100),   # D 96, G 1, window
+    (1, 8, 2, 96, 400, 399, None, 0),     # D 96, G 4
+])
 def test_split_decode_matches_pallas(B, Hq, Hkv, D, Skv, pos, kv_len, window):
     """One query at ``pos`` over a cache; the Pallas kernel sees only the
     written slots (it has no kv_len), the port the whole buffer."""

@@ -87,6 +87,8 @@ def _qkv(B, Sq, Skv, Hq, Hkv, D, dtype, seed):
     (1, 64, 4, 4, 32),      # MHA
     (2, 80, 4, 2, 32),      # GQA, non-multiple S
     (1, 33, 8, 1, 16),      # MQA, ragged S
+    (1, 45, 4, 4, 96),      # phi-3-vision's head_dim: MHA, ragged S
+    (2, 70, 4, 2, 96),      # ... GQA, ragged S
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_causal_matches_pallas(B, S, Hq, Hkv, D, dtype):

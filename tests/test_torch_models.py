@@ -203,7 +203,6 @@ def test_config_matches_reference():
     (dict(attn_chunk=8, global_every=4), "attn_chunk"),
     (dict(attn_logit_softcap=30.0), "softcap"),
     (dict(is_encdec=True), "is_encdec"),
-    (dict(img_tokens=16), "img_tokens"),
     (dict(norm="layernorm"), "layernorm"),
     (dict(mlp="gelu"), "mlp='gelu'"),
 ])
