@@ -23,7 +23,12 @@ non-zero (no phase's failure is caught):
    prefill shapes; every case also held to its rows' scale, FLASH_ROW_TOL,
    and the serve decodes shown to fail that check without their newest
    key), the RG-LRU scan and the Mamba scan
-   (with its final state), the GA's group-label kernel (bit-equal to its plain version on
+   (with its final state); every flash case of at most 8 query rows runs
+   on both decode kernels, the plan's and the other one forced (the warp
+   decode kernel at G 1 and every head_dim, key positions, window, chunk,
+   up to 8 queries, B 1 with many splits, one split without the merge
+   kernel, and G * Sq at R_MAX and R_MAX + 1), and at phi-3-vision's decode
+   both are timed; the GA's group-label kernel (bit-equal to its plain version on
    mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
    random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
    all-one row, on a graph too long for shared memory at 4096, and at the
@@ -59,7 +64,11 @@ non-zero (no phase's failure is caught):
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
 contract line.  ``--label-sweep`` runs phases 1-2 and then only phase 3's
 label-kernel checks and times on chains of LABEL_SWEEP nodes, to place the
-plan's warp/block crossover; no contract line.
+plan's warp/block crossover; no contract line.  ``--decode-sweep`` runs
+phases 1-2 and then only both decode kernels, checked and timed over
+DECODE_SWEEP_ROWS query rows per kv head and DECODE_SWEEP_SPLITS key splits
+at head_dim 96 and 128 over a 2049-key cache, to place the plan's R_MAX and
+its split rule; no contract line.
 
 Before the last line: one JSON line ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power-limit line.  Last line:
@@ -85,6 +94,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import DECODE_IMPLS  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import plan as flash_plan  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -179,6 +189,13 @@ GA_DENSITIES = (0.5, 0.1)
 GA_BATCHES = (("mobilenet_v3", 64), ("resnet50", 128))
 # --label-sweep's chain lengths: 906 to 2772 words a row
 LABEL_SWEEP = (340, 450, 560, 680, 800, 920, 1040)
+# --decode-sweep: query rows per kv head (G at Sq 1) and warp_decode's key
+# splits, over phi-3-vision's decode cache (32 kv heads, 2049 of 2080
+# slots) at batch 8 (256 blocks before splitting) and, at 1 and 8 rows, at
+# batch 2 (64)
+DECODE_SWEEP_ROWS = (1, 2, 4, 5, 6, 7, 8, 10, 16)
+DECODE_SWEEP_SPLITS = (1, 2, 3, 4)
+DECODE_SWEEP_SMALL = (1, 8)
 
 
 def log(*a) -> None:
@@ -429,7 +446,11 @@ def flash_cases() -> list:
     prefill).  Then head_dim 96: phi-3-vision-4.2b's serve prefill (1024
     image + 1024 text positions, MHA 32:32) and first decode step (2049 of
     2080 slots), ragged cases reaching each kernel at D 96, G 1 among them,
-    and phase 5's fp32 prefill (1024 image + 128 text positions)."""
+    and phase 5's fp32 prefill (1024 image + 128 text positions).  Last,
+    decode cases for the warp kernel: G 1 at each head_dim, a wrapped
+    rolling buffer with key positions, window, chunk, 2 and 8 queries, B 1
+    with a long cache (many splits), a grid large enough for one split,
+    and G 8 and 9 (R_MAX and R_MAX + 1 rows a kv head)."""
     cfg = get_config("chatglm3-6b")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     _, B, P, N = SERVES[0]
@@ -522,6 +543,26 @@ def flash_cases() -> list:
         ("kpos_prefill_d96", (1, 24, 24, 4, 2, 96),
          dict(window=8, k_pos=torch.arange(24, dtype=torch.int32))),
         ("prefill_d96_s1152", (8, S_fp32, S_fp32) + heads_v, {}),
+        ("warp_d16_g1", (2, 1, 300, 4, 4, 16), dict(q_offset=299)),
+        ("warp_d32_g1_kv_len", (2, 1, 300, 4, 4, 32),
+         dict(q_offset=250, kv_len=251)),
+        ("warp_d64_g1_window", (2, 1, 700, 4, 4, 64),
+         dict(q_offset=699, window=100)),
+        ("warp_d128_g1_chunk", (2, 1, 500, 4, 4, 128),
+         dict(q_offset=450, kv_len=451, chunk=128)),
+        ("warp_d256_g1", (2, 1, 300, 2, 2, 256), dict(q_offset=299)),
+        ("warp_d96_g1_kpos_wrapped", (2, 1, 512, 4, 4, 96),
+         dict(q_offset=1300, window=300, k_pos=rolling_kpos(1300, 512))),
+        ("warp_d96_sq2_g4", (2, 2, 300, 8, 2, 96),
+         dict(q_offset=298, kv_len=300)),
+        ("warp_d96_sq8_g1_chunk", (1, 8, 400, 4, 4, 96),
+         dict(q_offset=392, chunk=128)),
+        ("warp_d128_b1_long", (1, 1, 4000, 4, 4, 128),
+         dict(q_offset=3990, kv_len=3991)),
+        ("warp_d64_one_split", (8, 1, 200, 32, 32, 64),
+         dict(q_offset=150, kv_len=151)),
+        ("warp_d128_g8", (2, 1, 500, 16, 2, 128), dict(q_offset=499)),
+        ("warp_d128_g9", (2, 1, 500, 18, 2, 128), dict(q_offset=499)),
     ]
 
 
@@ -532,20 +573,34 @@ FLASH_TIMED = {torch.bfloat16: {"prefill": "tc_prefill",
                                 "prefill_d256_window": "tc_prefill",
                                 "decode_d256_rolling": "split_decode",
                                 "prefill_d96": "tc_prefill",
-                                "decode_d96": "split_decode"},
+                                "decode_d96": "warp_decode"},
                torch.float32: {"prefill_s128": "simt",
                                "prefill_d256_s128_window": "simt",
                                "prefill_d96_s1152": "simt"}}
 
 
+def flash_check(name: str, out, ref, dt) -> tuple:
+    """(max abs error, row-scaled error); raises beyond TOL or
+    FLASH_ROW_TOL."""
+    err = close(out, ref, TOL[dt])
+    row_err = row_scaled_err(out, ref)
+    if not row_err <= FLASH_ROW_TOL[dt]:
+        raise AssertionError(f"flash {name} {dt}: error {row_err:.3e} of "
+                             f"the rows' scale > {FLASH_ROW_TOL[dt]:g}")
+    return err, row_err
+
+
 def kernels_flash(timer: Timer, rn) -> list:
     """Each case of ``flash_cases`` in bf16 and fp32 against the plain
     version, within TOL and FLASH_ROW_TOL, with the kernel it ran (``impl``:
-    the plan's, and at the timed shapes the one named in FLASH_TIMED);
-    timed at the FLASH_TIMED shapes (bf16 first: its prefill is the kernel
-    line's headline).  At each timed decode the plain version without the
-    newest key must fail FLASH_ROW_TOL, or the check could not see a kernel
-    that skips it."""
+    the plan's, and at the timed shapes the one named in FLASH_TIMED); a
+    case of at most 8 query rows also runs the other decode kernel, forced
+    (its own entry, ``forced``: true).  Timed at the FLASH_TIMED shapes
+    (bf16 first: its prefill is the kernel line's headline), and at
+    phi-3-vision's decode the forced split kernel beside the warp kernel,
+    in turns.  At each timed decode the plain version without the newest
+    key must fail FLASH_ROW_TOL, or the check could not see a kernel that
+    skips it."""
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         for name, (Bq, Sq, Skv, Hq, Hkv, D), kw in flash_cases():
@@ -558,28 +613,34 @@ def kernels_flash(timer: Timer, rn) -> list:
             out = flash_attention(q, k, v, **kw)
             impl = next(i for i, n in flash_attention.impl_launches.items()
                         if n > before[i])
-            how = flash_plan(Bq, Sq, Hq, Hkv, D, dt, kw.get("kv_len", Skv),
-                             "k_pos" in kw)
+            kv_len = kw.get("kv_len", Skv)
+            how = flash_plan(Bq, Sq, Hq, Hkv, D, dt, kv_len, "k_pos" in kw)
             serve = name in FLASH_TIMED[dt]
             if impl != how.impl or (serve and impl != FLASH_TIMED[dt][name]):
                 raise AssertionError(f"flash {name}: ran {impl}, planned "
                                      f"{how.impl}")
             ref = attention_ref(q, k, v, **kw)
-            err = close(out, ref, TOL[dt])
-            row_err = row_scaled_err(out, ref)
-            if not row_err <= FLASH_ROW_TOL[dt]:
-                raise AssertionError(f"flash {name} {dt}: error {row_err:.3e}"
-                                     f" of the rows' scale > "
-                                     f"{FLASH_ROW_TOL[dt]:g}")
+            err, row_err = flash_check(name, out, ref, dt)
             case = {"case": name, "shape": [Bq, Sq, Skv, Hq, Hkv, D],
                     **{a: b for a, b in kw.items() if a != "k_pos"},
                     "k_pos": "k_pos" in kw, "dtype": str(dt)[6:],
                     "impl": impl, "tol": TOL[dt], "max_abs_err": err,
                     "row_tol": FLASH_ROW_TOL[dt], "row_scaled_err": row_err}
-            if how.impl == "split_decode":
+            other = None
+            if how.impl in DECODE_IMPLS:
                 case.update(splits=how.splits,
                             tiles_per_split=how.tiles_per_split,
                             blocks=how.blocks)
+                alt = next(i for i in DECODE_IMPLS if i != how.impl)
+                forced = flash_plan(Bq, Sq, Hq, Hkv, D, dt, kv_len,
+                                    "k_pos" in kw, alt)
+                err_f, row_f = flash_check(
+                    f"{name} ({alt} forced)",
+                    flash_attention(q, k, v, impl=alt, **kw), ref, dt)
+                other = dict(case, impl=alt, forced=True, max_abs_err=err_f,
+                             row_scaled_err=row_f, splits=forced.splits,
+                             tiles_per_split=forced.tiles_per_split,
+                             blocks=forced.blocks)
             if serve and Sq == 1:
                 short = dict(kw, kv_len=kw.get("kv_len", Skv) - 1)
                 miss = row_scaled_err(attention_ref(q, k, v, **short), ref)
@@ -599,8 +660,25 @@ def kernels_flash(timer: Timer, rn) -> list:
                                       reps=5),
                     library_ms=timer.ms(lib),
                     **flash_work(Bq, Sq, Skv, Hq, Hkv, D, dt, **kw))
+                if how.impl == "warp_decode":
+                    # the split kernel beside it, in turns: warp (above),
+                    # split, split, warp
+                    alt = other["impl"]
+                    t_alt = [timer.ms(lambda: flash_attention(
+                        q, k, v, impl=alt, **kw)) for _ in range(2)]
+                    t_own = [case["ms"], timer.ms(
+                        lambda: flash_attention(q, k, v, **kw))]
+                    case.update(ms=statistics.mean(t_own), ms_runs=t_own)
+                    other.update(
+                        {a: case[a] for a in ("plain_ms", "library_ms",
+                                              "bytes", "flops", "bound_ms",
+                                              "bound_by")},
+                        ms=statistics.mean(t_alt), ms_runs=t_alt)
             log(f"[kernels] flash_attention {case}")
             cases.append(case)
+            if other is not None:
+                log(f"[kernels] flash_attention {other}")
+                cases.append(other)
             del q, k, v, out, ref
     return cases
 
@@ -834,10 +912,18 @@ def expected_launches(cfg, new: int) -> dict:
 def expected_flash_impls(cfg, new: int) -> dict:
     """Which flash kernel ``generate`` runs: every attention layer's prefill
     on the tensor cores in bf16, on the SIMT kernel in fp32; its new - 1
-    decode steps split."""
+    decode steps (one query a sequence) on the decode kernel the plan
+    picks for the config's heads: ``warp_decode`` at up to R_MAX query
+    heads per kv head, else ``split_decode``."""
     attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
-    impls = {"split_decode": attn * (new - 1), "tc_prefill": 0, "simt": 0}
-    impls["tc_prefill" if cfg.param_dtype == "bfloat16" else "simt"] = attn
+    bf16 = cfg.param_dtype == "bfloat16"
+    impls = dict.fromkeys(flash_attention.impl_launches, 0)
+    if attn:
+        decode = flash_plan(1, 1, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.resolved_head_dim,
+                            torch.bfloat16 if bf16 else torch.float32, 1)
+        impls[decode.impl] = attn * (new - 1)
+        impls["tc_prefill" if bf16 else "simt"] = attn
     return impls
 
 
@@ -1046,6 +1132,53 @@ def label_sweep() -> None:
                graphs)
 
 
+def decode_sweep() -> None:
+    """Both decode kernels in bf16 over a 2049-key cache of 32 kv heads
+    (phi-3-vision-4.2b's decode at G 1) with G = DECODE_SWEEP_ROWS query
+    heads per kv head, at head_dim 96 and 128: ``warp_decode`` forced at
+    each of DECODE_SWEEP_SPLITS splits and at the plan's, ``split_decode``
+    forced at its plan, each checked against the plain version (TOL and
+    FLASH_ROW_TOL) and timed beside SDPA and the bound.  One line a shape;
+    the plan's R_MAX and WARP_MIN_BLOCKS are read from them."""
+    timer = Timer()
+    g = torch.Generator(device=DEV).manual_seed(1234)
+    dt, Skv, Hkv = torch.bfloat16, 2080, 32
+    kw = dict(q_offset=2048, kv_len=2049)
+    shapes = [(D, 8, r) for D in (96, 128) for r in DECODE_SWEEP_ROWS]
+    shapes += [(D, 2, r) for D in (96, 128) for r in DECODE_SWEEP_SMALL]
+    for D, B, rows in shapes:
+        Hq = Hkv * rows
+        q, k, v = (torch.randn(*s, generator=g, device=DEV).to(dt)
+                   for s in ((B, 1, Hq, D), (B, Skv, Hkv, D),
+                             (B, Skv, Hkv, D)))
+        ref = attention_ref(q, k, v, **kw)
+        plans = {f"warp_decode_s{n}": flash_plan(
+            B, 1, Hq, Hkv, D, dt, 2049, impl="warp_decode", splits=n)
+            for n in DECODE_SWEEP_SPLITS}
+        plans["warp_decode_plan"] = flash_plan(B, 1, Hq, Hkv, D, dt, 2049,
+                                               impl="warp_decode")
+        plans["split_decode_plan"] = flash_plan(B, 1, Hq, Hkv, D, dt, 2049,
+                                                impl="split_decode")
+        row = {"head_dim": D, "batch": B, "rows_per_kv_head": rows,
+               "plan": flash_plan(B, 1, Hq, Hkv, D, dt, 2049).impl}
+        # each entry: its splits, tiles a split, blocks and time
+        for name, how in plans.items():
+            forced = None if name.endswith("_plan") else how.splits
+
+            def call(how=how, forced=forced):
+                return flash_attention(q, k, v, impl=how.impl,
+                                       splits=forced, **kw)
+            flash_check(f"sweep {name} D {D} G {rows}", call(), ref, dt)
+            row[name] = {"splits": how.splits,
+                         "tiles_per_split": how.tiles_per_split,
+                         "blocks": how.blocks, "ms": timer.ms(call)}
+        row["library_ms"] = timer.ms(sdpa_call(q, k, v, True, 0, 2048, 2049,
+                                               None))
+        row.update(flash_work(B, 1, Skv, Hq, Hkv, D, dt, **kw))
+        log(f"[sweep] {json.dumps(row)}")
+        del q, k, v, ref
+
+
 def kernel_line(rows: dict, runs: dict) -> dict:
     """One entry per kernel; its top-level numbers are those of its first
     timed case (a serve shape in bf16, the scans in fp32 as the models run
@@ -1065,6 +1198,7 @@ def kernel_line(rows: dict, runs: dict) -> dict:
             "residual form)"),
         "tc_prefill": ("src/repro_torch/csrc/flash_prefill_tc.cu", flash),
         "split_decode": ("src/repro_torch/csrc/flash_decode.cu", flash),
+        "warp_decode": ("src/repro_torch/csrc/flash_decode.cu", flash),
         "simt": ("src/repro_torch/csrc/flash_attention.cu", flash),
         "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                        "src/repro/kernels/rglru_scan/kernel.py:39 "
@@ -1111,6 +1245,10 @@ def main(argv=None) -> int:
     ap.add_argument("--label-sweep", action="store_true",
                     help="build, then only the label kernel's variants on "
                          "chains of 340-1040 nodes (no contract line)")
+    ap.add_argument("--decode-sweep", action="store_true",
+                    help="build, then only both decode kernels over 1-16 "
+                         "query rows per kv head and 1-4 key splits (no "
+                         "contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1126,6 +1264,9 @@ def main(argv=None) -> int:
         return 0
     if args.label_sweep:
         label_sweep()
+        return 0
+    if args.decode_sweep:
+        decode_sweep()
         return 0
     rows = phase_kernels(Timer())
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,8 @@
-// Flash attention forward, decode: a split over the keys, then a merge
-// (sm_90a; fp32 or bf16; head_dim 16, 32, 64, 96, 128 or 256; at most 8
-// query rows).
+// Flash attention forward, decode, two kernels (sm_90a; fp32 or bf16;
+// head_dim 16, 32, 64, 96, 128 or 256; at most 8 query rows): the split
+// kernel, a split over the keys then a merge, for many query rows per kv
+// head (G * Sq > 8); and the warp kernel, for few (see "Warp decode"
+// below).  The wrapper's plan (ops.plan) picks one by G * Sq.
 //
 // Replaces, for queries of at most 8 rows, the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:78 (flash_attention_kernel,
@@ -18,9 +20,9 @@
 // - one block per (key split, kv head and 16 of its G * Sq query rows,
 //   batch): the rows of the block's score tile are the G query heads of the
 //   kv head times Sq, so each K/V tile is read once for all of them, not G
-//   times (chatglm3-6b: G 16, Sq 1: 16 rows; recurrentgemma-2b: 10;
-//   phi-3-vision-4.2b, MHA: G 1, so 1 row of 16, and the block scores and
-//   multiplies 16 rows for it: a redesign candidate, PERF.md);
+//   times (chatglm3-6b: G 16, Sq 1: 16 rows; recurrentgemma-2b: 10; at G 1
+//   a block would score and multiply 16 rows for one: the warp kernel
+//   takes such calls);
 // - the split count and split size (whole 64-key tiles) are chosen by the
 //   wrapper (ops.plan) so that the grid holds >= 2 x 132 blocks: chatglm3-6b
 //   decode 17 splits of one tile (272 blocks), recurrentgemma-2b's rolling
@@ -56,6 +58,35 @@
 // fp32 D 128 80 (108), D 256 128 (174); spills otherwise only at D 256
 // without kpos (56 bytes bf16, 40 fp32; on no served path); D 96: bf16 69
 // (80 with kpos), fp32 64 (64), no spills; merge kernel 40.
+//
+// Warp decode.  Bound: bytes, and at few rows the split kernel's 16-row
+// tiles are mostly padding (phi-3-vision-4.2b, MHA: its time followed the
+// 16 rows' score and P.V work, 22% of its bound).  So the rows come from
+// the keys instead:
+// - one block per (key split, kv head and up to 8 of its G * Sq query
+//   rows, batch) holds all of the kv head's rows, so each K/V byte is read
+//   once for all of them;
+// - warp w takes keys [w 64 / warps, (w + 1) 64 / warps) of each tile the
+//   split can see (the split kernel's skipping rule, so a rolling decode
+//   still reads only its window); a key's row is held by a lane group (8
+//   columns a lane: one 16-byte word of bf16, two of fp32; D 96 uses 12 of
+//   16 lanes), the group's dot products reduced by shuffles, and each lane
+//   group loads 64 bytes of K and of V a step with all of them in flight;
+// - each warp keeps its own online softmax per row in registers, in base
+//   2 (the scale carries log2 e, so the exponentials are exp2), and its
+//   lanes accumulate P.V into their own columns; at the end the warps'
+//   (m, l, acc) go through shared memory and are merged in warp order by
+//   the log-sum-exp rule (no atomics: deterministic);
+// - one split (the plan's choice when the grid already holds 256 blocks)
+//   writes o itself: no scratch and no merge launch; more splits write the
+//   partials for the merge kernel above;
+// - two row caps, so that the MHA decode does not pay for 8 rows of
+//   registers: up to 2 rows with 8 warps a block, up to 8 with 4.
+// Registers and spills (nvcc -Xptxas -v, sm_90a), warp kernel, up to 2 /
+// up to 8 rows: bf16 D 96 122 / 196 (125 / 198 with kpos), D 128 121 /
+// 194, D 256 121 / 194, D 64 80 / 192, D 16-32 60-64 / 128-156; fp32 D
+// 96-256 88-91 / 152-156, D 16-64 61-80 / 128-154; spills only at D 16
+// with kpos and 8 rows (4 bytes, on no served path).
 #include <climits>
 
 #include "common.cuh"
@@ -513,33 +544,353 @@ flash_decode_merge_kernel(const float* __restrict__ part_ml,
   }
 }
 
-template <typename T, int D, bool kPos>
+// ---- warp decode: few query rows per kv head ----
+
+constexpr int kWDRows = 8;        // query rows (G * Sq) of a block, at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The block's shape by its row cap: kWarps warps (warp w takes keys
+// [w kKeys, (w + 1) kKeys) of each tile) and kLoadBytes of K a lane loads
+// a step (V as many).  Two caps: 2 rows (MHA decode: 8 warps of ~120
+// registers, two blocks an SM) and kWDRows (4 warps: the acc of 8 rows
+// takes ~200 registers).
+template <int kR>
+struct WarpBlock;
+template <>
+struct WarpBlock<2> {
+  static constexpr int kWarps = 8, kLoadBytes = 64;
+};
+template <>
+struct WarpBlock<kWDRows> {
+  static constexpr int kWarps = 4, kLoadBytes = 64;
+};
+
+// A lane holds 8 columns of a key's row (one 16-byte word of bf16, two of
+// fp32); kLG lanes, the power of two >= D / 8, hold the row (D 96: 12 of 16
+// lanes, the other 4 load nothing), so a warp holds kKPW keys at once, and
+// kU of them a lane group per step: kStep keys a warp step.
+template <typename T, int D, int kR>
+struct WarpLayout {
+  using Blk = WarpBlock<kR>;
+  static constexpr int kWarps = Blk::kWarps, kThreads = 32 * kWarps;
+  static constexpr int kKeys = kBKV / kWarps;
+  static constexpr int kCols = D / 8;
+  static constexpr int kLG = kCols <= 2    ? 2
+                             : kCols <= 4  ? 4
+                             : kCols <= 8  ? 8
+                             : kCols <= 16 ? 16
+                                           : 32;
+  static constexpr int kKPW = 32 / kLG;
+  static constexpr int kWords = 8 * (int)sizeof(T) / 16;
+  static constexpr int kVec = 16 / (int)sizeof(T);
+  static constexpr int kUMax = Blk::kLoadBytes / (16 * kWords);
+  static constexpr int kU = kKeys / kKPW < 1      ? 1
+                            : kKeys / kKPW < kUMax ? kKeys / kKPW
+                                                   : kUMax;
+  static constexpr int kStep = kKPW * kU;
+  static constexpr int kSteps = (kKeys + kStep - 1) / kStep;
+  static_assert(D % 8 == 0 && kCols <= 32, "8 columns a lane, <= 32 lanes");
+};
+
+// 8 columns from their 16-byte words
+__device__ __forceinline__ void unpack8(const uint4 (&w)[1], float (&f)[8]) {
+  const uint32_t x[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // bf16 2i in the low half, 2i + 1 high
+    f[2 * i] = __uint_as_float(x[i] << 16);
+    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack8(const uint4 (&w)[2], float (&f)[8]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    f[4 * h] = __uint_as_float(w[h].x);
+    f[4 * h + 1] = __uint_as_float(w[h].y);
+    f[4 * h + 2] = __uint_as_float(w[h].z);
+    f[4 * h + 3] = __uint_as_float(w[h].w);
+  }
+}
+
+// One block per (key split, kv head and up to kR of its G * Sq query rows,
+// batch), so each K/V byte is read once for all the rows.  Each warp takes
+// its keys of each visible tile of the split, runs its own online softmax
+// per row in registers (in the base-2 domain: the scale carries log2 e)
+// and accumulates P.V into its lanes' columns; at the end the warps' (m,
+// l, acc) are merged in warp order through shared memory.  One split
+// writes o; several write part_ml / part_acc for the merge kernel.
+template <typename T, int D, bool kPos, int kR>
+__global__ void __launch_bounds__(WarpLayout<T, D, kR>::kThreads)
+flash_decode_warp_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
+                         Params p) {
+  using L = WarpLayout<T, D, kR>;
+  constexpr int kWarps = L::kWarps;
+  extern __shared__ __align__(16) float wsm[];
+  __shared__ float Wm[kWarps][kR], Wl[kWarps][kR];
+  __shared__ int Rlo[kR], Rhi[kR];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int groups = (p.G * p.Sq + kWDRows - 1) / kWDRows;
+  const int hk = blockIdx.y / groups, r_base = blockIdx.y % groups * kWDRows;
+  const int rows = min(kR, p.G * p.Sq - r_base);
+  // block row r is query (r_base + r) % Sq of head hk*G + (r_base + r) / Sq
+  float* Qs = wsm;                   // [rows][D]
+  float* Wacc = wsm + rows * D;      // [kWarps][rows][D]
+  for (int i = tid; i < rows * D; i += L::kThreads) {
+    const int gr = r_base + i / D;
+    Qs[i] = to_f32(q[((size_t)(b * p.Sq + gr % p.Sq) * p.Hq + hk * p.G +
+                      gr / p.Sq) * D + i % D]);
+  }
+  // the keys [Rlo, Rhi) each row admits (as the split kernel's row bounds)
+  if (tid < rows) {
+    const int qp = p.q_offset + (r_base + tid) % p.Sq;
+    int rlo = 0, rhi = kPos ? INT_MAX : p.kv_len;
+    if (p.causal) rhi = min(rhi, qp + 1);
+    if (p.window) rlo = max(rlo, qp - p.window + 1);
+    if (p.chunk) {
+      rlo = max(rlo, qp / p.chunk * p.chunk);
+      rhi = min(rhi, qp / p.chunk * p.chunk + p.chunk);
+    }
+    Rlo[tid] = rlo;
+    Rhi[tid] = rhi;
+  }
+  // tiles: the split kernel's rule (visible to some query of the block)
+  const int q_first = p.q_offset, q_last = p.q_offset + p.Sq - 1;
+  int lo = 0, hi = p.kv_len;
+  if (p.causal) hi = min(hi, q_last + 1);
+  if (p.window) lo = max(lo, q_first - p.window + 1);
+  if (p.chunk) {
+    lo = max(lo, q_first / p.chunk * p.chunk);
+    hi = min(hi, (q_last / p.chunk + 1) * p.chunk);
+  }
+  const int t0 = split * p.tiles_per_split;
+  const int t1 = min(t0 + p.tiles_per_split, (p.kv_len + kBKV - 1) / kBKV);
+  // the first tile >= t that some query of the block can see, or t1; every
+  // warp decides alike (block-uniform, no barrier)
+  auto next_visible = [&](int t) -> int {
+    for (; t < t1; ++t) {
+      const int s0 = t * kBKV;
+      if constexpr (!kPos) {
+        if (s0 < hi && s0 + kBKV > lo) return t;
+      } else {
+        bool any = false;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = s0 + lane + 32 * h;
+          const int kp = slot < p.kv_len ? __ldg(p.kpos + slot) : -1;
+          any |= kp >= 0 && (!p.causal || kp <= q_last) &&
+                 (!p.window || kp > q_first - p.window) &&
+                 (!p.chunk || (kp / p.chunk >= q_first / p.chunk &&
+                               kp / p.chunk <= q_last / p.chunk));
+        }
+        if (__any_sync(0xffffffffu, any)) return t;
+      }
+    }
+    return t1;
+  };
+  const int g = lane / L::kLG, li = lane % L::kLG;
+  const bool act = li < L::kCols;
+  const int col = (act ? li : 0) * 8;
+  const float scale2 = p.scale * kLog2e;
+  float m[kR], l[kR], acc[kR][8];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    m[r] = kNegInf, l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  }
+  __syncthreads();   // Qs, Rlo, Rhi
+
+  for (int t = next_visible(t0); t < t1; t = next_visible(t + 1)) {
+#pragma unroll 1
+    for (int st = 0; st < L::kSteps; ++st) {
+      // step st of tile t: kU keys a lane group, all their K and V words in
+      // flight at once; a key past kv_len or the warp's slice is not "in"
+      uint4 kw[L::kU][L::kWords], vw[L::kU][L::kWords];
+      int kp[L::kU];
+      bool in[L::kU];
+#pragma unroll
+      for (int u = 0; u < L::kU; ++u) {
+        const int j = st * L::kStep + u * L::kKPW + g;   // of the warp's keys
+        const int slot = t * kBKV + warp * L::kKeys + j;
+        in[u] = j < L::kKeys && slot < p.kv_len;
+        const size_t off =
+            ((size_t)(b * p.Skv + (in[u] ? slot : 0)) * p.Hkv + hk) * D + col;
+#pragma unroll
+        for (int x = 0; x < L::kWords; ++x) {
+          kw[u][x] = in[u] && act ? __ldcs(reinterpret_cast<const uint4*>(
+                                        k + off + x * L::kVec))
+                                  : make_uint4(0, 0, 0, 0);
+          vw[u][x] = in[u] && act ? __ldcs(reinterpret_cast<const uint4*>(
+                                        v + off + x * L::kVec))
+                                  : make_uint4(0, 0, 0, 0);
+        }
+        if constexpr (kPos)
+          kp[u] = in[u] ? __ldg(p.kpos + slot) : -1;
+        else
+          kp[u] = slot;
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (r >= rows) break;   // block-uniform
+        float qf[8];
+        load8(Qs + r * D + col, Qs + r * D + col + 4, qf);
+        float s[L::kU];
+#pragma unroll
+        for (int u = 0; u < L::kU; ++u) {
+          float kf[8];
+          unpack8(kw[u], kf);
+          s[u] = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[u] = fmaf(qf[e], kf[e], s[u]);
+        }
+        // the dot products over the lane group, then the step's max over
+        // the warp's groups
+#pragma unroll
+        for (int off = L::kLG / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int u = 0; u < L::kU; ++u)
+            s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+        const int rlo = Rlo[r], rhi = Rhi[r];
+        float mx = kNegInf;
+#pragma unroll
+        for (int u = 0; u < L::kU; ++u) {
+          s[u] = in[u] && kp[u] >= rlo && kp[u] < rhi ? s[u] * scale2
+                                                      : kNegInf;
+          mx = fmaxf(mx, s[u]);
+        }
+#pragma unroll
+        for (int off = L::kLG; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        if (mx > m[r]) {   // warp-uniform
+          const float corr = exp2f(m[r] - mx);
+          l[r] *= corr;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] *= corr;
+          m[r] = mx;
+        }
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < L::kU; ++u) {
+          const float pu = in[u] ? exp2f(s[u] - m[r]) : 0.f;
+          float vf[8];
+          unpack8(vw[u], vf);
+          ps += pu;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pu, vf[e], acc[r][e]);
+        }
+        l[r] += ps;   // this lane group's keys; summed over groups below
+      }
+    }
+  }
+
+  // the warp's (m, l, acc): l and acc summed over its lane groups; m back
+  // to the natural-log domain (a warp that saw no key keeps -2^30)
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r >= rows) break;
+#pragma unroll
+    for (int off = L::kLG; off < 32; off <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+    }
+    if (lane < L::kCols) {
+      float4* dst = reinterpret_cast<float4*>(Wacc + (warp * rows + r) * D +
+                                              col);
+      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+    if (lane == 0) {
+      Wm[warp][r] = m[r] == kNegInf ? kNegInf : m[r] / kLog2e;
+      Wl[warp][r] = l[r];
+    }
+  }
+  __syncthreads();
+
+  // the block's (m, l, acc): the warps merged in order by the log-sum-exp
+  // rule; one split writes o, several their partials
+  for (int i = tid; i < rows * D; i += L::kThreads) {
+    const int r = i / D, d = i % D, gr = r_base + r;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, Wm[w][r]);
+    float lb = 0.f, ab = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(Wm[w][r] - mb);
+      lb = fmaf(Wl[w][r], e, lb);
+      ab = fmaf(Wacc[(w * rows + r) * D + d], e, ab);
+    }
+    const int h = hk * p.G + gr / p.Sq, qi = gr % p.Sq;
+    if (p.splits == 1) {
+      o[((size_t)(b * p.Sq + qi) * p.Hq + h) * D + d] =
+          from_f32<T>(ab / fmaxf(lb, 1e-30f));
+    } else {
+      const size_t part =
+          ((size_t)(b * p.Hq + h) * p.Sq + qi) * p.splits + split;
+      p.part_acc[part * D + d] = ab;
+      if (d == 0) p.part_ml[2 * part] = mb, p.part_ml[2 * part + 1] = lb;
+    }
+  }
+}
+
+template <typename T, int D, bool kPos, int kR>
+cudaError_t launch_warp(const void* q, const void* k, const void* v, void* o,
+                        int B, const Params& p, cudaStream_t stream) {
+  // Q and the warps' acc for the block's rows in shared memory
+  using L = WarpLayout<T, D, kR>;
+  const int groups = (p.G * p.Sq + kWDRows - 1) / kWDRows;
+  const size_t per_row = (size_t)(1 + L::kWarps) * D * sizeof(float);
+  cudaError_t e =
+      allow_smem<flash_decode_warp_kernel<T, D, kPos, kR>>(kR * per_row);
+  if (e != cudaSuccess) return e;
+  flash_decode_warp_kernel<T, D, kPos, kR>
+      <<<dim3(p.splits, p.Hkv * groups, B), L::kThreads,
+         min(kR, p.G * p.Sq) * per_row, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool kPos, bool kWarp>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, const Params& p, cudaStream_t stream) {
-  const size_t smem = Layout<T, D>::smem(stages_of<T, D>(p.tiles_per_split));
-  cudaError_t e = allow_smem<flash_decode_split_kernel<T, D, kPos>>(
-      Layout<T, D>::smem(Layout<T, D>::kStages));
-  if (e != cudaSuccess) return e;
-  const int groups = (p.G * p.Sq + kRows - 1) / kRows;
-  flash_decode_split_kernel<T, D, kPos>
-      <<<dim3(p.splits, p.Hkv * groups, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  cudaError_t e;
+  if constexpr (kWarp) {
+    e = p.G * p.Sq <= 2
+            ? launch_warp<T, D, kPos, 2>(q, k, v, o, B, p, stream)
+            : launch_warp<T, D, kPos, kWDRows>(q, k, v, o, B, p, stream);
+    if (e != cudaSuccess || p.splits == 1) return e;
+  } else {
+    const size_t smem =
+        Layout<T, D>::smem(stages_of<T, D>(p.tiles_per_split));
+    e = allow_smem<flash_decode_split_kernel<T, D, kPos>>(
+        Layout<T, D>::smem(Layout<T, D>::kStages));
+    if (e != cudaSuccess) return e;
+    const int groups = (p.G * p.Sq + kRows - 1) / kRows;
+    flash_decode_split_kernel<T, D, kPos>
+        <<<dim3(p.splits, p.Hkv * groups, B), kThreads, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   flash_decode_merge_kernel<T><<<dim3(p.Hq, B), kThreads,
                                  p.splits * sizeof(float), stream>>>(
       p.part_ml, p.part_acc, static_cast<T*>(o), p.Sq, p.Hq, D, p.splits);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kWarp>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int D, const Params& p, cudaStream_t s) {
-#define REPRO_CASE(DD)                                       \
-  case DD:                                                   \
-    return p.kpos ? launch<T, DD, true>(q, k, v, o, B, p, s) \
-                  : launch<T, DD, false>(q, k, v, o, B, p, s);
+#define REPRO_CASE(DD)                                              \
+  case DD:                                                          \
+    return p.kpos ? launch<T, DD, true, kWarp>(q, k, v, o, B, p, s) \
+                  : launch<T, DD, false, kWarp>(q, k, v, o, B, p, s);
   switch (D) {
     REPRO_CASE(16)
     REPRO_CASE(32)
@@ -551,6 +902,31 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
       return cudaErrorInvalidValue;
   }
 #undef REPRO_CASE
+}
+
+}  // namespace
+
+namespace {
+
+template <bool kWarp>
+int entry(const void* q, const void* k, const void* v, void* o,
+          const void* kpos, void* part_ml, void* part_acc, int dtype, int B,
+          int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
+          int chunk, int q_offset, int kv_len, int splits,
+          int tiles_per_split, float scale, void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Sq > 8 || splits < 1 || tiles_per_split < 1 || Hkv < 1 || Hq % Hkv)
+    return cudaErrorInvalidValue;
+  const Params p{static_cast<const int*>(kpos), static_cast<float*>(part_ml),
+                 static_cast<float*>(part_acc), Sq, Skv, Hq, Hkv, Hq / Hkv,
+                 causal, window, chunk, q_offset, kv_len, splits,
+                 tiles_per_split, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return dispatch<float, kWarp>(q, k, v, o, B, D, p, s);
+  if (dtype == kBFloat16)
+    return dispatch<__nv_bfloat16, kWarp>(q, k, v, o, B, D, p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -568,16 +944,24 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 int window, int chunk, int q_offset,
                                 int kv_len, int splits, int tiles_per_split,
                                 float scale, void* stream) {
-  if (B == 0 || Sq == 0) return 0;
-  if (Sq > 8 || splits < 1 || tiles_per_split < 1 || Hkv < 1 || Hq % Hkv)
-    return cudaErrorInvalidValue;
-  const Params p{static_cast<const int*>(kpos), static_cast<float*>(part_ml),
-                 static_cast<float*>(part_acc), Sq, Skv, Hq, Hkv, Hq / Hkv,
-                 causal, window, chunk, q_offset, kv_len, splits,
-                 tiles_per_split, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return dispatch<float>(q, k, v, o, B, D, p, s);
-  if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, D, p, s);
-  return cudaErrorInvalidValue;
+  return entry<false>(q, k, v, o, kpos, part_ml, part_acc, dtype, B, Sq, Skv,
+                      Hq, Hkv, D, causal, window, chunk, q_offset, kv_len,
+                      splits, tiles_per_split, scale, stream);
+}
+
+// The warp decode kernel, same arguments: one block per (split, kv head and
+// 8 of its G * Sq query rows, batch).  With one split it writes o and
+// launches nothing else (part_ml and part_acc may be null); with several it
+// writes the partials and launches the merge kernel.
+extern "C" int flash_decode_warp_fwd(const void* q, const void* k,
+                                     const void* v, void* o, const void* kpos,
+                                     void* part_ml, void* part_acc, int dtype,
+                                     int B, int Sq, int Skv, int Hq, int Hkv,
+                                     int D, int causal, int window, int chunk,
+                                     int q_offset, int kv_len, int splits,
+                                     int tiles_per_split, float scale,
+                                     void* stream) {
+  return entry<true>(q, k, v, o, kpos, part_ml, part_acc, dtype, B, Sq, Skv,
+                     Hq, Hkv, D, causal, window, chunk, q_offset, kv_len,
+                     splits, tiles_per_split, scale, stream);
 }

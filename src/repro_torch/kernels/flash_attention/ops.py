@@ -1,4 +1,4 @@
-"""Flash attention, forward: wrapper of the three CUDA kernels.
+"""Flash attention, forward: wrapper of the four CUDA kernels.
 
 Replaces ``repro/kernels/flash_attention/ops.py:flash_attention`` and its
 Pallas kernel ``flash_attention_kernel``.  Model layout (B, S, H, D), no
@@ -7,9 +7,13 @@ launches the kernel that :func:`plan` names, and every call adds one to
 ``flash_attention.launches`` and to its kernel's entry of
 ``flash_attention.impl_launches``:
 
-- ``split_decode`` (``csrc/flash_decode.cu``): at most 8 query rows, every
-  dtype and head_dim of ``HEAD_DIMS``; the keys are split over blocks and
-  the splits merged by a second small kernel;
+- ``warp_decode`` (``csrc/flash_decode.cu``): at most 8 query rows and at
+  most ``R_MAX`` of them per kv head (G * Sq), every dtype and head_dim of
+  ``HEAD_DIMS``; a block holds all the rows of a kv head and its warps
+  take the keys; one split writes the output itself;
+- ``split_decode`` (same file): the other calls of at most 8 query rows;
+  a block scores 16 rows of a kv head against 64-key tiles; the keys are
+  split over blocks and the splits merged by a second small kernel;
 - ``tc_prefill`` (``csrc/flash_prefill_tc.cu``): bf16 at head_dim 64, 96,
   128 or 256 without key positions, on the tensor cores (wgmma, TMA);
 - ``simt`` (``csrc/flash_attention.cu``): the rest of prefill (fp32, bf16 at
@@ -32,18 +36,26 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # any other head_dim raises
 TC_HEAD_DIMS = (64, 96, 128, 256)
 KV_TILE = 64            # keys of a tile in every kernel
-DECODE_MAX_SQ = 8       # query rows the split decode kernel takes
-DECODE_BLOCK_ROWS = 16  # rows (query heads of a kv head x queries) a block
+DECODE_MAX_SQ = 8       # query rows the decode kernels take
+DECODE_BLOCK_ROWS = 16  # split decode: rows (query heads of a kv head x
+                        # queries) a block
 MIN_BLOCKS = 2 * 132    # split decode: two blocks per SM of an H100
-IMPLS = ("split_decode", "tc_prefill", "simt")
+WARP_BLOCK_ROWS = 8     # warp decode: rows a block (kWDRows in the source)
+# warp decode's blocks by their row cap (WarpBlock in the source): up to 2
+# rows and up to WARP_BLOCK_ROWS: (warps, K bytes a lane loads a step)
+WARP_BLOCKS = {2: (8, 64), WARP_BLOCK_ROWS: (4, 64)}
+R_MAX = 8               # warp decode for G * Sq <= R_MAX
+WARP_MIN_BLOCKS = 256   # warp decode: fewer blocks a split -> more splits
+DECODE_IMPLS = ("warp_decode", "split_decode")
+IMPLS = ("split_decode", "warp_decode", "tc_prefill", "simt")
 _i = ctypes.c_int
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Which kernel runs a call, and how split decode cuts the keys: split
-    s covers the 64-key tiles [s * tiles_per_split, (s + 1) *
-    tiles_per_split) below ``kv_len``; ``blocks`` is the split kernel's
+    """Which kernel runs a call, and how a decode kernel cuts the keys:
+    split s covers the 64-key tiles [s * tiles_per_split, (s + 1) *
+    tiles_per_split) below ``kv_len``; ``blocks`` is the decode kernel's
     grid (0 for the other kernels)."""
     impl: str
     splits: int = 0
@@ -56,26 +68,62 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
-         kv_len: int, k_pos: bool = False) -> Plan:
+         kv_len: int, k_pos: bool = False, impl: Optional[str] = None,
+         splits: Optional[int] = None) -> Plan:
     """The kernel for a call of these shapes (pure Python, no device);
     raises for a head_dim no kernel takes (not in ``HEAD_DIMS``).
 
-    Decode (``Sq <= 8``) aims at MIN_BLOCKS blocks of the split kernel with
-    splits of whole 64-key tiles: B * Hkv * ceil(G * Sq / 16) blocks per
-    split, and as many splits as that needs, one tile each unless the cache
-    is long enough for more."""
+    Decode (``Sq <= 8``) goes to ``warp_decode`` when a kv head has at most
+    R_MAX query rows (G * Sq), else to ``split_decode``; ``impl`` forces
+    either of them and ``splits`` the number of key splits (for
+    chip_smoke.py and the tests).  The keys are cut into splits of whole
+    64-key tiles so that the grid (B * Hkv * row groups a split) holds
+    MIN_BLOCKS blocks of the split kernel (one tile each unless the cache
+    is long enough for more) or WARP_MIN_BLOCKS of the warp kernel (the
+    tiles dealt evenly, and one split where the grid is already that
+    large: then no merge kernel runs)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} must be one of "
                          f"{HEAD_DIMS}")
+    if impl is not None and (impl not in DECODE_IMPLS or Sq > DECODE_MAX_SQ):
+        raise ValueError(f"flash_attention: impl {impl!r} can be forced only "
+                         f"as one of {DECODE_IMPLS}, at most "
+                         f"{DECODE_MAX_SQ} query rows")
     if Sq <= DECODE_MAX_SQ:
-        base = B * Hkv * _cdiv(Hq // Hkv * Sq, DECODE_BLOCK_ROWS)
+        rows = Hq // Hkv * Sq
+        if impl is None:
+            impl = "warp_decode" if rows <= R_MAX else "split_decode"
+        warp = impl == "warp_decode"
+        base = B * Hkv * _cdiv(rows, WARP_BLOCK_ROWS if warp
+                               else DECODE_BLOCK_ROWS)
         tiles = _cdiv(kv_len, KV_TILE)
-        per = max(1, tiles // _cdiv(MIN_BLOCKS, base))
-        splits = max(1, _cdiv(tiles, per))
-        return Plan("split_decode", splits, per, base * splits)
+        if splits is None and not warp:
+            per = max(1, tiles // _cdiv(MIN_BLOCKS, base))
+        else:                  # splits of near-equal tile counts
+            n = splits or _cdiv(WARP_MIN_BLOCKS, base)
+            per = max(1, _cdiv(tiles, max(1, min(n, tiles))))
+        n = max(1, _cdiv(tiles, per))
+        return Plan(impl, n, per, base * n)
     if dtype == torch.bfloat16 and D in TC_HEAD_DIMS and not k_pos:
         return Plan("tc_prefill")
     return Plan("simt")
+
+
+def warp_decode_layout(rows: int, D: int, dtype: torch.dtype) -> tuple:
+    """(warps a block, keys a warp takes per online-softmax step) of
+    ``warp_decode`` for ``rows`` = G * Sq (``WarpBlock`` and
+    ``WarpLayout::kStep`` in the source): the block of the smallest row cap
+    that holds min(rows, WARP_BLOCK_ROWS); warp w takes keys [w * 64 /
+    warps, (w + 1) * 64 / warps) of a tile; a lane holds 8 columns of a key,
+    the power of two >= D / 8 lanes a key, and each lane loads its block's
+    K bytes a step (at most the warp's keys of a tile a step)."""
+    cap = min(c for c in WARP_BLOCKS if c >= min(rows, WARP_BLOCK_ROWS))
+    warps, load_bytes = WARP_BLOCKS[cap]
+    lanes = max(2, 1 << (D // 8 - 1).bit_length())
+    words = 8 * torch.tensor([], dtype=dtype).element_size() // 16
+    keys = KV_TILE // warps
+    u = max(1, min(load_bytes // (16 * words), keys // (32 // lanes)))
+    return warps, min(32 // lanes * u, keys)
 
 
 def _load(lib: str, name: str, argtypes):
@@ -101,6 +149,13 @@ def _decode_fn():
 
 
 @functools.cache
+def _warp_fn():
+    return _load("flash_decode", "flash_decode_warp_fwd",
+                 [ctypes.c_void_p] * 7 + [_i] * 14
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.cache
 def _tc_fn():
     return _load("flash_prefill_tc", "flash_prefill_tc_fwd",
                  [ctypes.c_void_p] * 4 + [_i] * 11
@@ -110,7 +165,9 @@ def _tc_fn():
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
                     q_offset: int = 0, kv_len: Optional[int] = None,
-                    k_pos: Optional[torch.Tensor] = None):
+                    k_pos: Optional[torch.Tensor] = None,
+                    impl: Optional[str] = None,
+                    splits: Optional[int] = None):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     Query i sits at position ``q_offset + i`` (an int read at run time, not
@@ -118,7 +175,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     int32 vector ``k_pos`` (Skv,) is given (a rolling cache buffer; a
     negative position is masked).  Only the first ``kv_len`` slots (default:
     all) are read; the rest are masked, as the reference masks unwritten
-    cache slots.
+    cache slots.  ``impl`` and ``splits`` force a decode kernel and its key
+    splits on a CUDA tensor (see :func:`plan`; chip_smoke.py compares and
+    times the kernels with them).
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -152,21 +211,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: k_pos must be a contiguous int32 "
                          f"({Skv},) tensor on {q.device}")
     dtype = code(q, "flash_attention q")
-    how = plan(B, Sq, Hq, Hkv, D, q.dtype, kv_len, k_pos is not None)
+    how = plan(B, Sq, Hq, Hkv, D, q.dtype, kv_len, k_pos is not None,
+               impl, splits)
     o = torch.empty_like(q)
     kpos = None if k_pos is None else k_pos.data_ptr()
     masks = (int(causal), window, chunk, int(q_offset), kv_len)
     scale = 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if how.impl == "split_decode":
+    if how.impl in DECODE_IMPLS:
+        # the splits' partials; one warp_decode split writes o directly
         rows = B * Hq * Sq * how.splits
+        if how.impl == "warp_decode" and how.splits == 1:
+            rows = 0
         part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
         part_acc = torch.empty(rows * D, dtype=torch.float32, device=q.device)
-        err = _decode_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kpos,
-            part_ml.data_ptr(), part_acc.data_ptr(), dtype, B, Sq, Skv, Hq,
-            Hkv, D, *masks, how.splits, how.tiles_per_split, scale, stream)
-        _build.check(err, "flash_decode_fwd")
+        fn, name = ((_warp_fn(), "flash_decode_warp_fwd")
+                    if how.impl == "warp_decode"
+                    else (_decode_fn(), "flash_decode_fwd"))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 kpos, part_ml.data_ptr(), part_acc.data_ptr(), dtype, B, Sq,
+                 Skv, Hq, Hkv, D, *masks, how.splits, how.tiles_per_split,
+                 scale, stream)
+        _build.check(err, name)
     elif how.impl == "tc_prefill":
         err = _tc_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        B, Sq, Skv, Hq, Hkv, D, *masks, scale, stream)

@@ -1,7 +1,9 @@
 """Plain PyTorch attention: the CPU path and the oracle of the CUDA kernels
 (counterpart: ``repro/kernels/flash_attention/ref.py``, in model layout and
-with the kernels' ``kv_len``); and, for the tests only, the split decode
-kernel's tile skipping and split-then-merge in plain PyTorch."""
+with the kernels' ``kv_len``); and, for the tests only, the decode kernels'
+tile skipping and their arithmetic in plain PyTorch: the split kernel's
+split-then-merge and the warp kernel's per-warp online softmax, merged in
+the block, then over the splits."""
 from __future__ import annotations
 
 import math
@@ -94,6 +96,15 @@ def decode_tiles(t0: int, t1: int, *, Sq: int, q_offset: int, kv_len: int,
     return out
 
 
+def _merge(ms, ls, accs):
+    """The log-sum-exp merge of partials (m, l, acc) in list order: weights
+    exp(m_i - max m), returns (max m, sum l w, sum acc w)."""
+    m = torch.stack(ms)
+    w = torch.exp(m - m.max(0).values)
+    return (m.max(0).values, (torch.stack(ls) * w).sum(0),
+            (torch.stack(accs) * w[..., None]).sum(0))
+
+
 def split_decode_ref(q, k, v, *, splits: int, tiles_per_split: int,
                      causal: bool = True, window: int = 0, chunk: int = 0,
                      q_offset: int = 0, kv_len: Optional[int] = None,
@@ -133,9 +144,66 @@ def split_decode_ref(q, k, v, *, splits: int, tiles_per_split: int,
         ms.append(m)
         ls.append(p.sum(-1))
         accs.append(torch.matmul(p, vf[:, :, slots]))
-    m = torch.stack(ms)                                  # splits,B,Hq,Sq
-    w = torch.exp(m - m.max(0).values)
-    l_sum = (torch.stack(ls) * w).sum(0)
-    acc = (torch.stack(accs) * w[..., None]).sum(0)
+    _, l_sum, acc = _merge(ms, ls, accs)
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def warp_decode_ref(q, k, v, *, splits: int, tiles_per_split: int,
+                    warps: int, step: int, causal: bool = True,
+                    window: int = 0, chunk: int = 0, q_offset: int = 0,
+                    kv_len: Optional[int] = None,
+                    k_pos: Optional[torch.Tensor] = None):
+    """What the warp decode kernel computes, in plain fp32 PyTorch.  In each
+    tile a split reads (``decode_tiles``), warp w takes the keys [w * kw,
+    (w + 1) * kw) (kw = 64 / warps) below kv_len, ``step`` at a time, and
+    keeps its own online softmax per row: m from -2^30, l and acc from 0;
+    each step m' = max(m, the step's scores), both rescaled by exp(m - m'),
+    plus p = exp(s - m'), a masked score being -2^30.  The block merges its
+    warps in warp order with the log-sum-exp rule, then the splits are
+    merged in split order the same way; output acc / max(l, 1e-30) in q's
+    dtype (one split: the block's own result)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    kv_len = Skv if kv_len is None else kv_len
+    G = Hq // Hkv
+    qf = q.float().transpose(1, 2)                                # B,Hq,Sq,D
+    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)    # B,Hq,Skv,D
+    vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
+                 chunk=chunk, q_offset=q_offset, kv_len=kv_len, k_pos=k_pos)
+    kw = KV_TILE // warps
+    scale = 1.0 / math.sqrt(D)
+    blocks = []                                 # each split's (m, l, acc)
+    for s in range(splits):
+        tiles = decode_tiles(s * tiles_per_split, (s + 1) * tiles_per_split,
+                             Sq=Sq, q_offset=q_offset, kv_len=kv_len,
+                             causal=causal, window=window, chunk=chunk,
+                             k_pos=k_pos)
+        per_warp = []
+        for w in range(warps):
+            m = torch.full((B, Hq, Sq), NEG_INF, device=q.device)
+            l = torch.zeros(B, Hq, Sq, device=q.device)
+            acc = torch.zeros(B, Hq, Sq, D, device=q.device)
+            for t in tiles:
+                first = t * KV_TILE + w * kw
+                for j in range(0, kw, step):
+                    end = min(first + j + step, first + kw, kv_len)
+                    if end <= first + j:
+                        continue
+                    slots = torch.arange(first + j, end)
+                    sc = torch.matmul(qf, kf[:, :, slots].transpose(-1, -2))
+                    sc = torch.where(mask[:, slots], sc * scale,
+                                     torch.full_like(sc, NEG_INF))
+                    m_new = torch.maximum(m, sc.max(-1).values)
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[..., None])
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + torch.matmul(
+                        p, vf[:, :, slots])
+                    m = m_new
+            per_warp.append((m, l, acc))
+        blocks.append(_merge(*zip(*per_warp)))
+    _, l_sum, acc = _merge(*zip(*blocks))
     out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)

@@ -1,8 +1,9 @@
 """The flash-attention wrapper's plan, on the CPU (no card needed): which
-kernel each call goes to, how the split decode kernel cuts the keys, which
-tiles it skips, and its split-then-merge arithmetic in plain PyTorch
-(``ref.split_decode_ref``) against the reference's Pallas kernel in
-interpret mode and its dense attention.
+kernel each call goes to, how the decode kernels cut the keys, which tiles
+they skip, and the split decode kernel's split-then-merge arithmetic in
+plain PyTorch (``ref.split_decode_ref``) against the reference's Pallas
+kernel in interpret mode and its dense attention (the warp decode kernel's:
+tests/test_torch_flash_decode.py).
 
 Tolerance: fp32 2e-5, absolute and relative (tests/test_kernels.py:15 of
 the reference): the merge only reorders fp32 sums.  The CUDA kernels
@@ -19,9 +20,12 @@ import torch
 
 from repro.kernels import flash_attention as jax_flash_attention
 from repro.models.attention import dense_attention
-from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, KV_TILE,
-                                                     MIN_BLOCKS, TC_HEAD_DIMS,
-                                                     plan)
+from repro_torch.kernels.flash_attention.ops import (DECODE_BLOCK_ROWS,
+                                                     HEAD_DIMS, KV_TILE,
+                                                     MIN_BLOCKS, R_MAX,
+                                                     TC_HEAD_DIMS,
+                                                     WARP_BLOCK_ROWS,
+                                                     WARP_MIN_BLOCKS, plan)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      decode_tiles,
                                                      split_decode_ref)
@@ -72,14 +76,16 @@ def _admitted(Sq, Skv, *, q_offset=0, kv_len=None, causal=True, window=0,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,shape,kw", CASES, ids=[c[0] for c in CASES])
 def test_plan_picks_the_kernel_for_each_phase3_case(name, shape, kw, dtype):
-    """At most 8 query rows: split decode, every dtype and head_dim; else
-    bf16 at head_dim 64-256 without key positions: the tensor-core prefill;
-    else the SIMT kernel."""
+    """At most 8 query rows: warp decode for at most R_MAX of them per kv
+    head, else split decode, every dtype and head_dim; else bf16 at
+    head_dim 64-256 without key positions: the tensor-core prefill; else
+    the SIMT kernel."""
     B, Sq, Skv, Hq, Hkv, D = shape
     how = plan(B, Sq, Hq, Hkv, D, dtype, kw.get("kv_len", Skv),
                "k_pos" in kw)
     if Sq <= 8:
-        want = "split_decode"
+        want = ("warp_decode" if Hq // Hkv * Sq <= R_MAX
+                else "split_decode")
     elif dtype == torch.bfloat16 and D in TC_HEAD_DIMS and "k_pos" not in kw:
         want = "tc_prefill"
     else:
@@ -111,12 +117,13 @@ def test_serve_shapes_take_the_redesigned_kernels():
     (torch.bfloat16, 9, False, "tc_prefill"),
     (torch.bfloat16, 24, True, "simt"),            # key positions
     (torch.float32, 2048, False, "simt"),
-    (torch.bfloat16, 1, False, "split_decode"),    # phi-3-vision decode
-    (torch.float32, 1, False, "split_decode"),
-    (torch.bfloat16, 8, True, "split_decode"),
+    (torch.bfloat16, 1, False, "warp_decode"),     # phi-3-vision decode
+    (torch.float32, 1, False, "warp_decode"),
+    (torch.bfloat16, 8, True, "warp_decode"),
 ])
 def test_plan_at_head_dim_96(dtype, Sq, k_pos, impl):
-    """phi-3-vision-4.2b's head_dim reaches all three kernels."""
+    """phi-3-vision-4.2b's head_dim (MHA) reaches the prefill kernels and
+    the warp decode kernel."""
     assert 96 in HEAD_DIMS and 96 in TC_HEAD_DIMS
     assert plan(8, Sq, 32, 32, 96, dtype, 2080, k_pos).impl == impl
 
@@ -146,7 +153,9 @@ def test_plan_raises_for_head_dims_without_a_kernel(D, Sq):
 ])
 def test_decode_splits_cover_each_slot_once(B, Sq, Hq, Hkv, kv_len):
     how = plan(B, Sq, Hq, Hkv, 128, torch.bfloat16, kv_len)
-    assert how.impl == "split_decode" and how.splits >= 1
+    warp = Hq // Hkv * Sq <= R_MAX
+    assert how.impl == ("warp_decode" if warp else "split_decode")
+    assert how.splits >= 1
     n_tiles = -(-kv_len // KV_TILE)
     slots = []
     for s in range(how.splits):
@@ -156,9 +165,14 @@ def test_decode_splits_cover_each_slot_once(B, Sq, Hq, Hkv, kv_len):
         for t in range(t0, t1):              # whole 64-key tiles
             slots += range(t * KV_TILE, min((t + 1) * KV_TILE, kv_len))
     assert slots == list(range(kv_len))
-    groups = -(-(Hq // Hkv) * Sq // 16)
+    groups = -(-(Hq // Hkv) * Sq // (WARP_BLOCK_ROWS if warp
+                                     else DECODE_BLOCK_ROWS))
     assert how.blocks == B * Hkv * groups * how.splits
-    if n_tiles * B * Hkv * groups >= MIN_BLOCKS:   # enough tiles to fill it
+    base = B * Hkv * groups
+    if warp and n_tiles:       # tiles dealt evenly over enough splits
+        want = min(n_tiles, -(-WARP_MIN_BLOCKS // base))
+        assert how.tiles_per_split == -(-n_tiles // want)
+    elif n_tiles * base >= MIN_BLOCKS:   # enough tiles to fill it
         assert how.blocks >= MIN_BLOCKS
 
 
@@ -172,11 +186,12 @@ def test_decode_serve_shapes_fill_the_card():
     assert min(glm.blocks, rg.blocks) >= 264
 
 
-def test_decode_mha_uses_one_row_of_sixteen():
-    """phi-3-vision-4.2b's decode (MHA, G 1): one block per (split, head,
-    batch) with 1 of its 16 rows used; 3 splits of 16 tiles over 2049
-    slots, 768 blocks (the G 1 row waste PERF.md records)."""
-    how = plan(8, 1, 32, 32, 96, torch.bfloat16, 2049)
+def test_decode_mha_split_kernel_forced_keeps_its_plan():
+    """The split kernel, forced on phi-3-vision-4.2b's decode (MHA, G 1),
+    keeps the plan it ran before the warp kernel: one block per (split,
+    head, batch) with 1 of its 16 rows used; 3 splits of 16 tiles over 2049
+    slots, 768 blocks (what chip_smoke.py times beside the warp kernel)."""
+    how = plan(8, 1, 32, 32, 96, torch.bfloat16, 2049, impl="split_decode")
     assert (how.splits, how.tiles_per_split, how.blocks) == (3, 16, 768)
 
 
@@ -251,7 +266,7 @@ def test_split_decode_matches_pallas(B, Hq, Hkv, D, Skv, pos, kv_len, window):
     qj, qt = _pair(rng.normal(size=(B, 1, Hq, D)))
     kj, kt = _pair(rng.normal(size=(B, Skv, Hkv, D)))
     vj, vt = _pair(rng.normal(size=(B, Skv, Hkv, D)))
-    how = plan(B, 1, Hq, Hkv, D, torch.float32, n)
+    how = plan(B, 1, Hq, Hkv, D, torch.float32, n, impl="split_decode")
     assert how.splits > 1
     out = split_decode_ref(qt, kt, vt, splits=how.splits,
                            tiles_per_split=how.tiles_per_split, q_offset=pos,
@@ -303,7 +318,8 @@ def test_split_decode_matches_attention_ref_on_small_cases(Sq, kw):
     q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32))
-    how = plan(B, Sq, Hq, Hkv, D, torch.float32, kw.get("kv_len", Skv))
+    how = plan(B, Sq, Hq, Hkv, D, torch.float32, kw.get("kv_len", Skv),
+               impl="split_decode")
     assert how.splits > 1
     out = split_decode_ref(q, k, v, splits=how.splits,
                            tiles_per_split=how.tiles_per_split, **kw)
