@@ -22,8 +22,13 @@ non-zero (no phase's failure is caught):
    each of the three kernels; the SIMT kernel timed in fp32 at phase 5's
    prefill shapes; every case also held to its rows' scale, FLASH_ROW_TOL,
    and the serve decodes shown to fail that check without their newest
-   key), the RG-LRU scan and the Mamba scan
-   (with its final state); every flash case of at most 8 query rows runs
+   key), the RG-LRU scan (every variant, ``ring`` and ``simple``, forced,
+   the plan's the faster at the serve shape), the gated RG-LRU entry (gate
+   arithmetic and scan in one kernel, with its final state, from zero and
+   from an initial state, at the prefill and decode shapes; timed beside
+   today's layer path, the eager gate ops and the ``simple`` scan) and the
+   Mamba scan (with its final state); every flash case of at most 8 query
+   rows runs
    on both decode kernels, the plan's and the other one forced (the warp
    decode kernel at G 1 and every head_dim, key positions, window, chunk,
    up to 8 queries, B 1 with many splits, one split without the merge
@@ -47,6 +52,9 @@ non-zero (no phase's failure is caught):
    phi-3-vision's 1024 text tokens follow 1024 image-patch embeddings drawn
    from the same generator); the launch counts of each run are checked
    exactly and its decode logits are held against one full forward;
+   recurrentgemma-2b's run then profiles one prefill and one decode step
+   (``torch.profiler``: device time by block, by kernel, and inside the
+   RG-LRU blocks by op);
 5. the same check in fp32 at full width with 2 or 3 layers (phi-3-vision
    with its 1024 image tokens; launch counts exact, every prefill attention
    on the SIMT kernel), and each reduced config's CUDA logits
@@ -68,7 +76,10 @@ plan's warp/block crossover; no contract line.  ``--decode-sweep`` runs
 phases 1-2 and then only both decode kernels, checked and timed over
 DECODE_SWEEP_ROWS query rows per kv head and DECODE_SWEEP_SPLITS key splits
 at head_dim 96 and 128 over a 2049-key cache, to place the plan's R_MAX and
-its split rule; no contract line.
+its split rule; no contract line.  ``--scan-sweep`` runs phases 1-2 and then
+only both RG-LRU entries at recurrentgemma-2b's prefill shape over the
+ring's tiles (SCAN_SWEEP_*), bf16 and fp32, to place the plan's TILES; no
+contract line.
 
 Before the last line: one JSON line ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power-limit line.  Last line:
@@ -77,7 +88,9 @@ Before the last line: one JSON line ``{"kernels": [...]}`` and the
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -106,7 +119,11 @@ from repro_torch.kernels.ga_labels.ref import ga_labels_ref  # noqa: E402
 from repro_torch.kernels.ga_labels.ref import label_tables  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
-from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import VARIANTS as RGLRU_VARIANTS  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import plan as rglru_plan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import rglru_gated, rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_gated_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_gates_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import plan as rms_plan  # noqa: E402
@@ -142,8 +159,8 @@ SERVES = (("chatglm3-6b", 8, 1024, 32),
 # decode logits vs one full forward, relative RMS error over all logits.
 # bf16: both sides round every product to 8 mantissa bits (2^-9 = 2e-3
 # relative per rounding) but at different places (cuBLAS picks other kernels
-# for 8 rows than for 8440; the recurrent layers' decode step is plain torch
-# ops where the prefill runs the scan kernels), and the differences grow
+# for 8 rows than for 8440; the Mamba layers' decode step is plain torch ops
+# where the prefill runs the scan kernel), and the differences grow
 # with depth, to 0.055 over falcon-mamba-7b's 64 layers: no fixed number
 # fits every depth.  So a bf16 run is held against its own rounding floor,
 # measured in the same run: the decode logits may be no further from the
@@ -160,10 +177,10 @@ FP32_PROMPT = 128
 SERVE_REL_TOL_FP32 = 1e-4
 # the kernels' launch counters; the residual RMSNorm form is counted apart
 COUNTERS = {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
-            "rglru_scan": rglru_scan, "mamba_scan": mamba_scan,
-            "ga_labels": ga_labels}
+            "rglru_scan": rglru_scan, "rglru_gated": rglru_gated,
+            "mamba_scan": mamba_scan, "ga_labels": ga_labels}
 KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rglru_scan",
-           "mamba_scan", "ga_labels")
+           "rglru_gated", "mamba_scan", "ga_labels")
 # phase 6: the search runs and the reference's results for them (the JAX
 # package's ``repro.search.search`` with the same arguments; pinned equal
 # to it by tests/test_torch_ga_search.py)
@@ -196,6 +213,13 @@ LABEL_SWEEP = (340, 450, 560, 680, 800, 920, 1040)
 DECODE_SWEEP_ROWS = (1, 2, 4, 5, 6, 7, 8, 10, 16)
 DECODE_SWEEP_SPLITS = (1, 2, 3, 4)
 DECODE_SWEEP_SMALL = (1, 8)
+# --scan-sweep: the RG-LRU ring's tiles at recurrentgemma-2b's prefill
+# shape, both entries, both dtypes: channels a block, steps a tile, stages
+# a block, steps a thread, threads a channel (a tile is their product)
+SCAN_SWEEP_CHANNELS = (32, 64)
+SCAN_SWEEP_STEPS = (8, 16)
+SCAN_SWEEP_SPLITS = (1, 2, 4, 8)
+SCAN_SWEEP_STAGES = (2, 3, 4)
 
 
 def log(*a) -> None:
@@ -683,34 +707,166 @@ def kernels_flash(timer: Timer, rn) -> list:
     return cases
 
 
-def kernels_rglru(timer: Timer, g) -> list:
-    """recurrentgemma-2b's prefill shape (B 8, S 4096, W 2560; fp32 on the
-    model path) + the reference test's shapes, ragged ones included."""
+def rglru_shapes() -> tuple:
+    """(B, S, W, serve): recurrentgemma-2b's prefill shape (B 8, S 4096, W
+    2560), then the reference test's shapes, ragged ones included (W 20 and
+    129 give rows that 16-byte copies do not divide)."""
     rg = get_config("recurrentgemma-2b")
     _, B, P, _ = SERVES[1]
-    shapes = ((B, P, rg.rnn_width, True), (1, 32, 16, False),
-              (2, 50, 20, False), (1, 9, 129, False), (3, 7, 129, False))
+    return ((B, P, rg.rnn_width, True), (1, 32, 16, False),
+            (2, 50, 20, False), (1, 9, 129, False), (3, 7, 129, False))
+
+
+def in_turns(timer: Timer, fns: dict) -> dict:
+    """Each callable's time, taken in turns (a, b, b, a): name -> the mean
+    of its two times."""
+    times = {n: [] for n in fns}
+    for n in list(fns) + list(fns)[::-1]:
+        times[n].append(timer.ms(fns[n]))
+    return {n: statistics.mean(t) for n, t in times.items()}
+
+
+def rglru_scan_inputs(g, Bs, S, Wd, dt) -> tuple:
+    a = (torch.rand(Bs, S, Wd, generator=g, device=DEV) * 0.49 + 0.5).to(dt)
+    b = torch.randn(Bs, S, Wd, generator=g, device=DEV).to(dt)
+    return a, b
+
+
+def rglru_gated_inputs(g, Bs, S, Wd, dt) -> tuple:
+    """xa, xi, xc unit normal in ``dt`` (xc @ w_a at the model's init scale
+    is about unit normal); b_a, b_i normal * 0.5; lambda as the model draws
+    it (a^8 uniform in [0.9, 0.999], so a runs up to ~1 and 1 - a^2 is
+    small); h0 unit normal."""
+    xa, xi, xc = (torch.randn(Bs, S, Wd, generator=g, device=DEV).to(dt)
+                  for _ in range(3))
+    b_a, b_i = (torch.randn(Wd, generator=g, device=DEV) * 0.5
+                for _ in range(2))
+    u = torch.rand(Wd, generator=g, device=DEV) * 0.099 + 0.9
+    lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    h0 = torch.randn(Bs, Wd, generator=g, device=DEV)
+    return (xa, xi, xc, b_a, b_i, lam), h0
+
+
+def rglru_today(xa, xi, xc, b_a, b_i, lam, h0=None):
+    """The model's RG-LRU path before the gated kernel: the gate arithmetic
+    as eager fp32 ops, then the ``simple`` scan kernel (prefill) or the
+    elementwise step on h0 (decode), then the cast of h."""
+    a, b = rglru_gates_ref(xa, xi, xc, b_a, b_i, lam)
+    if xc.shape[1] == 1:
+        h_last = a[:, 0] * (torch.zeros_like(a[:, 0]) if h0 is None
+                            else h0) + b[:, 0]
+        hs = h_last[:, None]
+    else:
+        hs = rglru_scan(a, b, variant="simple")
+        h_last = hs[:, -1].clone()
+    return hs.to(xc.dtype), h_last
+
+
+def rglru_gated_work(Bs, S, Wd, dt, h0: bool) -> dict:
+    """xa, xi, xc read and h written once each, b_a, b_i, lambda (and h0)
+    read and h_last written; ~30 fp32 operations an element (two sigmoids,
+    an exp, a square root, the products and the multiply-add)."""
+    n = Bs * S * Wd
+    nbytes = 4 * n * esize(dt) + 3 * Wd * 4 + (2 if h0 else 1) * Bs * Wd * 4
+    return bound(nbytes, 30 * n, torch.float32)
+
+
+def plan_fields(how) -> dict:
+    return {k: getattr(how, k) for k in ("variant", "channels", "steps",
+                                         "split", "stages", "threads",
+                                         "copy_bytes", "blocks")}
+
+
+def kernels_rglru(timer: Timer, g) -> list:
+    """The interface entry (a, b -> h) at ``rglru_shapes``, fp32 and bf16:
+    the plan's variant must be the one that runs, and every variant is
+    forced and held to TOL x RGLRU_TOL_MULT of ``rglru_scan_ref``; at the
+    serve shape each variant is timed, in turns, and the plan's must be the
+    faster."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
-        for Bs, S, Wd, serve in shapes:
-            a = (torch.rand(Bs, S, Wd, generator=g, device=DEV) * 0.49
-                 + 0.5).to(dt)
-            b = torch.randn(Bs, S, Wd, generator=g, device=DEV).to(dt)
+        for Bs, S, Wd, serve in rglru_shapes():
+            a, b = rglru_scan_inputs(g, Bs, S, Wd, dt)
             tol = TOL[dt] * RGLRU_TOL_MULT
-            case = {"shape": [Bs, S, Wd], "dtype": str(dt)[6:], "tol": tol,
-                    "max_abs_err": close(rglru_scan(a, b),
-                                         rglru_scan_ref(a, b), tol)}
+            before = dict(rglru_scan.variant_launches)
+            h = rglru_scan(a, b)
+            ran = ran_variant(rglru_scan, before)
+            how = rglru_plan(Bs, S, Wd, dt)
+            ref = rglru_scan_ref(a, b)
+            err = {v: close(rglru_scan(a, b, variant=v), ref, tol)
+                   for v in RGLRU_VARIANTS}
+            close(h, ref, tol)
+            if ran != how.variant:
+                raise AssertionError(f"rglru_scan {Bs}x{S}x{Wd} {dt}: ran "
+                                     f"{ran}, planned {how.variant}")
+            case = {"entry": "interface", "shape": [Bs, S, Wd],
+                    "dtype": str(dt)[6:], "tol": tol, **plan_fields(how),
+                    "max_abs_err": max(err.values()), "err_by_variant": err}
             if serve:
-                # no single PyTorch call computes a linear recurrence
+                t = in_turns(timer, {
+                    v: (lambda v=v: rglru_scan(a, b, variant=v))
+                    for v in RGLRU_VARIANTS})
                 case.update(
-                    ms=timer.ms(lambda: rglru_scan(a, b)),
+                    ms=t[ran], ms_by_variant=t,
                     plain_ms=timer.ms(lambda: rglru_scan_ref(a, b), reps=3),
+                    # no single PyTorch call computes a linear recurrence
                     library_ms=None,
                     **bound(3 * a.numel() * esize(dt), 2 * a.numel(),
                             torch.float32))
+                if min(t, key=t.get) != ran:
+                    raise AssertionError(f"rglru_scan {dt}: the plan's {ran} "
+                                         f"is not the faster variant: {t}")
             log(f"[kernels] rglru_scan {case}")
             cases.append(case)
-            del a, b
+            del a, b, h, ref
+    return cases
+
+
+def kernels_rglru_gated(timer: Timer, g) -> list:
+    """The gated entry against ``rglru_gated_ref`` on the card, h within TOL
+    x RGLRU_TOL_MULT of its dtype and h_last (fp32 arithmetic on the same
+    inputs) within the fp32 one: recurrentgemma-2b's prefill shape in bf16
+    (the model's) and fp32, from zero and from h0; its decode shape (8, 1,
+    2560) from h0 and from zero; the ragged shapes.  Timed at the prefill
+    (from zero) and decode (from h0) shapes beside the bound, the plain
+    version and today's layer path (``rglru_today``)."""
+    rg = get_config("recurrentgemma-2b")
+    _, B, _, _ = SERVES[1]
+    shapes = [(Bs, S, Wd, serve) for Bs, S, Wd, serve in rglru_shapes()]
+    shapes.insert(1, (B, 1, rg.rnn_width, True))
+    shapes.append((2, 1, 129, False))
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for Bs, S, Wd, serve in shapes:
+            args, h0 = rglru_gated_inputs(g, Bs, S, Wd, dt)
+            tol = TOL[dt] * RGLRU_TOL_MULT
+            tol_last = TOL[torch.float32] * RGLRU_TOL_MULT
+            how = rglru_plan(Bs, S, Wd, dt, gated=True)
+            for start in (None, h0):
+                h, h_last = rglru_gated(*args, start)
+                hr, hr_last = rglru_gated_ref(*args, start)
+                case = {"entry": "gated", "shape": [Bs, S, Wd],
+                        "dtype": str(dt)[6:], "h0": start is not None,
+                        "tol": tol, "h_last_tol": tol_last,
+                        **plan_fields(how),
+                        "max_abs_err": close(h, hr, tol),
+                        "h_last_max_abs_err": close(h_last, hr_last,
+                                                    tol_last)}
+                del h, h_last, hr, hr_last
+                # timed: the prefill from zero, the decode step from h0
+                if serve and (start is None) == (S > 1):
+                    t = in_turns(timer, {
+                        "gated": lambda: rglru_gated(*args, start),
+                        "today": lambda: rglru_today(*args, start)})
+                    case.update(
+                        ms=t["gated"], today_ms=t["today"],
+                        plain_ms=timer.ms(
+                            lambda: rglru_gated_ref(*args, start), reps=3),
+                        library_ms=None,
+                        **rglru_gated_work(Bs, S, Wd, dt, start is not None))
+                log(f"[kernels] rglru_gated {case}")
+                cases.append(case)
+            del args, h0
     return cases
 
 
@@ -866,6 +1022,7 @@ def phase_kernels(timer: Timer) -> dict:
     rows = kernels_rmsnorm(timer, rn)
     rows["flash_attention"] = kernels_flash(timer, rn)
     rows["rglru_scan"] = kernels_rglru(timer, g)
+    rows["rglru_gated"] = kernels_rglru_gated(timer, g)
     rows["mamba_scan"] = kernels_mamba(timer, g)
     rows["ga_labels"] = kernels_ga(timer, g)
     torch.cuda.empty_cache()
@@ -886,6 +1043,8 @@ def reset_counts() -> None:
     flash_attention.impl_launches = dict.fromkeys(
         flash_attention.impl_launches, 0)
     ga_labels.variant_launches = dict.fromkeys(ga_labels.variant_launches, 0)
+    rglru_scan.variant_launches = dict.fromkeys(rglru_scan.variant_launches,
+                                                0)
 
 
 def read_counts() -> dict:
@@ -898,14 +1057,15 @@ def read_counts() -> dict:
 def expected_launches(cfg, new: int) -> dict:
     """What ``generate`` launches: one prefill and new - 1 decode steps run
     every norm (two a layer outside the ssm family, one inside, plus the
-    final one) and every attention layer; the scans run in the prefill only
-    (a decode step is plain torch ops); the residual form is not on the
-    path."""
+    final one), every attention layer and every RG-LRU layer (the gated
+    kernel, prefill and decode step alike); the Mamba scan runs in the
+    prefill only (its decode step is plain torch ops); neither the residual
+    form nor the RG-LRU interface entry is on the path."""
     kinds = cfg.layer_kinds()
     norms = len(kinds) * (1 if cfg.family == "ssm" else 2) + 1
     return {"rmsnorm": norms * new, "rmsnorm_residual": 0,
             "flash_attention": sum(k.startswith("attn") for k in kinds) * new,
-            "rglru_scan": kinds.count("rglru"),
+            "rglru_scan": 0, "rglru_gated": kinds.count("rglru") * new,
             "mamba_scan": kinds.count("mamba"), "ga_labels": 0}
 
 
@@ -946,12 +1106,148 @@ def check_launches(cfg, new: int, res: dict) -> None:
                              f"{res['rmsnorm_variants']} != {norms}")
 
 
-def serve_check(cfg, batch, prompt, new, label, warm=False):
+def kernel_kind(name: str) -> str:
+    """A device kernel's short name: the port's kernels by their entry,
+    cuBLAS's products as ``gemm``, PyTorch's by their function name."""
+    low = name.lower()
+    for key, kind in (("gated<", "rglru_gated"), ("direct<", "rglru_scan"),
+                      ("rglru_scan_kernel", "rglru_scan"),
+                      ("flash", "flash_attention"), ("rmsnorm", "rmsnorm"),
+                      ("mamba", "mamba_scan"), ("gemm", "gemm"),
+                      ("nvjet", "gemm"), ("xmma", "gemm")):
+        if key in low:
+            return kind
+    short = name.removeprefix("void ").split("<")[0].split("(")[0]
+    return short.rsplit("::", 1)[-1]
+
+
+# the port's kernels by the block that launches them (``profile_window``)
+PORT_BLOCKS = {"rmsnorm": "norm", "flash_attention": "attn",
+               "rglru_gated": "rglru", "rglru_scan": "rglru",
+               "mamba_scan": "mamba"}
+
+
+def profile_window(model, run) -> dict:
+    """One ``torch.profiler`` window (CPU and CUDA) over ``run()``, with a
+    range around each layer's norms, mixer and MLP (forward hooks): host ms
+    (synchronised), device ms (the kernels' summed durations: one stream,
+    so they do not overlap), the device's idle share, and device ms by
+    block, by kernel and, inside the RG-LRU blocks, by op (the innermost
+    PyTorch op that launched a kernel).  A PyTorch kernel goes to the block
+    whose range holds the ``aten::`` op it is linked to, or to ``other``
+    (embedding, unembedding); the profiler also links some kernels to
+    runtime events (a full launch queue), which would count them twice, so
+    those links are not read.  The port's kernels, launched through ctypes
+    outside any op, go to their block by name (PORT_BLOCKS: the final
+    norm's RMSNorm counts as ``norm``).  The ranges' own device-side
+    annotations are not kernels and are left out; ``unattributed_ms`` is
+    what no op claimed."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    open_ranges, hooks = [], []
+
+    def enter(name):
+        def pre(mod, args):
+            open_ranges.append(record_function(name).__enter__())
+        return pre
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    for layer in model.layers:
+        for child in ("norm1", layer.mixer, "norm2", "mlp"):
+            if hasattr(layer, child):
+                mod = getattr(layer, child)
+                name = "block:norm" if child.startswith("norm") \
+                    else f"block:{child}"
+                hooks += [mod.register_forward_pre_hook(enter(name)),
+                          mod.register_forward_hook(leave)]
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(host_ms=host_ms, **device_breakdown(prof.events(), host_ms))
+
+
+def device_breakdown(events, host_ms: float) -> dict:
+    """``profile_window``'s sums over a profiler's events."""
+    from torch.autograd import DeviceType
+    by_kernel, by_block, rglru_ops = {}, {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                "block:"):
+            k = kernel_kind(e.name) or "(unnamed)"
+            by_kernel[k] = (by_kernel.get(k, 0.0)
+                            + e.time_range.elapsed_us() / 1e3)
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[6:])
+                    for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith("block:"))
+    starts = [r[0] for r in ranges]
+    for kind, block in PORT_BLOCKS.items():
+        if kind in by_kernel:
+            by_block[block] = by_block.get(block, 0.0) + by_kernel[kind]
+            if block == "rglru":
+                rglru_ops[kind] = by_kernel[kind]
+    for e in events:
+        if (e.device_type != DeviceType.CPU or not e.kernels
+                or not e.name.startswith("aten::")):
+            continue
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        block = ranges[i][2] if i >= 0 and t <= ranges[i][1] else "other"
+        for k in e.kernels:
+            if kernel_kind(k.name) in PORT_BLOCKS:
+                continue
+            ms = k.duration / 1e3
+            by_block[block] = by_block.get(block, 0.0) + ms
+            if block == "rglru":
+                rglru_ops[e.name] = rglru_ops.get(e.name, 0.0) + ms
+    device_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16])
+    return {"device_ms": device_ms,
+            "idle_share": 1 - device_ms / host_ms if host_ms else None,
+            "by_block_ms": by_block,
+            "unattributed_ms": device_ms - sum(by_block.values()),
+            "by_kernel_ms": top,
+            "rglru_block_by_op_ms": dict(sorted(rglru_ops.items(),
+                                                key=lambda kv: -kv[1]))}
+
+
+def layer_profile(model, prompts, img, new) -> dict:
+    """One prefill of ``prompts`` and one decode step after it, each in its
+    own ``profile_window``; raises if the profiler shows no device time."""
+    S = prompts.shape[1] + (0 if img is None else img.shape[1])
+    state = {}
+
+    def prefill():
+        state["cache"] = model.prefill(prompts, max_len=S + new,
+                                       img_embeds=img)[1]
+
+    def decode():
+        model.decode_step(prompts[:, :1], S, state["cache"])
+
+    out = {"prefill": profile_window(model, prefill),
+           "decode_step": profile_window(model, decode)}
+    if not all(w["device_ms"] > 0 for w in out.values()):
+        raise AssertionError(f"the profiler shows no device time: {out}")
+    return out
+
+
+def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
     """generate() then one forward over prompt + generated tokens; the
     decode logits must match the forward's at the same positions (only
     those are unembedded: recurrentgemma-2b's (8, 4127, 256000) fp32 logits
     would take 34 GB): in fp32 within SERVE_REL_TOL_FP32, in bf16 within the
-    rounding floor (FLOOR_MULT), for which the model is then cast to fp32."""
+    rounding floor (FLOOR_MULT), for which the model is then cast to fp32.
+    ``profile``: after the counted run, ``layer_profile`` of a prefill and
+    a decode step."""
     g = torch.Generator(device=DEV).manual_seed(0)
     model = Transformer(cfg, DEV, generator=g)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
@@ -970,6 +1266,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
     flash_impls = dict(flash_attention.impl_launches)
     norm_variants = dict(fused_rmsnorm.variant_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = layer_profile(model, prompts, img, new) if profile else None
     if out.tokens.shape != (batch, new) or out.logits.shape != (
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
         raise AssertionError(f"{label}: bad generate output")
@@ -998,6 +1295,8 @@ def serve_check(cfg, batch, prompt, new, label, warm=False):
            "logits_rel_rms_vs_forward": err,
            "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
            "argmax_agreement": agree, **check}
+    if prof is not None:
+        res["profile"] = prof
     log(f"[serve] {label} {json.dumps(res)}")
     checked = check["decode_rel_rms_vs_fp32_forward"] if bf16 else err
     if not checked <= check["limit"]:
@@ -1015,7 +1314,7 @@ def phase_serve() -> dict:
     for arch, batch, prompt, new in SERVES:
         cfg = get_config(arch)
         res = serve_check(cfg, batch, prompt, new, f"bf16 full {arch}",
-                          warm=True)
+                          warm=True, profile=arch == "recurrentgemma-2b")
         check_launches(cfg, new, res)
         runs[arch] = res
     return runs
@@ -1179,6 +1478,64 @@ def decode_sweep() -> None:
         del q, k, v, ref
 
 
+def scan_sweep() -> None:
+    """Both RG-LRU entries at recurrentgemma-2b's prefill shape (8, 4096,
+    2560), bf16 and fp32: the ring at every tile of SCAN_SWEEP_CHANNELS x
+    SCAN_SWEEP_STEPS (steps a thread) x SCAN_SWEEP_SPLITS (threads a
+    channel) x SCAN_SWEEP_STAGES that fits the kernel, each checked (TOL x
+    RGLRU_TOL_MULT) and timed, beside the plan's tile, the ``simple``
+    variant and, for the gated entry, today's layer path.  One line a tile;
+    the plan's TILES are read from them."""
+    timer = Timer()
+    g = torch.Generator(device=DEV).manual_seed(1234)
+    Bs, S, Wd, _ = rglru_shapes()[0]
+    for dt in (torch.bfloat16, torch.float32):
+        tol, tol_last = (TOL[dt] * RGLRU_TOL_MULT,
+                         TOL[torch.float32] * RGLRU_TOL_MULT)
+        a, b = rglru_scan_inputs(g, Bs, S, Wd, dt)
+        args, _ = rglru_gated_inputs(g, Bs, S, Wd, dt)
+        ref = rglru_scan_ref(a, b)
+        ref_g, ref_last = rglru_gated_ref(*args)
+        base = {"shape": [Bs, S, Wd], "dtype": str(dt)[6:]}
+        fixed = {"interface": {
+            "plan": lambda: rglru_scan(a, b),
+            "simple": lambda: rglru_scan(a, b, variant="simple")},
+            "gated": {"plan": lambda: rglru_gated(*args),
+                      "today": lambda: rglru_today(*args)}}
+        for entry, fns in fixed.items():
+            t = in_turns(timer, fns)
+            how = rglru_plan(Bs, S, Wd, dt, gated=entry == "gated")
+            log(f"[sweep] {json.dumps(dict(base, entry=entry, plan=plan_fields(how), ms=t))}")
+        for C, L, G, P in itertools.product(
+                SCAN_SWEEP_CHANNELS, SCAN_SWEEP_STEPS, SCAN_SWEEP_SPLITS,
+                SCAN_SWEEP_STAGES):
+            tile = (C, L * G, P, G)
+            row = dict(base, channels=C, steps=L * G, split=G, stages=P)
+            for entry in ("interface", "gated"):
+                try:
+                    how = rglru_plan(Bs, S, Wd, dt, gated=entry == "gated",
+                                     tile=tile)
+                except ValueError:
+                    row[entry] = "beyond the kernel's limits"
+                    continue
+                if entry == "gated":
+                    def call():
+                        return rglru_gated(*args, tile=tile)
+                    h, h_last = call()
+                    err = max(close(h, ref_g, tol),
+                              close(h_last, ref_last, tol_last))
+                else:
+                    def call():
+                        return rglru_scan(a, b, tile=tile)
+                    err = close(call(), ref, tol)
+                row[entry] = {"ms": timer.ms(call), "max_abs_err": err,
+                              "smem_bytes": how.smem_bytes,
+                              "threads": how.threads, "blocks": how.blocks}
+            log(f"[sweep] {json.dumps(row)}")
+        del a, b, args, ref, ref_g, ref_last
+        torch.cuda.empty_cache()
+
+
 def kernel_line(rows: dict, runs: dict) -> dict:
     """One entry per kernel; its top-level numbers are those of its first
     timed case (a serve shape in bf16, the scans in fp32 as the models run
@@ -1203,6 +1560,10 @@ def kernel_line(rows: dict, runs: dict) -> dict:
         "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                        "src/repro/kernels/rglru_scan/kernel.py:39 "
                        "(rglru_scan_kernel)"),
+        "rglru_gated": ("src/repro_torch/csrc/rglru_scan.cu",
+                        "src/repro/kernels/rglru_scan/kernel.py:39 "
+                        "(rglru_scan_kernel) with the gate arithmetic of "
+                        "src/repro/models/rglru.py:75-89"),
         "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                        "src/repro/kernels/mamba_scan/kernel.py:48 "
                        "(mamba_scan_kernel)"),
@@ -1249,6 +1610,10 @@ def main(argv=None) -> int:
                     help="build, then only both decode kernels over 1-16 "
                          "query rows per kv head and 1-4 key splits (no "
                          "contract line)")
+    ap.add_argument("--scan-sweep", action="store_true",
+                    help="build, then only both RG-LRU entries over the "
+                         "ring's tiles at recurrentgemma-2b's prefill shape "
+                         "(no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1267,6 +1632,9 @@ def main(argv=None) -> int:
         return 0
     if args.decode_sweep:
         decode_sweep()
+        return 0
+    if args.scan_sweep:
+        scan_sweep()
         return 0
     rows = phase_kernels(Timer())
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")

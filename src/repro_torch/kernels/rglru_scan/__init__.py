@@ -1,3 +1,3 @@
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ops import rglru_gated, rglru_scan
 
-__all__ = ["rglru_scan"]
+__all__ = ["rglru_gated", "rglru_scan"]

@@ -8,9 +8,10 @@ Counterpart: ``repro/models/rglru.py`` (``rglru_init``, ``rglru_mix``):
 
 inside the Griffin recurrent block: two linear branches (D -> W), a causal
 conv (width 4) on the recurrent one, the RG-LRU, and a GELU-gated output
-projection (W -> D).  A multi-token call (prefill) runs the recurrence
-through the scan kernel (``kernels/rglru_scan``); a one-token call (decode)
-is the reference's elementwise step on the cached state, in plain torch ops.
+projection (W -> D).  The gate arithmetic and the recurrence run as one
+kernel, ``rglru_gated`` (``kernels/rglru_scan``), in a multi-token call
+(prefill, from a zero state) and in a one-token call (decode, from the
+cached state) alike.
 """
 from __future__ import annotations
 
@@ -18,14 +19,12 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ops import rglru_gated
+from repro_torch.kernels.rglru_scan.ref import C
 from repro_torch.models.common import act_fn, dense_init, param
 from repro_torch.models.mamba import causal_conv, conv_history
-
-C = 8.0
 
 
 class RGLRU(nn.Module):
@@ -66,20 +65,11 @@ class RGLRU(nn.Module):
         xb = x @ self.in_x
         gate = act_fn("gelu")(x @ self.in_gate)
         xc = causal_conv(xb, self.conv_w, self.conv_b, hist)
-        r = torch.sigmoid((xc @ self.w_a).float() + self.b_a)
-        i = torch.sigmoid((xc @ self.w_i).float() + self.b_i)
-        log_a_hat = -F.softplus(self.get_parameter("lambda"))
-        a = torch.exp(C * r * log_a_hat)                        # B,S,W fp32
-        b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * xc.float()
-        if S == 1:
-            h0 = torch.zeros_like(a[:, 0]) if state is None else state
-            h_last = a[:, 0] * h0 + b[:, 0]
-            hs = h_last[:, None]
-        else:
-            hs = rglru_scan(a, b)
-            h_last = hs[:, -1].clone()
+        # h in x's dtype; h_last, the fp32 state after the last step
+        h, h_last = rglru_gated(xc @ self.w_a, xc @ self.w_i, xc, self.b_a,
+                                self.b_i, self.get_parameter("lambda"), state)
         if cache is not None:
             cache["h"] = h_last
             cache["conv"] = conv_history(xb, hist, self.cfg.ssm_conv).to(
                 cache["conv"].dtype)
-        return (hs.to(x.dtype) * gate) @ self.out_proj
+        return (h * gate) @ self.out_proj

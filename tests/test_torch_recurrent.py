@@ -146,10 +146,11 @@ def test_model_feeds_kernels_contiguous_tensors(models, monkeypatch):
     """On the card the kernel wrappers refuse non-contiguous tensors, which
     the plain CPU path would accept: check what the model hands them, and
     how often.  Per forward: two norms a layer (one in the ssm family) plus
-    the final one, one attention per attention layer; one scan per
-    recurrent layer in a multi-token call only (decode is plain torch)."""
+    the final one, one attention per attention layer; one gated RG-LRU call
+    per RG-LRU layer in every call, decode included; one Mamba scan per
+    Mamba layer in a multi-token call only (its decode is plain torch)."""
     _, _, model, tcfg = models
-    calls = {"rmsnorm": 0, "flash_attention": 0, "rglru_scan": 0,
+    calls = {"rmsnorm": 0, "flash_attention": 0, "rglru_gated": 0,
              "mamba_scan": 0}
 
     def spy(mod, name, key):
@@ -165,7 +166,7 @@ def test_model_feeds_kernels_contiguous_tensors(models, monkeypatch):
 
     spy(common, "fused_rmsnorm", "rmsnorm")
     spy(attn_mod, "flash_attention", "flash_attention")
-    spy(rglru_mod, "rglru_scan", "rglru_scan")
+    spy(rglru_mod, "rglru_gated", "rglru_gated")
     spy(mamba_mod, "mamba_scan", "mamba_scan")
     toks = torch.randint(0, tcfg.vocab, (3, 9),
                          generator=torch.Generator().manual_seed(5))
@@ -177,7 +178,7 @@ def test_model_feeds_kernels_contiguous_tensors(models, monkeypatch):
     assert calls == {"rmsnorm": 3 * norms,
                      "flash_attention": 3 * sum(k.startswith("attn")
                                                 for k in kinds),
-                     "rglru_scan": 2 * kinds.count("rglru"),
+                     "rglru_gated": 3 * kinds.count("rglru"),
                      "mamba_scan": 2 * kinds.count("mamba")}
 
 
