@@ -68,6 +68,24 @@ non-zero (no phase's failure is caught):
    every engine batch must have launched the label kernel once.  One line
    per run in ``BENCH_ga.json``'s record schema.
 
+7. schedule service: the ``island`` backend at BENCH_island.json's cell
+   (mobilenet_v3 on simba, seed 0, 60 generations, migrating every 20) at
+   1, 2 and 4 islands on the card, islands 2 and 4 in processes started
+   with ``spawn`` (this process holds a CUDA context), each held to the
+   reference's result exactly (ISLAND_RUNS, held equal to the JAX
+   package's by ``tests/test_torch_island.py``) and every island's engine
+   to ``cuda`` with one label launch per batch; the same runs with
+   ``device="cpu"`` beside them; one line per run in BENCH_island.json's
+   record schema plus the device, start method and the seconds from
+   starting the islands to the end of their first generation.  Then the
+   CLI in subprocesses (``python -m repro_torch``, each search on the
+   card): an island search with telemetry and a trace, ``report
+   --telemetry`` (certificate, all checks passed), ``serve --workers 2``
+   of the README's jobs (an island job twice, deduplicated, and resnet50 on
+   eyeriss@act+64), ``submit`` of the first job served from the store with
+   no search (its trace holds no search or batch span), ``verify --store``
+   and ``trace``; every stored artifact's engine must be ``cuda``.
+
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
 contract line.  ``--label-sweep`` runs phases 1-2 and then only phase 3's
@@ -92,6 +110,8 @@ import bisect
 import dataclasses
 import itertools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -197,6 +217,29 @@ GA_RUNS = {
         golden=dict(genome_mask=0x21000000010051082,
                     best_fitness=1.0263130846327753, evaluations=99998)),
 }
+# phase 7: the island backend at BENCH_island.json's cell (mobilenet_v3 on
+# simba, seed 0, 60 generations of the paper preset, migrating every 20) and
+# the reference's results for it (``repro.search.search(..., backend=
+# "island")``; pinned equal to it by tests/test_torch_island.py)
+ISLAND_SPEC = dict(workload="mobilenet_v3", accelerator="simba",
+                   backend="island", seed=0)
+ISLAND_RUNS = {
+    1: dict(genome_mask=0x15a46930ac4e973acd9274945cdf,
+            best_fitness=1.5826680686747943, history_len=60,
+            evaluations=10350, offspring_evaluated=10800),
+    2: dict(genome_mask=0x15a4a934aa4f173acd8264905cdf,
+            best_fitness=1.5824383590058961, history_len=60,
+            evaluations=20579, offspring_evaluated=21600),
+    4: dict(genome_mask=0x15a4a934ac4f173acde2749c5ccf,
+            best_fitness=1.5827601514969192, history_len=60,
+            evaluations=41126, offspring_evaluated=43200),
+}
+
+
+def island_config(islands: int) -> dict:
+    return {"generations": 60, "islands": islands, "migrate_every": 20}
+
+
 # phase 3's label-kernel check: genomes per graph and fused-bit densities
 GA_ROWS = 65536
 GA_LONG_ROWS = 4096        # the graph too long for shared memory
@@ -1408,6 +1451,179 @@ def phase_search() -> dict:
     return runs
 
 
+# ---- phase 7: the schedule service --------------------------------------------------
+
+# the README's serve jobs: the same island search twice (deduplicated in
+# flight), then resnet50 on a repartitioned eyeriss with the ga defaults
+SERVE_JOBS = [
+    {"workload": "mobilenet_v3", "backend": "island",
+     "backend_config": {"islands": 4, "preset": "fast", "generations": 60}},
+    {"workload": "mobilenet_v3", "backend": "island",
+     "backend_config": {"islands": 4, "preset": "fast", "generations": 60}},
+    {"workload": "resnet50", "accelerator": "eyeriss@act+64"},
+]
+SERVICE_DIR = ROOT / "build" / "schedule_service"
+
+
+def island_run(islands: int, device: str) -> dict:
+    """One ISLAND_RUNS search through a ``SearchSession`` on ``device``,
+    counts set to 0 just before it and read just after.  Held to the
+    reference's result exactly; on the card every island's engine must be
+    ``cuda`` with one label launch per batch (islands 2 and 4 run in
+    spawned processes, whose launches come back in their engine stats;
+    islands 1 is the ga backend in this process, counted here)."""
+    spec = SearchSpec(**ISLAND_SPEC, backend_config=island_config(islands))
+    session = SearchSession(spec, device=device)
+    reset_counts()
+    art = session.run()
+    launches = read_counts()
+    backend = session.backend
+    got = dict(genome_mask=art.genome_mask, best_fitness=art.best_fitness,
+               history_len=len(art.history), evaluations=art.evaluations,
+               offspring_evaluated=art.offspring_evaluated)
+    if islands == 1:
+        engines = [{**session.evaluator.population().stats(),
+                    "label_variants": dict(ga_labels.variant_launches)}]
+    else:
+        engines = [info["engine"] for info in backend.island_info]
+    child = sum(e["label_launches"] for e in engines) if islands > 1 else 0
+    first_gen = [info["first_gen_s"] for info in backend.island_info]
+    res = {"name": "island_scaling", "islands": islands, "generations": 60,
+           "seed": spec.seed, "workload": spec.workload,
+           "accelerator": spec.accelerator, "cpu_count": os.cpu_count(),
+           "wall_s": art.wall_s,
+           "evals_per_sec": art.offspring_evaluated / art.wall_s,
+           "offspring_evaluated": art.offspring_evaluated,
+           "best_fitness": art.best_fitness, "device": device,
+           "start_method": backend.start_method,
+           "spawn_to_first_gen_s": max(first_gen) if first_gen else None,
+           "engines": [{k: e[k] for k in ("backend", "batches",
+                                          "label_launches", "batch_time_s")}
+                       for e in engines],
+           "launches": launches, "child_launches": {"ga_labels": child}}
+    log(f"[island] {json.dumps(res)}")
+    if got != ISLAND_RUNS[islands]:
+        raise AssertionError(f"island x{islands} on {device}: {got} != "
+                             f"reference {ISLAND_RUNS[islands]}")
+    want_method = None if islands == 1 else "spawn"   # CUDA is live here
+    if backend.start_method != want_method or len(engines) != islands:
+        raise AssertionError(f"island x{islands} on {device}: start "
+                             f"{backend.start_method}, {len(engines)} "
+                             f"engines")
+    expect = dict.fromkeys(KERNELS, 0)
+    if device == DEV:
+        expect["ga_labels"] = engines[0]["batches"] if islands == 1 else 0
+        for e in engines:
+            if (e["backend"] != "cuda" or not e["batches"]
+                    or e["label_launches"] != e["batches"]
+                    or sum(e["label_variants"].values()) != e["batches"]):
+                raise AssertionError(f"island x{islands}: engine {e}")
+    elif any(e["backend"] != "torch" or e["label_launches"]
+             for e in engines):
+        raise AssertionError(f"island x{islands} on cpu: {engines}")
+    if launches != expect:
+        raise AssertionError(f"island x{islands} on {device}: launches "
+                             f"{launches} != {expect}")
+    return res
+
+
+def cli(*argv, env=None) -> tuple:
+    """``python -m repro_torch <argv>`` in the service directory: (exit
+    code, stdout, seconds); a failure shows its output."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch", *argv], cwd=SERVICE_DIR,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **(env or {})})
+    secs = time.perf_counter() - t0
+    log(f"[cli] {' '.join(argv)}: rc {r.returncode} in {secs:.1f} s")
+    if r.returncode != 0:
+        raise AssertionError(f"python -m repro_torch {' '.join(argv)}: rc "
+                             f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+    return r.stdout, secs
+
+
+def service_cli() -> dict:
+    """The CLI's main path in subprocesses, each search on the card: an
+    island search with telemetry and a trace, its report (certificate,
+    verification, telemetry), a served batch (the README's jobs), a submit
+    served from the store with zero new evaluations (its trace holds no
+    search and no batch), ``verify --store`` and ``trace``."""
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    SERVICE_DIR.mkdir(parents=True)
+    (SERVICE_DIR / "jobs.json").write_text(json.dumps(SERVE_JOBS))
+    out = {}
+    _, out["search_s"] = cli(
+        "search", "--workload", "mobilenet_v3", "--accelerator", "simba",
+        "--backend", "island", "--backend-config",
+        json.dumps(island_config(4)), "--seed", "0", "--telemetry",
+        "--trace", "run.jsonl", "--out", "a.json")
+    art = json.loads((SERVICE_DIR / "a.json").read_text())
+    got = dict(genome_mask=int(art["genome_mask"], 16),
+               best_fitness=art["best_fitness"],
+               history_len=len(art["history"]),
+               evaluations=art["evaluations"],
+               offspring_evaluated=art["offspring_evaluated"])
+    if got != ISLAND_RUNS[4] or art["telemetry"]["steps"] < 1:
+        raise AssertionError(f"cli search: {got}")
+    report, out["report_s"] = cli("report", "a.json", "--telemetry")
+    for want in ("certificate  : DRAM traffic",
+                 "verification : all checks passed", "telemetry    :",
+                 "engine cuda"):
+        if want not in report:
+            raise AssertionError(f"cli report lacks {want!r}:\n{report}")
+    served, out["serve_s"] = cli("serve", "--store", "S", "--requests",
+                                 "jobs.json", "--workers", "2", "--json")
+    stats = json.loads(served)["stats"]
+    if stats != {"jobs": 3, "searched": 2, "cache_hits": 1,
+                 "deduped_in_flight": 1, "failed": 0}:
+        raise AssertionError(f"cli serve: {stats}")
+    submitted, out["submit_s"] = cli(
+        "submit", "--store", "S", "--workload", "mobilenet_v3", "--backend",
+        "island", "--backend-config", json.dumps({"islands": 4}),
+        "--preset", "fast", "--generations", "60",
+        env={"REPRO_TRACE": str(SERVICE_DIR / "submit.jsonl")})
+    sub = [json.loads(line) for line in
+           (SERVICE_DIR / "submit.jsonl").read_text().splitlines()]
+    names = [e["name"] for e in sub]
+    if not submitted.startswith("served from store") or "search" in names \
+            or "batch_eval" in names or names.count("serve.job") != 1:
+        raise AssertionError(f"cli submit: {submitted}\n{names}")
+    verified, out["verify_s"] = cli("verify", "--store", "S")
+    if "2 artifact(s): 2 verified, 0 failed" not in verified:
+        raise AssertionError(f"cli verify:\n{verified}")
+    traced, out["trace_s"] = cli("trace", "run.jsonl", "--json")
+    agg = json.loads(traced)
+    if not agg["valid"] or agg["span_counts"].get("generation") != \
+            art["telemetry"]["steps"]:
+        raise AssertionError(f"cli trace: {agg['span_counts']}")
+    stored = [json.loads(p.read_text())
+              for p in sorted((SERVICE_DIR / "S" / "objects").rglob("*.json"))]
+    backends = [a["backend_stats"]["pop_backend"] for a in stored]
+    if backends != ["cuda", "cuda"]:
+        raise AssertionError(f"stored artifacts' engines: {backends}")
+    out.update(serve_stats=stats, stored_pop_backends=backends,
+               trace_spans=agg["span_counts"],
+               serve_job_wall_s=[a["wall_s"] for a in stored])
+    log(f"[cli] {json.dumps(out)}")
+    return out
+
+
+def phase_service() -> dict:
+    """Phase 7: ISLAND_RUNS at 1, 2 and 4 islands on the card (spawned
+    island processes) and the same with ``device="cpu"`` beside them, then
+    the CLI's main path in subprocesses.  Returns the card's island runs,
+    counted with phase 4-6's runs."""
+    t0 = time.perf_counter()
+    runs = {}
+    for islands in (1, 2, 4):
+        runs[f"island_x{islands}"] = island_run(islands, DEV)
+        island_run(islands, "cpu")
+    service_cli()
+    log(f"[service] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def depth_sweep() -> None:
     """falcon-mamba-7b's serve check (bf16: decode vs forward and the
     rounding floor) at 8, 16, 32 and 64 layers, and in fp32 at 64."""
@@ -1541,8 +1757,10 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     timed case (a serve shape in bf16, the scans in fp32 as the models run
     them, the group labels at mobilenet_v3 and density 0.5), the other cases
     are listed under ``cases``; ``launches`` is the sum over the main-path
-    runs (serve, phase 5's full-width fp32 runs and search), each run's
-    under ``launches_by_run``.  Flash attention has one entry per kernel
+    runs (serve, phase 5's full-width fp32 runs, search and phase 7's
+    island runs) counted in this process, each run's under
+    ``launches_by_run``; the group labels launched by phase 7's spawned
+    island processes are under ``launches_in_island_processes``.  Flash attention has one entry per kernel
     that ran (each case's ``impl``, each run's ``flash_impls``)."""
     flash = "src/repro/kernels/flash_attention/kernel.py:78 " \
             "(flash_attention_kernel)"
@@ -1587,10 +1805,16 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     for name, cases, by_run in entries:
         source, replaces = meta[name.removeprefix("flash_attention_")]
         main = next(c for c in cases if "ms" in c)
+        # phase 7's spawned islands launch in their own processes: counted
+        # from their engine stats, apart from this process's counters
+        children = {r: res["child_launches"][name] for r, res in runs.items()
+                    if res.get("child_launches", {}).get(name)}
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
+            **({"launches_in_island_processes": children} if children
+               else {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1643,6 +1867,8 @@ def main(argv=None) -> int:
     runs.update(phase_fp32())
     log(f"[time] fp32 done at {time.perf_counter() - t0:.1f} s")
     runs.update(phase_search())
+    log(f"[time] search done at {time.perf_counter() - t0:.1f} s")
+    runs.update(phase_service())
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rows, runs)))
     print(smi)

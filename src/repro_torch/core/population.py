@@ -72,7 +72,6 @@ edge because no genome ever fuses one.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -80,6 +79,7 @@ import torch
 
 from repro_torch.kernels.ga_labels.ops import ga_labels
 from repro_torch.kernels.ga_labels.ref import LabelTables, label_tables
+from repro_torch.obs import clock
 
 _MISSING = object()
 
@@ -131,6 +131,13 @@ class StaticTables:
         self.bitpos = np.arange(64, dtype=_U64)
         self._grids: Dict[int, tuple] = {}        # per-population-size caches
         self._label_tables: Dict[torch.device, LabelTables] = {}
+
+    def __getstate__(self):
+        """Pickled for a spawned island process: the device tables stay
+        behind (no CUDA tensor crosses); the child copies its own."""
+        state = dict(self.__dict__)
+        state["_label_tables"] = {}
+        return state
 
     def label_tables(self, device: torch.device) -> LabelTables:
         """The edge tables of the label pass, int32 on ``device`` (copied
@@ -229,9 +236,9 @@ class PopulationEvaluator:
     def fitness_masks(self, masks: Sequence[int], objective: str = "edp"
                       ) -> np.ndarray:
         """Fitness per genome mask (float64 array), canonical order."""
-        t0 = time.perf_counter()
+        t0 = clock.perf_counter()
         out = self._fitness_masks(masks, objective)
-        self.batch_time += time.perf_counter() - t0
+        self.batch_time += clock.perf_counter() - t0
         self.batches += 1
         self.states_scored += len(masks)
         return out
@@ -354,7 +361,7 @@ class PopulationEvaluator:
         its device time taken by CUDA events.  The labels must be a fixpoint
         of pointer jumping, as the reference's jax path checks
         (``repro/core/population.py:657``), and raise otherwise."""
-        t0 = time.perf_counter()
+        t0 = clock.perf_counter()
         p = bits.shape[0]
         tb = self.t.label_tables(self.device)
         x = torch.from_numpy(np.ascontiguousarray(bits)).to(self.device)
@@ -375,7 +382,7 @@ class PopulationEvaluator:
             raise RuntimeError(
                 f"ga_labels on {self.device}: labels are not a fixpoint of "
                 f"pointer jumping")
-        self.label_time += time.perf_counter() - t0
+        self.label_time += clock.perf_counter() - t0
         return lf, self._maxmem(lf, p)
 
     def _maxmem(self, lf: np.ndarray, p: int) -> np.ndarray:

@@ -138,6 +138,14 @@ class FusionProblem(SearchProblem):
             if spacemap is None else tuple(spacemap.active_indices)
         self._abits: int = len(self._active).bit_length()
 
+    def __getstate__(self):
+        """Pickled for a spawned island process: a telemetry collector the
+        session attached (``obs``, and with it an open trace file) stays
+        behind."""
+        state = dict(self.__dict__)
+        state.pop("obs", None)
+        return state
+
     def initial(self) -> FusionState:
         return FusionState.layerwise(self.graph)
 

@@ -42,6 +42,7 @@ batching machinery.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -54,6 +55,7 @@ from repro_torch.costmodel.default import DefaultCostModel
 from repro_torch.costmodel.energy import DEFAULT_ENERGY, EnergyModel
 from repro_torch.core.population import MIN_BATCH, PopulationEvaluator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import clock
 
 _MISSING = object()
 
@@ -176,6 +178,40 @@ class Evaluator:
         # the engine's backend, named by the device of its label pass
         self._pop_mode = pop_engine or (
             "cuda" if self.device.type == "cuda" else "torch")
+        # telemetry collector (repro_torch.obs) or None; checked once per
+        # *batch* and once per group-cache miss — never per offspring — so
+        # the disabled path costs one attribute load
+        self._obs = None
+        # held across each batch and each scalar evaluation: island threads
+        # share one evaluator, and the engine's group table (row ids handed
+        # out by _new_row, arrays replaced by _grow/_commit_rows) is not
+        # safe to touch from two threads at once (the reference's island
+        # thread mode races there; the GIL already serialises the threads,
+        # so the lock changes no result)
+        self._lock = threading.RLock()
+
+    def __getstate__(self):
+        """Pickled for a spawned island process: no collector (nor its open
+        trace file) and no lock cross; the engine drops its device tables."""
+        state = dict(self.__dict__)
+        state["_obs"] = None
+        del state["_lock"]
+        return state
+
+    def __setstate__(self, state) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.RLock()
+        # the child resolves its own device: CUDA without a card raises here
+        self.device = resolve_device(self.device)
+
+    def attach_telemetry(self, collector) -> None:
+        """Attach a :class:`repro_torch.obs.TelemetryCollector` (None
+        detaches).  Purely observational: fitness values, cache contents,
+        and counter semantics are unchanged whether or not one is
+        attached."""
+        self._obs = collector
+        if collector is not None:
+            collector.bind_evaluator(self)
 
     # ---- public API ----------------------------------------------------------------
     def layerwise(self) -> ScheduleCost:
@@ -188,12 +224,13 @@ class Evaluator:
         """Total cost, or None if the state is invalid (unschedulable or
         over-capacity).  Accepts bitmask states (fast path) and reference
         states (frozenset path)."""
-        self.evals += 1
-        if not state.is_schedulable():
-            return None
-        if hasattr(state, "group_masks"):
-            return self._evaluate_keys(state.group_masks())
-        return self._evaluate_keys(state.groups())
+        with self._lock:
+            self.evals += 1
+            if not state.is_schedulable():
+                return None
+            if hasattr(state, "group_masks"):
+                return self._evaluate_keys(state.group_masks())
+            return self._evaluate_keys(state.groups())
 
     def fitness(self, state, objective: str = "edp") -> float:
         """Paper Alg. 1 line 9: F = Eval_layerwise / Eval_new (0 if invalid)."""
@@ -217,6 +254,10 @@ class Evaluator:
         :meth:`fitness` by float re-association only (~1 ulp), and ``run_ga``
         re-scores its final winner exactly.
         """
+        with self._lock:
+            return self._fitness_batch(states, objective)
+
+    def _fitness_batch(self, states, objective) -> List[float]:
         self.batch_states += len(states)
         keys = [s.key() for s in states]
         uniq: Dict[int, float] = {}
@@ -226,6 +267,10 @@ class Evaluator:
                 uniq[k] = 0.0
                 todo.append(s)
         self.batch_unique += len(uniq)
+        obs = self._obs
+        if obs is not None:
+            t0w, t0p = clock.now(), clock.perf_counter()
+            m0 = self.group_misses
         if (self._pop_mode != "off" and len(todo) >= MIN_BATCH
                 and objective in NATIVE_OBJECTIVES
                 and todo[0].cg is self.cg):
@@ -233,10 +278,17 @@ class Evaluator:
                 [s.mask for s in todo], objective)
             for s, f in zip(todo, fits.tolist()):
                 uniq[s.mask] = f
+            engine = self._pop.backend
         else:
             for s in todo:
                 uniq[s.key()] = self._fitness_fast(s, objective)
-        return [uniq[k] for k in keys]
+            engine = "scalar"
+        out = [uniq[k] for k in keys]
+        if obs is not None:
+            obs.record_batch(len(states), len(todo), out, engine, t0w,
+                             clock.perf_counter() - t0p,
+                             self.group_misses - m0)
+        return out
 
     def fitness_batch_unique(self, states: Sequence[FusionState],
                              objective: str = "edp") -> List[float]:
@@ -244,23 +296,40 @@ class Evaluator:
         by genome (the GA loop's run-level cache does) — skips the per-state
         re-keying pass and returns fitness in input order.  Same engine
         routing, bit-identical results."""
+        with self._lock:
+            return self._fitness_batch_unique(states, objective)
+
+    def _fitness_batch_unique(self, states, objective) -> List[float]:
         self.batch_states += len(states)
         self.batch_unique += len(states)
+        obs = self._obs
+        if obs is not None:
+            t0w, t0p = clock.now(), clock.perf_counter()
+            m0 = self.group_misses
         if (self._pop_mode != "off" and len(states) >= MIN_BATCH
                 and objective in NATIVE_OBJECTIVES
                 and states[0].cg is self.cg):
-            return self.population().fitness_masks(
+            out = self.population().fitness_masks(
                 [s.mask for s in states], objective).tolist()
-        return [self._fitness_fast(s, objective) for s in states]
+            engine = self._pop.backend
+        else:
+            out = [self._fitness_fast(s, objective) for s in states]
+            engine = "scalar"
+        if obs is not None:
+            obs.record_batch(len(states), len(states), out, engine, t0w,
+                             clock.perf_counter() - t0p,
+                             self.group_misses - m0)
+        return out
 
     def population(self) -> "PopulationEvaluator":
         """The batched population engine bound to this evaluator (lazy;
         shares the group-correction caches), its label pass on the
         evaluator's device."""
-        if self._pop is None:
-            self._ensure_base()
-            self._pop = PopulationEvaluator(self, self.device)
-        return self._pop
+        with self._lock:
+            if self._pop is None:
+                self._ensure_base()
+                self._pop = PopulationEvaluator(self, self.device)
+            return self._pop
 
     def _ensure_base(self) -> tuple:
         """Layerwise scalar sums + per-objective baseline metrics (lazy)."""
@@ -337,7 +406,13 @@ class Evaluator:
     def _group_cost(self, key: GroupKey) -> GroupCost:
         cached = self._group_cache.get(key, _MISSING)
         if cached is _MISSING:
-            bd = self.costmodel.cost_group(key)
+            obs = self._obs
+            if obs is None:
+                bd = self.costmodel.cost_group(key)
+            else:                    # time novel-group costing (miss path
+                t0 = clock.perf_counter()   # only: hits never pay this)
+                bd = self.costmodel.cost_group(key)
+                obs.note_group_costed(clock.perf_counter() - t0)
             cached = None if bd is None else bd.totals()
             self._group_cache[key] = cached
             self.group_misses += 1

@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+from repro_torch.obs import clock
 
 from repro_torch.core.fusion import FusionState
 from repro_torch.core.graph import LayerGraph
@@ -94,8 +95,11 @@ class ScheduleArtifact(ImprovementRatios):
     #: ``SearchSpec(spacemap=True)`` runs (not ported: the port never
     #: writes one, but loads and re-saves it)
     spacemap: Optional[Dict[str, Any]] = None
-    #: search-telemetry summary of the reference's
-    #: ``SearchSpec(telemetry=True)`` runs (not ported, kept as loaded)
+    #: compact search-telemetry summary (``SearchSpec(telemetry=True)`` or
+    #: traced runs): convergence curve, rejection / cache-hit rates per
+    #: generation, final metric snapshot — what ``python -m repro_torch
+    #: report --telemetry`` renders without the raw trace
+    #: (:meth:`repro_torch.obs.collect.TelemetryCollector.summary`)
     telemetry: Optional[Dict[str, Any]] = None
     created_unix: int = 0
     version: int = ARTIFACT_VERSION
@@ -267,7 +271,9 @@ def make_artifact(spec: SearchSpec, graph: LayerGraph, result,
                   wall_s: float = 0.0,
                   backend_stats: Optional[Dict[str, Any]] = None,
                   group_breakdowns: Optional[List[CostBreakdown]] = None,
-                  embed_ir: bool = False) -> ScheduleArtifact:
+                  embed_ir: bool = False,
+                  telemetry: Optional[Dict[str, Any]] = None
+                  ) -> ScheduleArtifact:
     """Package a finished backend run (``result``: GAResult over fusion
     genomes) into a durable artifact.  ``embed_ir`` snapshots the graph's
     exact :class:`repro_torch.ir.GraphIR` into the artifact (self-contained:
@@ -289,5 +295,6 @@ def make_artifact(spec: SearchSpec, graph: LayerGraph, result,
         backend_stats=dict(backend_stats or {}),
         group_breakdowns=list(group_breakdowns or []),
         graph_ir=graph.to_ir().to_dict() if embed_ir else None,
-        created_unix=int(time.time()),
+        telemetry=telemetry,
+        created_unix=clock.unix_time(),
     )

@@ -14,14 +14,11 @@ The port's copy of ``repro/search/session.py``.  Both entry points take a
 ``device``: ``None`` means CUDA (and raises when no card is present),
 ``"cpu"`` runs the population engine's plain PyTorch label pass.  Not
 ported yet, and refused with an error: the static fusion-space analysis
-(``spacemap=True``), telemetry and tracing (``telemetry=True``, the
-reference's ``repro.obs``), and the reference's ``island`` backend (not in
-the registry).
+(``spacemap=True``).
 """
 from __future__ import annotations
 
-import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 from repro_torch.core.graph import LayerGraph
 from repro_torch.core.problem import FusionProblem
@@ -29,6 +26,8 @@ from repro_torch.costmodel.accelerator import Accelerator
 from repro_torch.costmodel.energy import DEFAULT_ENERGY, EnergyModel
 from repro_torch.costmodel.evaluator import NATIVE_OBJECTIVES, Evaluator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import (TelemetryCollector, Tracer, clock,
+                             trace_path_from_env)
 
 from repro_torch.search.artifact import ScheduleArtifact, make_artifact
 from repro_torch.search.backends import BackendError
@@ -76,19 +75,32 @@ class SearchSession:
                  accelerator: Optional[Accelerator] = None,
                  em: Optional[EnergyModel] = None,
                  embed_ir: Optional[bool] = None,
+                 trace_path: Optional[str] = None,
+                 obs: Optional[TelemetryCollector] = None,
                  device: DeviceLike = None):
         self.spec = spec
         device = resolve_device(device)   # no card and no device: raise now
+        # JSONL span destination (CLI --trace); REPRO_TRACE is the env
+        # fallback, checked at run() so tests can set it per-run
+        self.trace_path = trace_path
+        # externally-owned collector (the reference's daemon): the session
+        # attaches it for the run so callers can stream per-generation
+        # records live, but does NOT embed its summary in the artifact
+        # unless the spec itself asks for telemetry — daemon-produced
+        # artifacts stay byte-compatible with direct SearchSession runs
+        self._external_obs = obs
+        self.telemetry: Optional[TelemetryCollector] = None
         # artifacts for workloads with no registry entry (direct graphs
         # recorded as ir:<fingerprint>) embed the canonical GraphIR so they
         # stay reproducible anywhere; registry workloads can opt in
+        # (embed_ir=True / CLI --embed-ir)
         self.embed_ir = bool(embed_ir) if embed_ir is not None else \
             spec.workload.startswith(("file:", "ir:"))
-        for flag in ("spacemap", "telemetry"):
-            if getattr(spec, flag):
-                raise BackendError(
-                    f"SearchSpec({flag}=True) is not ported to repro_torch "
-                    f"yet; run it with the reference package (repro.search)")
+        if spec.spacemap:
+            raise BackendError(
+                "SearchSpec(spacemap=True) is not ported to repro_torch yet "
+                "(ROADMAP A2); run it with the reference package "
+                "(repro.search)")
         # resolve everything eagerly so bad names fail at session creation,
         # not generations into a search
         if "seed" in spec.backend_config or "observer" in spec.backend_config:
@@ -146,12 +158,47 @@ class SearchSession:
                    device=device)
 
     # ---- running ---------------------------------------------------------------
-    def _observer(self, progress: Optional[Callable[[Progress], None]]):
+    def _telemetry_setup(self) -> Tuple[Optional[TelemetryCollector],
+                                        Optional[Tracer]]:
+        """Build and attach the collector when telemetry is on; (None, None)
+        otherwise — the disabled path allocates nothing.  An external
+        collector (``obs=``) is attached as-is: the session never owns its
+        tracer and tracing env/args are ignored for the run."""
+        tracer: Optional[Tracer] = None
+        if self._external_obs is not None:
+            collector = self._external_obs
+        else:
+            path = self.trace_path or trace_path_from_env()
+            if not (self.spec.telemetry or path):
+                return None, None
+            tracer = Tracer(path) if path else None
+            collector = TelemetryCollector(tracer=tracer)
+        self.evaluator.attach_telemetry(collector)
+        # island workers reach the collector via the problem they fork with
+        self.problem.obs = collector
+        collector.begin_search({
+            "workload": self.spec.workload,
+            "accelerator": self.spec.accelerator,
+            "objective": self.spec.objective,
+            "backend": self.spec.backend,
+            "costmodel": self.spec.costmodel,
+            "seed": self.spec.seed,
+        })
+        self.telemetry = collector
+        return collector, tracer
+
+    def _observer(self, progress: Optional[Callable[[Progress], None]],
+                  collector: Optional[TelemetryCollector] = None):
         spec = self.spec
         state = {"best": -1.0, "stale": 0}
 
         def observe(step: int, best: float, evals: int, offspring: int
                     ) -> bool:
+            # telemetry ticks first so a progress callback already sees the
+            # generation's record; it only records — the stop decision below
+            # never reads it, so budget/patience behave identically on/off
+            if collector is not None:
+                collector.on_step(step, best, evals, offspring)
             if progress is not None:
                 progress(Progress(step, best, evals, offspring))
             stop = False
@@ -171,21 +218,54 @@ class SearchSession:
     def run(self, progress: Optional[Callable[[Progress], None]] = None
             ) -> ScheduleArtifact:
         """Drive the backend to completion and package the artifact."""
-        t0 = time.perf_counter()
-        self.result = self.backend.run(
-            self.problem, seed=self.spec.seed,
-            observer=self._observer(progress), **self.spec.backend_config)
-        wall_s = time.perf_counter() - t0
+        collector, tracer = self._telemetry_setup()
+        t0 = clock.perf_counter()
+        try:
+            self.result = self.backend.run(
+                self.problem, seed=self.spec.seed,
+                observer=self._observer(progress, collector),
+                **self.spec.backend_config)
+        finally:
+            # detach even on failure so the evaluator/problem never leak a
+            # collector into a later run on the same session objects
+            if collector is not None:
+                self.evaluator.attach_telemetry(None)
+                self.problem.obs = None
+        wall_s = clock.perf_counter() - t0
         best_cost = self.evaluator.evaluate(self.result.best_state)
         assert best_cost is not None, \
             "backend returned an invalid best state"
         breakdowns = self.evaluator.breakdowns(self.result.best_state)
+        telemetry = None
+        if collector is not None:
+            stats = self.evaluator.cache_stats()
+            collector.end_search(stats)
+            if tracer is not None:
+                tracer.close()
+            # external collectors record for their owner (the daemon); the
+            # artifact embeds a summary only when the spec opted in, so a
+            # daemon-run artifact is byte-identical to a direct run's
+            if self._external_obs is None or self.spec.telemetry:
+                telemetry = collector.summary(stats)
         self.artifact = make_artifact(
             self.spec, self.graph, self.result,
             baseline=self.evaluator.layerwise(), best=best_cost,
             wall_s=wall_s, backend_stats=self.evaluator.cache_stats(),
-            group_breakdowns=breakdowns, embed_ir=self.embed_ir)
+            group_breakdowns=breakdowns, embed_ir=self.embed_ir,
+            telemetry=telemetry)
         return self.artifact
+
+    # ---- compatibility ----------------------------------------------------------
+    def schedule_result(self):
+        """The pre-facade :class:`repro_torch.core.schedule.ScheduleResult`
+        view (kept for report rendering)."""
+        from repro_torch.core.schedule import ScheduleResult
+        assert self.result is not None and self.artifact is not None, \
+            "run() the session first"
+        return ScheduleResult(
+            workload=self.graph.name, accelerator=self.accelerator.name,
+            baseline=self.artifact.baseline, best=self.artifact.best,
+            best_state=self.result.best_state, ga=self.result)
 
 
 def search(workload: str, accelerator: str = "simba", *,

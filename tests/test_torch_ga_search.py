@@ -125,13 +125,16 @@ def test_chip_smoke_golden_constants_are_the_references(run):
     assert _comparable(mine) == _comparable(ref)
 
 
+# telemetry and the island backend are ported (tests/test_torch_obs.py,
+# tests/test_torch_island.py); spacemap stays refused with every backend
 @pytest.mark.parametrize("what", [
-    dict(spacemap=True), dict(telemetry=True), dict(backend="island"),
+    dict(spacemap=True), dict(spacemap=True, backend="exhaustive"),
+    dict(spacemap=True, backend="island"),
     dict(costmodel="tpu"), dict(workload="file:model.json")])
 def test_unported_parts_are_refused(what):
     kw = dict(workload="vgg16", accelerator="simba", backend="ga")
     kw.update(what)
-    err = RegistryError if set(what) & {"backend", "costmodel",
+    err = RegistryError if set(what) & {"costmodel",
                                         "workload"} else BackendError
     with pytest.raises(err):
         SearchSession(SearchSpec(**kw), device="cpu")

@@ -123,4 +123,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.search" in out["modules"]
     assert "repro_torch.core.population" in out["modules"]
     assert "repro_torch.kernels.ga_labels.ops" in out["modules"]
+    # the schedule service: imported (the CLI without running it)
+    for name in ("repro_torch.__main__", "repro_torch.search.island",
+                 "repro_torch.serve.scheduler", "repro_torch.serve.store",
+                 "repro_torch.analysis.verify", "repro_torch.obs.collect"):
+        assert name in out["modules"], name
     assert out["bad"] == []
