@@ -85,6 +85,26 @@ non-zero (no phase's failure is caught):
    eyeriss@act+64), ``submit`` of the first job served from the store with
    no search (its trace holds no search or batch span), ``verify --store``
    and ``trace``; every stored artifact's engine must be ``cuda``.
+8. the daemon and the rest of the search side: ``ScheduleDaemon`` in this
+   process on the card (``device=None``, two worker threads, 127.0.0.1:0,
+   driven over HTTP): GA_RUNS' two searches at once on the two workers,
+   each its golden result; a duplicate attached to the running job; a
+   repeat served from the store with no search and no launch; a
+   warm-started job whose first generation is at or above its cold twin's
+   and the donor's; a 2-island job (ISLAND_RUNS, its spawned islands'
+   engines ``cuda``); a long job cancelled while it runs; this process's
+   label launches equal to the searched jobs' engine batches.  Then
+   ``python -m repro_torch daemon`` in a subprocess, an island job
+   submitted with ``jobs submit``, the daemon stopped mid-search and
+   restarted on the same store, the journal's replay re-running the job to
+   ISLAND_RUNS; ``store gc --max-objects 1`` (``--dry-run`` first) with a
+   queued job pinning a key.  Last, in this process: ``analyze --json``
+   (ANALYZE_GOLDEN), the spacemap GA and vgg16's per-region exhaustive run
+   on the card (SPACEMAP_RUNS), ``export`` of mobilenet_v3 and ``search
+   --workload file:...`` on the card (the zoo run's golden result and
+   fingerprint, FILE_RUN), and ``verify`` of every artifact of the phase.
+   The goldens are the reference's, pinned by
+   ``tests/test_torch_spacemap.py`` and ``tests/test_torch_ir_passes.py``.
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
@@ -108,6 +128,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -1527,12 +1548,13 @@ def island_run(islands: int, device: str) -> dict:
     return res
 
 
-def cli(*argv, env=None) -> tuple:
-    """``python -m repro_torch <argv>`` in the service directory: (exit
-    code, stdout, seconds); a failure shows its output."""
+def cli(*argv, env=None, cwd=None) -> tuple:
+    """``python -m repro_torch <argv>`` in the service directory (or
+    ``cwd``): (stdout, seconds); a failure shows its output."""
     t0 = time.perf_counter()
     r = subprocess.run(
-        [sys.executable, "-m", "repro_torch", *argv], cwd=SERVICE_DIR,
+        [sys.executable, "-m", "repro_torch", *argv],
+        cwd=cwd or SERVICE_DIR,
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **(env or {})})
     secs = time.perf_counter() - t0
@@ -1621,6 +1643,471 @@ def phase_service() -> dict:
         island_run(islands, "cpu")
     service_cli()
     log(f"[service] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# ---- phase 8: the daemon and the rest of the search side ----------------------------
+
+# the spacemap runs and the reference's results for them (``repro.search.
+# search`` with the same arguments; pinned by tests/test_torch_spacemap.py):
+# the paper GA over the spacemap-reduced genome, and vgg16's 2^21 space
+# solved exactly by per-region composition (scored one genome at a time,
+# off the population engine)
+SPACEMAP_RUNS = {
+    "spacemap_ga": dict(
+        spec=dict(workload="mobilenet_v3", accelerator="simba", backend="ga",
+                  backend_config={"preset": "paper"}, seed=0, spacemap=True),
+        golden=dict(genome_mask=0x15a4a934ac4f175acdd2749a5cdf,
+                    best_fitness=1.5828072147849952, evaluations=56675)),
+    "per_region": dict(
+        spec=dict(workload="vgg16", accelerator="simba",
+                  backend="exhaustive", spacemap=True),
+        golden=dict(genome_mask=0x1a4225, best_fitness=1.0273429656033972,
+                    evaluations=37)),
+}
+# ``analyze mobilenet_v3 --accel simba --json``: the sha256 of the
+# reference's document (pinned by tests/test_torch_spacemap.py)
+ANALYZE_GOLDEN = dict(
+    workload="mobilenet_v3", accelerator="simba", frozen=9, regions=2,
+    sha256="36415d8ab5eea3956345700cf37a5845f3df65cd4627ec7cfe83a036fb522c5d")
+# the ``file:`` run: mobilenet_v3 exported, then searched with GA_RUNS'
+# paper GA spec; the zoo graph's fingerprint (the reference's; pinned by
+# tests/test_torch_ir_passes.py) and the zoo run's golden result
+FILE_RUN = dict(run="paper_ga", fingerprint="ir1:719ccbccc569d369a2b038f57"
+                                            "f36495f3af40bdfc4bc17c4b38c479"
+                                            "98bb090d9")
+# the warm-started job (and its cold twin, run directly): a fast GA on the
+# paper GA's graph, so the store's paper GA winner is its exact donor
+WARM_SPEC = dict(workload="mobilenet_v3", accelerator="simba", backend="ga",
+                 seed=7, backend_config={"preset": "fast", "generations": 10})
+# the job the daemon is stopped under, and re-runs after its restart:
+# ISLAND_RUNS' 2-island run (its spawned islands take seconds to start, so
+# the stop lands mid-search)
+RESTART_SPEC = dict(ISLAND_SPEC, backend_config=island_config(2))
+RESTART_GOLDEN = ISLAND_RUNS[2]
+# the job cancelled while it runs
+LONG_SPEC = dict(workload="unet", backend="ga",
+                 backend_config={"preset": "fast", "generations": 100000})
+DAEMON_DIR = ROOT / "build" / "schedule_daemon"
+TERMINAL = ("done", "failed", "cancelled")
+# the commands' device flags: none on the card (their default); a dry run
+# of phase 8's logic on the CPU sets DEV = "cpu" and these to
+# ["--device", "cpu"]
+DEVICE_ARGS: list = []
+
+
+def engine_name() -> str:
+    """The population engine's name in artifacts: ``cuda`` on the card."""
+    return "cuda" if DEV == "cuda" else "torch"
+
+
+def label_launches_for(batches: int) -> int:
+    """What the label kernel's counter must show for ``batches`` engine
+    batches: one launch each on the card, none on the CPU."""
+    return batches if DEV == "cuda" else 0
+
+
+def http(method: str, url: str, payload=None):
+    import urllib.request
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.load(r)
+
+
+def wait_job(base: str, jid: int, timeout: float = 300.0) -> dict:
+    deadline = time.monotonic() + timeout
+    while True:
+        j = http("GET", f"{base}/jobs/{jid}")
+        if j["state"] in TERMINAL:
+            if j["state"] == "failed":
+                raise AssertionError(f"daemon job {jid} failed: {j}")
+            return j
+        if time.monotonic() > deadline:
+            raise AssertionError(f"daemon job {jid} stuck: {j['state']}")
+        time.sleep(0.05)
+
+
+def wait_running(base: str, jid: int, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while http("GET", f"{base}/jobs/{jid}")["state"] != "running":
+        if time.monotonic() > deadline:
+            raise AssertionError(f"daemon job {jid} never started")
+        time.sleep(0.02)
+
+
+def golden_of(art) -> dict:
+    return dict(genome_mask=art.genome_mask, best_fitness=art.best_fitness,
+                evaluations=art.evaluations)
+
+
+def island_golden_of(art) -> dict:
+    return dict(genome_mask=art.genome_mask, best_fitness=art.best_fitness,
+                history_len=len(art.history), evaluations=art.evaluations,
+                offspring_evaluated=art.offspring_evaluated)
+
+
+def engine_of(session):
+    pop = getattr(session.evaluator, "_pop", None)
+    return pop.stats() if pop is not None else None
+
+
+def job_record(name: str, session, art) -> dict:
+    """One job's line; its engine's own launch count must equal its
+    batches (an engine counts its thread's launches only, so another
+    worker's do not leak into it)."""
+    eng = engine_of(session)
+    rec = {"job": name, "wall_s": art.wall_s,
+           "evals_per_sec": art.offspring_evaluated / art.wall_s,
+           "label_launches": eng["label_launches"] if eng else 0,
+           "batches": eng["batches"] if eng else 0,
+           "engine": art.backend_stats.get("pop_backend")}
+    if rec["label_launches"] != label_launches_for(rec["batches"]):
+        raise AssertionError(f"{name}: engine counted "
+                             f"{rec['label_launches']} launches in "
+                             f"{rec['batches']} batches")
+    return rec
+
+
+def daemon_in_process() -> dict:
+    """Part 1: ``ScheduleDaemon`` on the card (``device=None``), two worker
+    threads, driven over HTTP.  Its sessions are recorded by a subclass put
+    in place of the daemon's ``SearchSession`` (this script's spy; the
+    daemon's code is unchanged), so every searched job's engine batches and
+    an island job's spawned engines can be read after the run."""
+    import repro_torch.serve.daemon as daemon_mod
+    from repro_torch.serve import ScheduleDaemon
+
+    sessions = []
+
+    class Recorded(SearchSession):
+        def run(self, progress=None):
+            self.t_run = [time.perf_counter(), None]
+            sessions.append(self)
+            try:
+                return super().run(progress=progress)
+            finally:
+                self.t_run[1] = time.perf_counter()
+
+    daemon_mod.SearchSession = Recorded
+    store = DAEMON_DIR / "in_process"
+    shutil.rmtree(store, ignore_errors=True)
+    cold = SearchSession(SearchSpec(**WARM_SPEC), device=DEV).run()
+    t0 = time.perf_counter()
+    svc = ScheduleDaemon(str(store), workers=2,
+                         device=None if DEV == "cuda" else DEV)
+    svc.start()
+    start_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{svc.port}"
+    jobs, out = {}, {"startup_s": start_s, "jobs": []}
+    try:
+        if svc.device.type != DEV:
+            raise AssertionError(f"daemon device {svc.device}")
+        reset_counts()
+        # the two GA_RUNS at once, and a duplicate while they run
+        for name in ("paper_ga", "random"):
+            jobs[name] = http("POST", f"{base}/jobs", {
+                "spec": SearchSpec(**GA_RUNS[name]["spec"]).to_dict()})
+        dup = http("POST", f"{base}/jobs", {
+            "spec": SearchSpec(**GA_RUNS["paper_ga"]["spec"]).to_dict()})
+        if not dup["deduped"] or dup["attached_to"] != jobs["paper_ga"]["id"]:
+            raise AssertionError(f"duplicate not attached: {dup}")
+        done = {name: wait_job(base, j["id"]) for name, j in jobs.items()}
+        dup = wait_job(base, dup["id"])
+        if dup["outcome"] != "cache_hit" or dup["key"] != \
+                done["paper_ga"]["key"]:
+            raise AssertionError(f"duplicate: {dup}")
+        by_spec = {json.dumps(s.spec.to_dict(), sort_keys=True): s
+                   for s in sessions}
+        for name in ("paper_ga", "random"):
+            art = svc.store.load_key(done[name]["key"])
+            if golden_of(art) != GA_RUNS[name]["golden"] or \
+                    art.backend_stats["pop_backend"] != engine_name():
+                raise AssertionError(f"daemon {name}: {golden_of(art)}")
+            s = by_spec[json.dumps(SearchSpec(**GA_RUNS[name]["spec"])
+                                   .to_dict(), sort_keys=True)]
+            out["jobs"].append(job_record(name, s, art))
+        (a0, a1), (b0, b1) = (s.t_run for s in sessions[:2])
+        overlap = min(a1, b1) - max(a0, b0)
+        if len(sessions) != 2 or overlap <= 0:
+            raise AssertionError(f"the two searches did not overlap: "
+                                 f"{len(sessions)} sessions, {overlap} s")
+        out["concurrent_overlap_s"] = overlap
+        # a repeat: served from the store, no search, no launch
+        before = ga_labels.launches
+        hit = http("POST", f"{base}/jobs", {
+            "spec": SearchSpec(**GA_RUNS["paper_ga"]["spec"]).to_dict()})
+        if hit["state"] != "done" or hit["outcome"] != "cache_hit" or \
+                len(sessions) != 2 or ga_labels.launches != before:
+            raise AssertionError(f"repeat: {hit}, {len(sessions)} sessions")
+        # a warm-started job: its first generation holds the donor's winner
+        warm = wait_job(base, http("POST", f"{base}/jobs", {
+            "spec": SearchSpec(**WARM_SPEC).to_dict(),
+            "warm_start": True})["id"])
+        wart = svc.store.load_key(warm["key"])
+        donor = GA_RUNS["paper_ga"]["golden"]["best_fitness"]
+        if warm["outcome"] != "searched" or \
+                wart.history[0] < cold.history[0] - 1e-9 or \
+                wart.history[0] < donor - 1e-9:
+            raise AssertionError(f"warm start: first generation "
+                                 f"{wart.history[0]}, cold "
+                                 f"{cold.history[0]}, donor {donor}")
+        out["warm_first_gen"] = wart.history[0]
+        out["cold_first_gen"] = cold.history[0]
+        out["jobs"].append(job_record("warm_start", sessions[-1], wart))
+        # a 2-island job: islands spawned from a worker thread
+        ispec = SearchSpec(**ISLAND_SPEC, backend_config=island_config(2))
+        idone = wait_job(base, http("POST", f"{base}/jobs", {
+            "spec": ispec.to_dict()})["id"])
+        iart = svc.store.load_key(idone["key"])
+        isess = sessions[-1]
+        engines = [info["engine"] for info in isess.backend.island_info]
+        want_method = "spawn" if DEV == "cuda" else "fork"
+        if island_golden_of(iart) != ISLAND_RUNS[2] or \
+                isess.backend.start_method != want_method or \
+                len(engines) != 2 \
+                or any(e["backend"] != engine_name() or not e["batches"]
+                       or e["label_launches"] !=
+                       label_launches_for(e["batches"]) for e in engines):
+            raise AssertionError(f"island job: {island_golden_of(iart)}, "
+                                 f"{isess.backend.start_method}, {engines}")
+        rec = job_record("island_x2", isess, iart)
+        rec["island_label_launches"] = [e["label_launches"] for e in engines]
+        out["jobs"].append(rec)
+        # a long job, cancelled while it runs
+        long = http("POST", f"{base}/jobs", {
+            "spec": SearchSpec(**LONG_SPEC).to_dict()})
+        wait_running(base, long["id"])
+        time.sleep(0.5)
+        http("DELETE", f"{base}/jobs/{long['id']}")
+        deadline = time.monotonic() + 60
+        while http("GET", f"{base}/jobs/{long['id']}")["state"] \
+                != "cancelled":
+            if time.monotonic() > deadline:
+                raise AssertionError("the long job was not cancelled")
+            time.sleep(0.05)
+        eng = engine_of(sessions[-1])
+        if eng["label_launches"] != label_launches_for(eng["batches"]):
+            raise AssertionError(f"cancelled job's engine: {eng}")
+        out["jobs"].append({"job": "cancelled", "batches": eng["batches"],
+                            "label_launches": eng["label_launches"],
+                            "engine": eng["backend"]})
+        launches = read_counts()
+        out["metrics"] = http("GET", f"{base}/metrics")["jobs"]
+    finally:
+        svc.stop()
+        daemon_mod.SearchSession = SearchSession
+    batches = sum((engine_of(s) or {"batches": 0})["batches"]
+                  for s in sessions)
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["ga_labels"] = label_launches_for(batches)
+    if launches != expect:
+        raise AssertionError(f"daemon launches {launches} != the searched "
+                             f"jobs' batches {batches}")
+    out["label_launches_in_process"] = batches
+    out["label_launches_in_islands"] = sum(rec["island_label_launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[daemon] {json.dumps(out)}")
+    return {"launches": launches,
+            "child_launches": {"ga_labels":
+                               out["label_launches_in_islands"]}}
+
+
+def start_daemon(store: str, *extra):
+    """``python -m repro_torch daemon`` (on the card) on a free port;
+    returns (process, base URL, seconds to listening, its output so far)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "daemon", "--store", store,
+         "--port", "0", *extra, *DEVICE_ARGS], cwd=DAEMON_DIR,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = []
+    for line in proc.stdout:
+        lines.append(line.rstrip())
+        if "listening on " in line:
+            base = line.split("listening on ", 1)[1].split()[0]
+            return proc, base, time.perf_counter() - t0, lines
+    raise AssertionError(f"daemon did not start (rc {proc.wait()}):\n"
+                         + "\n".join(lines))
+
+
+def stop_daemon(proc) -> float:
+    t0 = time.perf_counter()
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return time.perf_counter() - t0
+
+
+def run_main(*argv) -> tuple:
+    """``python -m repro_torch <argv>`` in this process: (exit code,
+    stdout)."""
+    import contextlib
+    import io
+
+    from repro_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(DAEMON_DIR)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(list(argv))
+    finally:
+        os.chdir(cwd)
+    return rc, buf.getvalue()
+
+
+def daemon_restart() -> dict:
+    """Part 2: the daemon as a user runs it, in subprocesses: an island
+    job submitted with ``jobs submit``, the daemon stopped (SIGTERM) while
+    the job runs, restarted on the same store, the job re-run by the
+    journal's replay to ISLAND_RUNS; then ``store gc`` (``--dry-run``
+    first) with a queued job pinning a key."""
+    from repro_torch.serve.queue import JobQueue
+    out = {}
+    proc, base, out["startup_s"], _ = start_daemon("R", "--workers", "1")
+    try:
+        sub, out["submit_s"] = cli(
+            "jobs", "--daemon", base, "submit", "--workload",
+            RESTART_SPEC["workload"], "--accelerator",
+            RESTART_SPEC["accelerator"], "--backend", RESTART_SPEC["backend"],
+            "--backend-config", json.dumps(RESTART_SPEC["backend_config"]),
+            "--seed", str(RESTART_SPEC["seed"]), "--json", cwd=DAEMON_DIR)
+        jid = json.loads(sub)["id"]
+        wait_running(base, jid)
+        time.sleep(1.0)                  # its islands are starting
+    finally:
+        out["stop_s"] = stop_daemon(proc)
+    t0 = time.perf_counter()
+    proc, base, out["restart_startup_s"], lines = start_daemon(
+        "R", "--workers", "1")
+    try:
+        if not any("1 requeued" in ln for ln in lines):
+            raise AssertionError("restart did not requeue the job:\n"
+                                 + "\n".join(lines))
+        job = wait_job(base, jid)
+        out["replay_to_done_s"] = time.perf_counter() - t0
+        small = wait_job(base, http("POST", f"{base}/jobs", {
+            "spec": SearchSpec(workload="vgg16", backend_config={
+                "preset": "fast", "generations": 8}).to_dict()})["id"])
+    finally:
+        stop_daemon(proc)
+    from repro_torch.search import ScheduleArtifact
+    store = DAEMON_DIR / "R" / "objects"
+    art = ScheduleArtifact.load(str(store / job["key"][:2] /
+                                    f"{job['key']}.json"))
+    if job["outcome"] != "searched" or \
+            island_golden_of(art) != RESTART_GOLDEN or \
+            art.backend_stats["pop_backend"] != engine_name():
+        raise AssertionError(f"replayed job: {job}, {island_golden_of(art)}")
+    # store gc: a queued job pins the island artifact; one object may stay
+    q = JobQueue(str(DAEMON_DIR / "R"))
+    q.submit(art.spec.to_dict(), key=job["key"])
+    q.close()
+    for dry in (True, False):
+        rc, text = run_main("store", "gc", "--store", "R", "--max-objects",
+                            "1", "--json", *(["--dry-run"] if dry else []))
+        res = json.loads(text)
+        if rc != 0 or res["evicted"] != [small["key"]] or \
+                res["kept_live"] != [job["key"]] or res["dry_run"] != dry:
+            raise AssertionError(f"store gc (dry run {dry}): {res}")
+    left = sorted(p.stem for p in store.rglob("*.json"))
+    if left != [job["key"]]:
+        raise AssertionError(f"store after gc: {left}")
+    out["gc"] = res
+    log(f"[restart] {json.dumps(out)}")
+    return out
+
+
+def spacemap_and_file() -> dict:
+    """Part 3, in this process: ``analyze --json`` against the golden map;
+    the spacemap GA and the per-region exhaustive run on the card against
+    their goldens; ``export`` of mobilenet_v3 and ``search --workload
+    file:...`` on the card against the zoo run; ``verify`` of every
+    artifact of the phase."""
+    out = {}
+    rc, text = run_main("analyze", ANALYZE_GOLDEN["workload"], "--accel",
+                        ANALYZE_GOLDEN["accelerator"], "--json")
+    doc = json.loads(text)
+    digest = hashlib.sha256(text.rstrip("\n").encode()).hexdigest()
+    if rc != 0 or digest != ANALYZE_GOLDEN["sha256"] or \
+            len(doc["summary"]["forced_off"]) != ANALYZE_GOLDEN["frozen"]:
+        raise AssertionError(f"analyze: rc {rc}, {digest}")
+    reset_counts()
+    batches = 0
+    paths = []
+    for name, run in SPACEMAP_RUNS.items():
+        session = SearchSession(SearchSpec(**run["spec"]), device=DEV)
+        art = session.run()
+        eng = engine_of(session)
+        batches += eng["batches"] if eng else 0
+        want_engine = "off" if run["spec"]["backend"] == "exhaustive" \
+            else engine_name()
+        if golden_of(art) != run["golden"] or art.spacemap is None or \
+                art.backend_stats["pop_backend"] != want_engine:
+            raise AssertionError(f"{name}: {golden_of(art)}, "
+                                 f"{art.backend_stats['pop_backend']}")
+        out[name] = job_record(name, session, art)
+        paths.append(str(DAEMON_DIR / f"{name}.json"))
+        art.save(paths[-1])
+    rc, _ = run_main("export", "--workload", "mobilenet_v3", "--out",
+                     "mobilenet_v3.json")
+    spec = GA_RUNS[FILE_RUN["run"]]["spec"]
+    rc2, text = run_main(
+        "search", "--workload", "file:mobilenet_v3.json", "--accelerator",
+        spec["accelerator"], "--backend", spec["backend"],
+        "--backend-config", json.dumps(spec["backend_config"]), "--seed",
+        str(spec["seed"]), "--out", "file_run.json", *DEVICE_ARGS)
+    from repro_torch.search import ScheduleArtifact
+    paths.append(str(DAEMON_DIR / "file_run.json"))
+    art = ScheduleArtifact.load(paths[-1])
+    batches += art.backend_stats["pop_batches"]
+    if rc or rc2 or golden_of(art) != GA_RUNS[FILE_RUN["run"]]["golden"] \
+            or art.graph_fingerprint != FILE_RUN["fingerprint"] \
+            or art.graph_ir is None \
+            or art.backend_stats["pop_backend"] != engine_name():
+        raise AssertionError(f"file: run: {golden_of(art)}, "
+                             f"{art.graph_fingerprint}")
+    out["file_run"] = {"wall_s": art.wall_s, "evals_per_sec":
+                       art.offspring_evaluated / art.wall_s,
+                       "batches": art.backend_stats["pop_batches"],
+                       "engine": art.backend_stats["pop_backend"]}
+    launches = read_counts()
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["ga_labels"] = label_launches_for(batches)
+    if launches != expect:
+        raise AssertionError(f"spacemap/file: launches {launches} != "
+                             f"batches {batches}")
+    n = len(paths)
+    rc, text = run_main("verify", *paths)
+    rc2, text2 = run_main("verify", "--store", "in_process")
+    rc3, text3 = run_main("verify", "--store", "R")
+    if rc or f"{n} artifact(s): {n} verified, 0 failed" not in text or \
+            rc2 or "4 artifact(s): 4 verified, 0 failed" not in text2 or \
+            rc3 or "1 artifact(s): 1 verified, 0 failed" not in text3:
+        raise AssertionError(f"verify:\n{text}\n{text2}\n{text3}")
+    log(f"[spacemap] {json.dumps(out)}")
+    return {"launches": launches}
+
+
+def phase_daemon() -> dict:
+    """Phase 8: the in-process daemon on the card (two concurrent GA_RUNS
+    jobs, a duplicate, a store hit, a warm start, a 2-island job, a
+    cancelled job), the daemon's restart replay and ``store gc`` in
+    subprocesses, then the spacemap and ``file:`` runs.  Returns the
+    in-process runs, counted with phases 4-7's."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DAEMON_DIR, ignore_errors=True)
+    DAEMON_DIR.mkdir(parents=True)
+    runs = {"daemon": daemon_in_process()}
+    daemon_restart()
+    runs["spacemap_file"] = spacemap_and_file()
+    log(f"[daemon] phase 8 took {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -1757,10 +2244,12 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     timed case (a serve shape in bf16, the scans in fp32 as the models run
     them, the group labels at mobilenet_v3 and density 0.5), the other cases
     are listed under ``cases``; ``launches`` is the sum over the main-path
-    runs (serve, phase 5's full-width fp32 runs, search and phase 7's
-    island runs) counted in this process, each run's under
-    ``launches_by_run``; the group labels launched by phase 7's spawned
-    island processes are under ``launches_in_island_processes``.  Flash attention has one entry per kernel
+    runs (serve, phase 5's full-width fp32 runs, search, phase 7's
+    island runs and phase 8's in-process daemon and spacemap/``file:``
+    runs) counted in this process, each run's under ``launches_by_run``;
+    the group labels launched by phases 7 and 8's spawned island processes
+    are under ``launches_in_island_processes`` (phase 8's restarted
+    daemon runs in its own process and is not counted).  Flash attention has one entry per kernel
     that ran (each case's ``impl``, each run's ``flash_impls``)."""
     flash = "src/repro/kernels/flash_attention/kernel.py:78 " \
             "(flash_attention_kernel)"
@@ -1869,6 +2358,8 @@ def main(argv=None) -> int:
     runs.update(phase_search())
     log(f"[time] search done at {time.perf_counter() - t0:.1f} s")
     runs.update(phase_service())
+    log(f"[time] service done at {time.perf_counter() - t0:.1f} s")
+    runs.update(phase_daemon())
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rows, runs)))
     print(smi)

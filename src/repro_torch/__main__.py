@@ -1,6 +1,7 @@
 """The port's CLI (``python -m repro_torch``), a copy of ``repro``'s:
-run searches, serve batches, inspect and verify artifacts, list
-registries, aggregate traces.
+run searches, serve batches, run the always-on daemon, inspect and verify
+artifacts, analyze the fusion space, list registries, aggregate traces,
+lint the engine, export workload IR.
 
     python -m repro_torch search --workload mobilenet_v3 --accel simba \\
         --backend island --backend-config '{"islands": 4}' --out a.json
@@ -11,13 +12,22 @@ registries, aggregate traces.
     python -m repro_torch verify a.json | ... verify --store schedules/
     python -m repro_torch trace trace.jsonl [--top 10] [--json]
     python -m repro_torch list [--json] [--store schedules/]
+    python -m repro_torch daemon --store schedules/ --port 8765 --workers 2
+    python -m repro_torch jobs submit --workload vgg16 --wait [--warm-start]
+    python -m repro_torch jobs status 3 | ... jobs cancel 3 | ... jobs list
+    python -m repro_torch store gc --store schedules/ --max-objects 500
+    python -m repro_torch analyze mobilenet_v3 --accel simba [--json]
+    python -m repro_torch export --workload mobilenet_v3 --out model.json
+    python -m repro_torch search --workload file:model.json --backend ga
+    python -m repro_torch lint [paths...]
 
-Every subcommand takes the reference's flags.  ``search``, ``submit`` and
-``serve`` also take ``--device``: by default every search's label pass
-runs on the card (and the command fails without one); ``--device cpu``
-runs the plain PyTorch version.  ``daemon``, ``jobs``, ``store gc``,
-``analyze``, ``lint`` and ``export`` are not ported yet: each exits 2 with
-a message naming the ROADMAP item.  Nothing runs at import.
+Every subcommand takes the reference's flags.  ``search``, ``submit``,
+``serve`` and ``daemon`` also take ``--device``: by default every search's
+label pass runs on the card (and the command fails without one);
+``--device cpu`` runs the plain PyTorch version.  ``jobs`` is a client of a
+running daemon and searches nothing itself.  The ``tpu`` cost model is not
+ported (ROADMAP A2): ``--costmodel tpu`` exits 2 naming it.  Nothing runs
+at import.
 """
 from __future__ import annotations
 
@@ -28,8 +38,10 @@ import sys
 from typing import List, Optional
 
 
-def _add_spec_args(p) -> None:
-    """Arguments that assemble one SearchSpec (shared by search/submit)."""
+def _add_spec_args(p, device: bool = True) -> None:
+    """Arguments that assemble one SearchSpec (shared by search/submit and
+    ``jobs submit``, whose searches run where the daemon was told to:
+    ``device=False`` leaves ``--device`` out)."""
     p.add_argument("--workload", required=True,
                    help="workload spec: a registered name (see `repro "
                         "list`), name@key=value,... params, or "
@@ -64,14 +76,17 @@ def _add_spec_args(p) -> None:
                         "barrier, i.e. up to ~10 generations; "
                         "random/exhaustive: one scoring chunk)")
     p.add_argument("--spacemap", action="store_true",
-                   help="the reference's static fusion-space analysis; not "
-                        "ported yet (refused, exit 2)")
+                   help="statically freeze provably forced-off genes and "
+                        "factorize the space into regions before searching "
+                        "(repro analyze shows the map; exhaustive then "
+                        "enumerates per region)")
     p.add_argument("--telemetry", action="store_true",
                    help="record per-generation convergence telemetry and "
                         "embed the summary in the artifact (repro report "
                         "--telemetry renders it); never changes the search "
                         "result")
-    _add_device_arg(p)
+    if device:
+        _add_device_arg(p)
 
 
 def _add_device_arg(p) -> None:
@@ -117,6 +132,19 @@ def _add_search_parser(sub) -> None:
                         "REPRO_TRACE=path is the env equivalent)")
 
 
+def _add_export_parser(sub) -> None:
+    p = sub.add_parser(
+        "export", help="export a workload's canonical GraphIR JSON "
+                       "(file: round-trips byte-identically)")
+    p.add_argument("--workload", required=True,
+                   help="workload spec (name, name@key=value, or "
+                        "file:model.json)")
+    p.add_argument("--workload-kwargs", default="{}", metavar="JSON",
+                   help="builder kwargs, e.g. '{\"hw\": 128}'")
+    p.add_argument("--out", default=None,
+                   help="output path (default: <workload name>.json)")
+
+
 def _add_submit_parser(sub) -> None:
     p = sub.add_parser(
         "submit", help="resolve one search request against a schedule "
@@ -146,26 +174,75 @@ def _add_serve_parser(sub) -> None:
     _add_device_arg(p)
 
 
-#: the reference's subcommands the port does not have yet, with the ROADMAP
-#: item that ports them
-UNPORTED = {
-    "daemon": "the always-on daemon (ROADMAP A2: daemon + job queue + "
-              "warm start + store gc)",
-    "jobs": "the daemon's job client (ROADMAP A2: daemon + job queue + "
-            "warm start + store gc)",
-    "store": "store gc (ROADMAP A2: daemon + job queue + warm start + "
-             "store gc)",
-    "analyze": "the static fusion-space analysis (ROADMAP A2: spacemap)",
-    "lint": "the determinism lint (ROADMAP A2: analysis/lint.py)",
-    "export": "the GraphIR export/import pipeline (ROADMAP A2: file: "
-              "workloads, ir/passes.py)",
-}
+def _add_daemon_parser(sub) -> None:
+    p = sub.add_parser(
+        "daemon", help="run the always-on scheduling service: HTTP/JSON "
+                       "API over a crash-safe persistent job queue "
+                       "(journal replayed on restart) and the schedule "
+                       "store")
+    p.add_argument("--store", required=True,
+                   help="ArtifactStore directory (created if absent; also "
+                        "holds the queue journal)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8765,
+                   help="listen port (0 = pick a free one; default 8765)")
+    p.add_argument("--workers", type=int, default=1,
+                   help="worker threads draining the queue (default 1)")
+    _add_device_arg(p)
 
 
-def _add_unported_parsers(sub) -> None:
-    for name, what in UNPORTED.items():
-        sub.add_parser(name, help=f"not ported yet: {what}",
-                       add_help=False)
+def _add_jobs_parser(sub) -> None:
+    p = sub.add_parser(
+        "jobs", help="talk to a running daemon: submit / list / "
+                     "status / wait / cancel")
+    p.add_argument("--daemon", default="http://127.0.0.1:8765",
+                   metavar="URL", help="daemon base URL "
+                                       "(default http://127.0.0.1:8765)")
+    js = p.add_subparsers(dest="jobs_command", required=True)
+    ps = js.add_parser("submit", help="submit one search job")
+    _add_spec_args(ps, device=False)
+    ps.add_argument("--priority", type=int, default=0,
+                    help="higher runs first (default 0)")
+    ps.add_argument("--warm-start", action="store_true",
+                    help="seed the GA population from the store's nearest "
+                         "cached winner (opt-in; never changes the store "
+                         "key)")
+    ps.add_argument("--wait", action="store_true",
+                    help="poll until the job resolves")
+    ps.add_argument("--json", action="store_true")
+    pl = js.add_parser("list", help="list every job the daemon knows")
+    pl.add_argument("--json", action="store_true")
+    pt = js.add_parser("status", help="one job's state + live progress")
+    pt.add_argument("id", type=int)
+    pt.add_argument("--json", action="store_true")
+    pw = js.add_parser("wait", help="block until a job resolves")
+    pw.add_argument("id", type=int)
+    pw.add_argument("--timeout", type=float, default=600.0,
+                    help="give up after this many seconds (default 600)")
+    pw.add_argument("--json", action="store_true")
+    pc = js.add_parser("cancel", help="cancel a job (cooperative abort "
+                                      "when already running)")
+    pc.add_argument("id", type=int)
+    pc.add_argument("--json", action="store_true")
+
+
+def _add_store_parser(sub) -> None:
+    p = sub.add_parser(
+        "store", help="schedule-store maintenance (gc)")
+    ss = p.add_subparsers(dest="store_command", required=True)
+    pg = ss.add_parser(
+        "gc", help="evict least-recently-used objects down to the given "
+                   "limits; never touches objects pinned by queued/running "
+                   "daemon jobs; corrupt objects are reported, not deleted")
+    pg.add_argument("--store", required=True,
+                    help="ArtifactStore directory")
+    pg.add_argument("--max-objects", type=int, default=None,
+                    help="keep at most this many objects")
+    pg.add_argument("--max-bytes", type=int, default=None,
+                    help="keep at most this many bytes of objects")
+    pg.add_argument("--dry-run", action="store_true",
+                    help="report what would be evicted without deleting")
+    pg.add_argument("--json", action="store_true")
 
 
 def _add_report_parser(sub) -> None:
@@ -203,6 +280,31 @@ def _add_verify_parser(sub) -> None:
                    help="emit per-artifact check results as JSON")
 
 
+def _add_analyze_parser(sub) -> None:
+    p = sub.add_parser(
+        "analyze", help="static fusion-space analysis: classify every "
+                        "genome bit (forced_off / free / undecided), "
+                        "factorize the space into independent regions, "
+                        "and size the exact vs GA search problems "
+                        "(repro_torch.analysis.spacemap)")
+    p.add_argument("workload",
+                   help="workload spec: a registered name (see `repro "
+                        "list`), name@key=value,... params, or "
+                        "file:model.json GraphIR")
+    p.add_argument("--workload-kwargs", default="{}", metavar="JSON",
+                   help="builder kwargs, e.g. '{\"hw\": 128}'")
+    p.add_argument("--accelerator", "--accel", dest="accelerator",
+                   default="simba",
+                   help="accelerator whose activation capacity decides the "
+                        "freeze (default: simba)")
+    p.add_argument("--costmodel", default="default",
+                   help="cost backend whose capacity rule applies "
+                        "(default|tpu; others freeze nothing)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the full map (per-edge verdicts, regions, "
+                        "summary) as JSON")
+
+
 def _add_trace_parser(sub) -> None:
     p = sub.add_parser(
         "trace", help="aggregate a telemetry JSONL trace: validate every "
@@ -215,6 +317,23 @@ def _add_trace_parser(sub) -> None:
                    help="slowest spans to list (default 10)")
     p.add_argument("--json", action="store_true",
                    help="emit the aggregate as JSON")
+
+
+def _add_lint_parser(sub) -> None:
+    p = sub.add_parser(
+        "lint", help="determinism + import-boundary lint over the engine "
+                     "packages (global RNG state, wall-clock reads, "
+                     "unordered iteration, mutable defaults, pinned "
+                     "checker/engine isolation)")
+    p.add_argument("paths", nargs="*", metavar="PATH",
+                   help="files/directories to lint (default: "
+                        "src/repro_torch/{core,search,serve,costmodel,ir,"
+                        "hw,obs})")
+    p.add_argument("--root", default=".",
+                   help="repo root holding src/repro_torch/lint.toml "
+                        "(allowlist, tables) and src/ (default: .)")
+    p.add_argument("--json", action="store_true",
+                   help="emit findings as JSON")
 
 
 def _env_collector():
@@ -310,6 +429,146 @@ def _cmd_serve(args) -> int:
               f"({s['deduped_in_flight']} deduped in-flight), "
               f"{s['failed']} failed; store holds {len(store)} schedules")
     return 1 if outcome.stats["failed"] else 0
+
+
+def _cmd_daemon(args) -> int:
+    import signal
+
+    from repro_torch.serve import ScheduleDaemon
+
+    svc = ScheduleDaemon(args.store, host=args.host, port=args.port,
+                         workers=args.workers, device=args.device)
+    rep = svc.queue.replay
+    if rep.jobs:
+        print(f"journal replay: {rep.jobs} job(s) — {rep.requeued} "
+              f"requeued, {rep.terminal} already resolved")
+    for w in rep.warnings:
+        print(f"  journal warning: {w}", file=sys.stderr)
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(signum, lambda s, f: svc.request_shutdown())
+    svc.start()
+    print(f"repro daemon listening on http://{svc.host}:{svc.port} "
+          f"(store {args.store}, {args.workers} worker(s))", flush=True)
+    svc.wait()
+    print("daemon stopped")
+    return 0
+
+
+def _http_json(method: str, url: str, payload=None, timeout: float = 60.0):
+    """One JSON request against the daemon; HTTP/connection errors become
+    ValueError so main() renders them as `error: ...` with exit 2."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.load(resp)
+    except urllib.error.HTTPError as e:
+        body = e.read().decode(errors="replace")
+        try:
+            msg = json.loads(body).get("error", body)
+        except json.JSONDecodeError:
+            msg = body
+        raise ValueError(f"daemon returned {e.code}: {msg}") from None
+    except urllib.error.URLError as e:
+        raise ValueError(f"cannot reach daemon at {url}: {e.reason}") \
+            from None
+
+
+def _job_line(j: dict) -> str:
+    spec = j.get("spec", {})
+    tail = ""
+    if j.get("outcome"):
+        tail += f" outcome={j['outcome']}"
+    if j.get("error"):
+        tail += f" error={j['error']}"
+    if j.get("key"):
+        tail += f" key={j['key'][:12]}"
+    prog = j.get("progress") or []
+    if prog and j.get("state") == "running":
+        tail += (f" [gen {prog[-1]['step']}, "
+                 f"best {prog[-1]['best']:.4f}]")
+    return (f"job {j['id']}: {spec.get('workload')}/"
+            f"{spec.get('accelerator')} [{spec.get('backend')}, seed "
+            f"{spec.get('seed')}] state={j['state']}{tail}")
+
+
+def _wait_job(base: str, job_id: int, timeout: float) -> dict:
+    import time
+
+    deadline = time.monotonic() + timeout
+    while True:
+        j = _http_json("GET", f"{base}/jobs/{job_id}")
+        if j["state"] in ("done", "failed", "cancelled"):
+            return j
+        if time.monotonic() >= deadline:
+            raise ValueError(f"timed out after {timeout:.0f}s waiting for "
+                             f"job {job_id} (state {j['state']})")
+        time.sleep(0.2)
+
+
+def _cmd_jobs(args) -> int:
+    base = args.daemon.rstrip("/")
+    cmd = args.jobs_command
+    if cmd == "submit":
+        spec = _spec_from_args(args)
+        job = _http_json("POST", f"{base}/jobs",
+                         {"spec": spec.to_dict(), "priority": args.priority,
+                          "warm_start": args.warm_start})
+        if args.wait and job["state"] not in ("done", "failed", "cancelled"):
+            job = _wait_job(base, job["id"], timeout=600.0)
+        print(json.dumps(job, indent=2, sort_keys=True) if args.json
+              else _job_line(job))
+        return 2 if job["state"] == "failed" else 0
+    if cmd == "list":
+        jobs = _http_json("GET", f"{base}/jobs")["jobs"]
+        if args.json:
+            print(json.dumps(jobs, indent=2, sort_keys=True))
+        else:
+            for j in jobs:
+                print(_job_line(j))
+            print(f"{len(jobs)} job(s)")
+        return 0
+    if cmd == "status":
+        j = _http_json("GET", f"{base}/jobs/{args.id}")
+    elif cmd == "wait":
+        j = _wait_job(base, args.id, timeout=args.timeout)
+    else:                                # cancel
+        j = _http_json("DELETE", f"{base}/jobs/{args.id}")
+        print(json.dumps(j, indent=2, sort_keys=True) if args.json
+              else f"job {j['id']}: {j['state']}")
+        return 0
+    print(json.dumps(j, indent=2, sort_keys=True) if args.json
+          else _job_line(j))
+    return 2 if j["state"] == "failed" else 0
+
+
+def _cmd_store(args) -> int:
+    from repro_torch.serve import ArtifactStore, collect_garbage
+
+    store = ArtifactStore(args.store, create=False)
+    res = collect_garbage(store, max_objects=args.max_objects,
+                          max_bytes=args.max_bytes, dry_run=args.dry_run)
+    if args.json:
+        print(json.dumps(res.to_dict(), indent=2, sort_keys=True))
+        return 0
+    d = res.to_dict()
+    verb = "would evict" if res.dry_run else "evicted"
+    print(f"store gc: {res.examined} object(s), {res.bytes_total} bytes — "
+          f"{verb} {len(res.evicted)} ({res.evicted_bytes} bytes), "
+          f"{d['objects_after']} object(s) / {d['bytes_after']} bytes "
+          f"remain")
+    if res.kept_live:
+        print(f"  pinned by queued/running jobs: "
+              f"{len(res.kept_live)} object(s)")
+    for key in res.corrupt:
+        print(f"  warning: corrupt/unreadable object {key[:12]} "
+              f"(reported, not deleted)", file=sys.stderr)
+    return 0
 
 
 def _cmd_report(args) -> int:
@@ -440,6 +699,19 @@ def _cmd_verify(args) -> int:
     return 0 if all_ok else 1
 
 
+def _cmd_analyze(args) -> int:
+    from repro_torch.analysis import build_spacemap
+    from repro_torch.search import build_workload
+
+    graph = build_workload(args.workload, **json.loads(args.workload_kwargs))
+    sm = build_spacemap(graph, args.costmodel, args.accelerator)
+    if args.json:
+        print(json.dumps(sm.to_dict(), indent=2, sort_keys=True))
+        return 0
+    print(sm.describe())
+    return 0
+
+
 def _cmd_trace(args) -> int:
     from repro_torch.obs.traceview import read_trace
 
@@ -449,6 +721,39 @@ def _cmd_trace(args) -> int:
     else:
         print(rep.describe())
     return 0 if rep.valid else 1
+
+
+def _cmd_lint(args) -> int:
+    from repro_torch.analysis import run_lint
+
+    findings = run_lint(args.root, paths=args.paths or None)
+    if args.json:
+        print(json.dumps([f.to_dict() for f in findings], indent=2,
+                         sort_keys=True))
+        return 1 if findings else 0
+    for f in findings:
+        print(f.describe())
+    if findings:
+        print(f"{len(findings)} determinism finding(s) — fix them or add "
+              f"justified allow entries to src/repro_torch/lint.toml")
+        return 1
+    print("determinism lint: clean")
+    return 0
+
+
+def _cmd_export(args) -> int:
+    import repro_torch.ir as ir
+    from repro_torch.search import build_workload
+
+    graph = build_workload(args.workload, **json.loads(args.workload_kwargs))
+    out = args.out or f"{graph.name}.json"
+    gir = graph.to_ir()
+    ir.save(gir, out)
+    print(f"wrote {out}  ({len(gir.nodes)} nodes, "
+          f"fingerprint {gir.fingerprint()})")
+    print(f"search it with: python -m repro_torch search --workload "
+          f"file:{out}")
+    return 0
 
 
 def _list_payload() -> dict:
@@ -549,10 +854,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_search_parser(sub)
     _add_submit_parser(sub)
     _add_serve_parser(sub)
+    _add_daemon_parser(sub)
+    _add_jobs_parser(sub)
+    _add_store_parser(sub)
     _add_report_parser(sub)
     _add_verify_parser(sub)
+    _add_analyze_parser(sub)
     _add_trace_parser(sub)
-    _add_unported_parsers(sub)
+    _add_lint_parser(sub)
+    _add_export_parser(sub)
     lp = sub.add_parser(
         "list", help="list registered workloads / accelerators / "
                      "objectives / backends (with config knobs), or "
@@ -564,23 +874,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     lp.add_argument("--store", default=None, metavar="DIR",
                     help="list the artifacts in an ArtifactStore instead "
                          "(shows per-object load warnings)")
-    args, extra = ap.parse_known_args(argv)
-    if args.command in UNPORTED:
-        print(f"error: `{args.command}` is not ported to repro_torch yet: "
-              f"{UNPORTED[args.command]}; run it with the reference "
-              f"(python -m repro {args.command})", file=sys.stderr)
-        return 2
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
 
     from repro_torch.device import resolve_device
     from repro_torch.search import (BackendError, FingerprintMismatch,
                                     RegistryError)
     from repro_torch.serve import StoreError
     handler = {"search": _cmd_search, "submit": _cmd_submit,
-               "serve": _cmd_serve, "report": _cmd_report,
-               "verify": _cmd_verify, "trace": _cmd_trace,
-               "list": _cmd_list}[args.command]
+               "serve": _cmd_serve, "daemon": _cmd_daemon,
+               "jobs": _cmd_jobs, "store": _cmd_store,
+               "report": _cmd_report,
+               "verify": _cmd_verify, "analyze": _cmd_analyze,
+               "trace": _cmd_trace, "lint": _cmd_lint,
+               "export": _cmd_export, "list": _cmd_list}[args.command]
     try:
         if hasattr(args, "device"):
             try:

@@ -1,10 +1,8 @@
 """Independent artifact verification (no ``core.fusion``, no evaluator).
 
-The port's copy of ``repro/analysis/verify.py``, for artifacts with no
-spacemap, the ``default`` cost model, and a zoo workload or an embedded
-GraphIR: every artifact the port writes, and the reference's of that kind.
-An artifact that needs a part not ported yet (a ``spacemap`` summary, the
-``tpu`` cost model, a ``file:`` workload without its embedded IR) raises
+The port's copy of ``repro/analysis/verify.py``: every artifact the port
+writes, and the reference's of the same kinds.  An artifact that needs the
+part not ported yet (the ``tpu`` cost model) raises
 :class:`~repro_torch.search.registry.RegistryError` naming it, rather than
 failing a check.
 
@@ -39,8 +37,10 @@ act-writes          per-tensor DRAM write events re-derived from group
                     boundaries match both cost records
 cost-consistency    per-group breakdowns cover the derived groups and sum
                     to the claimed ``best`` totals
-spacemap            (``spacemap=True`` runs) in the reference only: the
-                    port raises, as it has no ``analysis/spacemap.py``
+spacemap            (``spacemap=True`` runs) the stored static-analysis
+                    summary matches an independent re-derivation
+                    (:mod:`repro_torch.analysis.spacemap`) and the genome sets
+                    no provably forced-off gene
 store-key           (``--store`` only) the object's content-address matches
 bounds              modeled traffic >= Chen-et-al lower bounds
                     (:mod:`repro_torch.analysis.bounds`) — yields the certificate
@@ -369,8 +369,8 @@ def _act_capacity(costmodel: str, accelerator: str
 def _not_ported(what: str) -> None:
     from repro_torch.search.registry import RegistryError
     raise RegistryError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A2); verify this "
-        f"artifact with the reference (python -m repro verify)")
+        f"{what} is not ported to repro_torch yet (ROADMAP A2); run it "
+        f"with the reference package (python -m repro)")
 
 
 # ---- the verifier ----------------------------------------------------------------
@@ -394,8 +394,6 @@ def _rebuild(artifact: "ScheduleArtifact"
             return None, None, Check(
                 "graph-source", False,
                 f"embedded GraphIR does not parse/build: {e}")
-    if spec.workload.startswith("file:"):
-        _not_ported("importing a file: GraphIR workload")
     if spec.workload.startswith("ir:"):
         return None, None, Check(
             "graph-source", False,
@@ -471,6 +469,44 @@ def _check_cost_consistency(artifact: "ScheduleArtifact", view: _GraphView,
                          f"{want!r}")
     return Check("cost-consistency", True,
                  f"{len(bds)} group breakdowns sum to the claimed totals")
+
+
+def _check_spacemap(artifact: "ScheduleArtifact", graph: LayerGraph,
+                    mask: int) -> Check:
+    """Re-derive the static fusion-space analysis and hold the artifact to
+    it: the stored summary must match the independent re-derivation and
+    the winning genome must not set any provably forced-off gene."""
+    # lazy: spacemap imports this module's _GraphView, so a top-level
+    # import here would be circular
+    from repro_torch.analysis.spacemap import build_spacemap
+    claimed = artifact.spacemap
+    if claimed is None:
+        return Check(
+            "spacemap", False,
+            "spec ran with spacemap=True but the artifact carries no "
+            "spacemap summary (stripped or written by a legacy build)")
+    sm = build_spacemap(graph, artifact.spec.costmodel,
+                        artifact.spec.accelerator)
+    derived = sm.summary()
+    if derived != claimed:
+        diff = sorted(k for k in set(derived) | set(claimed)
+                      if derived.get(k) != claimed.get(k))
+        return Check(
+            "spacemap", False,
+            f"stored spacemap summary disagrees with the re-derived "
+            f"analysis on {diff} (e.g. {diff[0]!r}: stored "
+            f"{claimed.get(diff[0])!r}, derived {derived.get(diff[0])!r})")
+    hot = [i for i in sm.frozen_indices if (mask >> i) & 1]
+    if hot:
+        return Check(
+            "spacemap", False,
+            f"genome sets statically forced-off gene bits {hot} — every "
+            f"grouping containing those edges exceeds the activation "
+            f"capacity, so the claimed schedule cannot be valid")
+    return Check(
+        "spacemap", True,
+        f"{len(sm.frozen_indices)} frozen genes and {len(sm.regions)} "
+        f"regions re-derived identically; genome respects the freeze")
 
 
 def verify_artifact(artifact: "ScheduleArtifact", *,
@@ -566,8 +602,7 @@ def verify_artifact(artifact: "ScheduleArtifact", *,
     checks.append(_check_cost_consistency(artifact, view, groups))
 
     if artifact.spacemap is not None or artifact.spec.spacemap:
-        # re-deriving the stored summary needs analysis/spacemap.py
-        _not_ported("the static fusion-space analysis (spacemap)")
+        checks.append(_check_spacemap(artifact, graph, mask))
 
     if expect_key is not None:
         from repro_torch.serve.store import artifact_key

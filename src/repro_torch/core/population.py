@@ -77,7 +77,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.ga_labels.ops import ga_labels
+from repro_torch.kernels.ga_labels.ops import ga_labels, thread_launches
 from repro_torch.kernels.ga_labels.ref import LabelTables, label_tables
 from repro_torch.obs import clock
 
@@ -365,7 +365,7 @@ class PopulationEvaluator:
         p = bits.shape[0]
         tb = self.t.label_tables(self.device)
         x = torch.from_numpy(np.ascontiguousarray(bits)).to(self.device)
-        launches = ga_labels.launches
+        launches = thread_launches()
         if self.device.type == "cuda":
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
@@ -376,7 +376,7 @@ class PopulationEvaluator:
             self.label_kernel_time += ev0.elapsed_time(ev1) / 1e3
         else:
             lf = ga_labels(x, tb).numpy().astype(_I64).ravel()
-        self.label_launches += ga_labels.launches - launches
+        self.label_launches += thread_launches() - launches
         rowbase = self.t.grids(p)[0]
         if not np.array_equal(lf, lf.take(rowbase + lf)):
             raise RuntimeError(

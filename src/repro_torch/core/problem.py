@@ -14,7 +14,7 @@ genome growing its own copy of the selection loop.
 exactly the RNG calls the pre-refactor ``run_ga`` made, so fixed-seed
 results are bit-for-bit unchanged (pinned by ``tests/test_search_api.py``).
 
-A :class:`~repro.analysis.spacemap.SpaceMap` (``SearchSpec(spacemap=
+A :class:`~repro_torch.analysis.spacemap.SpaceMap` (``SearchSpec(spacemap=
 True)``) restricts the genome to the statically undecided bits: mutation,
 crossover, uniform sampling, neighborhoods, and enumeration all skip the
 provably forced-off genes, so the population engine's ``(P, n_edges)``
@@ -33,8 +33,8 @@ from typing import (TYPE_CHECKING, Any, Hashable, Iterable, Iterator, List,
 from repro_torch.core.fusion import FusionState
 from repro_torch.core.graph import LayerGraph
 
-if TYPE_CHECKING:   # the reference's SpaceMap; the port has none yet, and
-    SpaceMap = Any  # its sessions refuse spacemap=True
+if TYPE_CHECKING:                      # import cycle-free type-only import
+    from repro_torch.analysis.spacemap import SpaceMap
 
 
 class SearchProblem:

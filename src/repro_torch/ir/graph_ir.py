@@ -6,9 +6,9 @@ A :class:`GraphIR` is the JSON-stable twin of
 plus the graph's declared outputs.  It is the canonical format everything
 speaks at the boundary:
 
-* zoo builders export it (``LayerGraph.to_ir()``); in the reference,
-  files and tracers import it (``repro.ir.load``, ``repro.ir.trace``; not
-  ported yet);
+* zoo builders export it (``LayerGraph.to_ir()``), files import it
+  (:func:`repro_torch.ir.load`; the reference's JAX tracer has no
+  counterpart here yet);
 * the search facade fingerprints it — the graph fingerprint embedded in
   every :class:`~repro_torch.search.artifact.ScheduleArtifact` is the sha256 of
   :meth:`GraphIR.canonical_json`;
@@ -25,11 +25,11 @@ Two serializations, one schema:
   share a fingerprint iff their compiled edge spaces are identical and a
   genome bitmask can be safely re-bound between them.  The
   *transforming* canonicalization passes (no-op folding, dead-node
-  elimination — ``repro.ir.passes``) run at import time, before a graph
+  elimination — ``repro_torch.ir.passes``) run at import time, before a graph
   ever reaches a search, never inside the fingerprint.
 
 Hand-written files may omit node fields (defaults apply) and list nodes
-in any producer-before-consumer-violating order; ``repro.ir.load``
+in any producer-before-consumer-violating order; :func:`repro_torch.ir.load`
 runs the import pipeline that normalizes all of that.
 """
 from __future__ import annotations

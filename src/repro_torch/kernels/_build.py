@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -29,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()     # one build of a library, whatever the threads
 
 
 def sources() -> List[str]:
@@ -102,10 +104,12 @@ def build_all() -> float:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _LIBS:
-        path = _lib_path(name)
-        if not path.is_file():
-            _finish(_start(name, path))
-        _LIBS[name] = ctypes.CDLL(str(path))
+        with _LOCK:
+            if name not in _LIBS:
+                path = _lib_path(name)
+                if not path.is_file():
+                    _finish(_start(name, path))
+                _LIBS[name] = ctypes.CDLL(str(path))
     return _LIBS[name]
 
 

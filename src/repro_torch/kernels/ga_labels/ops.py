@@ -4,8 +4,10 @@ Replaces the reference's jitted-JAX label pass
 ``repro/core/population.py:_build_jax_labels`` (numpy twin
 ``PopulationEvaluator._labels_np``).  A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the variant that :func:`plan` names, and
-every launch adds one to ``ga_labels.launches`` and to its variant's count
-in ``ga_labels.variant_launches``:
+every launch adds one to ``ga_labels.launches``, to its variant's count in
+``ga_labels.variant_launches`` (under a lock: the daemon's workers launch
+from several threads at once) and to the launching thread's own tally,
+:func:`thread_launches`:
 
 - ``warp``: one warp per genome row, several rows a block, the row's bits
   packed into registers, its working words in the warp's slice of shared
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -36,6 +39,23 @@ MAX_ROWS = 8            # warps (rows) a block of the warp variant
 # chip_smoke.py --label-sweep on an H100
 MIN_BLOCKS = 3
 BIT_WORDS = (1, 2, 4)   # words of packed bits a lane holds (1024 edges each)
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
+
+
+def thread_launches() -> int:
+    """The launches the calling thread has made (a population engine's own
+    count, exact when other threads launch too)."""
+    return getattr(_TALLY, "launches", 0)
+
+
+def _count(variant: str) -> None:
+    """Count one launch of ``variant``: in the totals, under the lock, and
+    in the calling thread's tally."""
+    with _COUNT_LOCK:
+        ga_labels.launches += 1
+        ga_labels.variant_launches[variant] += 1
+    _TALLY.launches = thread_launches() + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,8 +227,7 @@ def ga_labels(bits: torch.Tensor, tables: LabelTables, *,
             tables.chain_nodes.data_ptr(), tables.chain_eids.data_ptr(),
             tables.chain_nodes.numel(), *extra, 4 * on.shared_words, stream)
         _build.check(err, "ga_labels_fwd")
-    ga_labels.launches += 1
-    ga_labels.variant_launches[how.variant] += 1
+    _count(how.variant)
     return out
 
 

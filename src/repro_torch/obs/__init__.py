@@ -12,8 +12,8 @@ layer, and the verifiers:
   :mod:`repro_torch.obs.trace`);
 * :class:`TelemetryCollector` — the hook surface instrumented layers call
   (:mod:`repro_torch.obs.collect`);
-* :mod:`repro_torch.obs.clock` — the engine's single wall-clock seam (the
-  reference's ``repro lint`` enforces it there; the lint is not ported).
+* :mod:`repro_torch.obs.clock` — the engine's single wall-clock seam
+  (enforced by ``python -m repro_torch lint``'s ``clock-seam`` rule).
 
 Activation is explicit: ``SearchSpec(telemetry=True)``, the ``--trace``
 CLI flag, or ``REPRO_TRACE=path.jsonl`` in the environment.  Off is the

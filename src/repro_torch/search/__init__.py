@@ -38,9 +38,9 @@ The island and CLI flow (every search's label pass on the card unless
 
 The store (``repro_torch.serve.ArtifactStore``) keys artifacts exactly as
 the reference's does, so each package's store serves the other's objects.
-Not ported yet: ``spacemap=True``, the ``tpu`` cost model, ``file:``
-GraphIR workloads, the daemon, its job queue, warm starts, ``store gc`` and
-the determinism lint (ROADMAP A2).
+``spacemap=True`` searches the statically reduced space (and ``exhaustive``
+composes it per region), and ``file:model.json`` workloads import GraphIR
+documents.  Not ported yet: the ``tpu`` cost model (ROADMAP A2).
 """
 from repro_torch.search.artifact import (FingerprintMismatch,
                                          ScheduleArtifact, graph_fingerprint)

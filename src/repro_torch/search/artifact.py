@@ -91,9 +91,10 @@ class ScheduleArtifact(ImprovementRatios):
     #: every workload without a registry entry (``file:``/``ir:`` specs)
     #: so the artifact rebuilds/re-binds with no originating code at all
     graph_ir: Optional[Dict[str, Any]] = None
-    #: static fusion-space summary of the reference's
-    #: ``SearchSpec(spacemap=True)`` runs (not ported: the port never
-    #: writes one, but loads and re-saves it)
+    #: static fusion-space summary (``SearchSpec(spacemap=True)`` runs):
+    #: frozen gene indices, region intervals, search-space sizes — what
+    #: ``verify`` re-derives independently and compares
+    #: (:meth:`repro_torch.analysis.spacemap.SpaceMap.summary`)
     spacemap: Optional[Dict[str, Any]] = None
     #: compact search-telemetry summary (``SearchSpec(telemetry=True)`` or
     #: traced runs): convergence curve, rejection / cache-hit rates per
@@ -272,6 +273,7 @@ def make_artifact(spec: SearchSpec, graph: LayerGraph, result,
                   backend_stats: Optional[Dict[str, Any]] = None,
                   group_breakdowns: Optional[List[CostBreakdown]] = None,
                   embed_ir: bool = False,
+                  spacemap: Optional[Dict[str, Any]] = None,
                   telemetry: Optional[Dict[str, Any]] = None
                   ) -> ScheduleArtifact:
     """Package a finished backend run (``result``: GAResult over fusion
@@ -295,6 +297,7 @@ def make_artifact(spec: SearchSpec, graph: LayerGraph, result,
         backend_stats=dict(backend_stats or {}),
         group_breakdowns=list(group_breakdowns or []),
         graph_ir=graph.to_ir().to_dict() if embed_ir else None,
+        spacemap=spacemap,
         telemetry=telemetry,
         created_unix=clock.unix_time(),
     )

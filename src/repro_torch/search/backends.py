@@ -265,6 +265,30 @@ class HillClimbBackend(SearchBackend):
                         offspring_evaluated=done)
 
 
+def _pareto(rows):
+    """Prune ``(delta_vec, mask)`` rows to the Pareto front under
+    componentwise ``<=`` minimization (ties keep the lowest mask)."""
+    front = []
+    for vec, mask in sorted(rows, key=lambda r: (r[0], r[1])):
+        if not any(all(fv <= v for fv, v in zip(fvec, vec))
+                   for fvec, _ in front):
+            front.append((vec, mask))
+    return front
+
+
+#: which summed :class:`ScheduleCost` components each *native* objective
+#: reads — mirrors ``repro_torch.costmodel.evaluator.NATIVE_OBJECTIVES``.  Every
+#: listed component is additive over fused groups, which is what licenses
+#: the per-region composition below: a region's masks only perturb the
+#: groups inside it, so total = baseline + sum of per-region deltas.
+_OBJECTIVE_COMPONENTS = {
+    "edp": ("energy", "cycles"),       # product of two additive components
+    "energy": ("energy",),
+    "cycles": ("cycles",),
+    "dram": ("dram",),
+}
+
+
 @register_backend("exhaustive")
 class ExhaustiveBackend(SearchBackend):
     """Enumerate and score the entire genome space (ground truth for small
@@ -272,9 +296,16 @@ class ExhaustiveBackend(SearchBackend):
     paper's §III-A count of VGG-16's space; raise it explicitly for graphs
     whose IR carries more edges).
 
-    The reference's per-region composition under a spacemap
-    (``repro/search/backends.py:_run_per_region``) is not ported: the
-    port's sessions refuse ``spacemap=True``."""
+    With a :class:`~repro_torch.analysis.spacemap.SpaceMap` on the problem
+    (``SearchSpec(spacemap=True)``) and a native objective, the space
+    *factorizes*: regions confine every fused group, validity and all cost
+    components decompose per region, so each region's ``2^{k_r}`` masks
+    are enumerated independently and the winners composed exactly —
+    per-region Pareto fronts over the objective's additive cost components
+    (for ``edp``, the (energy, cycles) plane; EDP itself is not additive),
+    then a dominance-pruned dynamic program across regions.  The ``limit``
+    guard then applies to the *largest region*, which is what makes
+    VGG-16's raw 2^21 space exactly solvable in a few dozen evaluations."""
 
     name = "exhaustive"
 
@@ -286,13 +317,42 @@ class ExhaustiveBackend(SearchBackend):
         if size is None:
             raise BackendError(
                 f"problem {problem.name!r} is not enumerable")
+        sm = getattr(problem, "spacemap", None)
+        composable = (
+            sm is not None and sm.regions
+            # non-native objectives (registry metrics) need not be additive
+            # over groups, and _CustomObjectiveProblem re-scores through
+            # them — composition only holds for the native components
+            and getattr(problem, "objective", None) in _OBJECTIVE_COMPONENTS
+            and callable(getattr(getattr(problem, "evaluator", None),
+                                 "evaluate", None)))
+        if composable:
+            largest = sm.largest_region_size()
+            if largest > limit:
+                raise BackendError(
+                    f"largest spacemap region holds {largest} states, over "
+                    f"the exhaustive limit {limit} (factorized total: "
+                    f"{sm.factorized_states()} states across "
+                    f"{len(sm.regions)} regions vs {size} flat); pass "
+                    f"limit={largest} explicitly (API: backend_config="
+                    f"{{\"limit\": {largest}}}; CLI: --backend-config "
+                    f"'{{\"limit\": {largest}}}'), or use ga / hill_climb "
+                    f"/ random instead")
+            return self._run_per_region(problem, sm, observer)
         if size > limit:
             est = _estimate_runtime_s(problem, size)
             eta = (f" (estimated batched runtime for all {size} states: "
                    f"~{_fmt_eta(est)})" if est is not None else "")
+            factored = (
+                f" (a spacemap factorizes this into "
+                f"{sm.factorized_states()} states across {len(sm.regions)} "
+                f"regions, but objective "
+                f"{getattr(problem, 'objective', None)!r} is not "
+                f"group-additive, so per-region composition cannot apply)"
+                if sm is not None else "")
             raise BackendError(
                 f"space of {size} genomes exceeds the exhaustive limit "
-                f"{limit}; pass limit={size} explicitly (API: "
+                f"{limit}{factored}; pass limit={size} explicitly (API: "
                 f"backend_config={{\"limit\": {size}}}; CLI: "
                 f"--backend-config '{{\"limit\": {size}}}') if enumerating "
                 f"{size} states is affordable{eta}, or use ga / hill_climb "
@@ -319,3 +379,68 @@ class ExhaustiveBackend(SearchBackend):
             raise BackendError("empty genome space")
         return GAResult(best_state=best, best_fitness=best_f, history=history,
                         evaluations=done, offspring_evaluated=done)
+
+    @staticmethod
+    def _run_per_region(problem, sm, observer: Optional[Observer]
+                        ) -> GAResult:
+        """Exact search by region composition: enumerate each region's
+        masks independently, keep its Pareto front of cost-component
+        deltas vs the layerwise baseline, and compose fronts across
+        regions by a dominance-pruned DP.  Sound because regions confine
+        groups (validity is region-local) and every tracked component is
+        additive over groups (delta vectors sum)."""
+        ev = problem.evaluator
+        obj = problem.objective
+        comps = _OBJECTIVE_COMPONENTS[obj]
+
+        def components(cost):
+            by_name = {"energy": cost.energy_pj, "cycles": cost.cycles,
+                       "dram": float(cost.dram_read_words
+                                     + cost.dram_write_words)}
+            return tuple(by_name[c] for c in comps)
+
+        base_cost = ev.evaluate(problem.initial())
+        assert base_cost is not None, "layerwise schedule must be valid"
+        base = components(base_cost)
+
+        def metric(delta):
+            total = [b + d for b, d in zip(base, delta)]
+            if obj == "edp":
+                return total[0] * total[1]
+            return total[0]
+
+        # composed Pareto front over regions processed so far; the zero
+        # delta with mask 0 (every region layerwise) is always present
+        acc = [((0.0,) * len(comps), 0)]
+        history: List[float] = []
+        best_mask = 0
+        done = 0
+        for step, region in enumerate(sm.regions):
+            bits = region.edge_indices
+            front = []
+            for sub in range(1 << len(bits)):
+                mask = 0
+                for j, i in enumerate(bits):
+                    if (sub >> j) & 1:
+                        mask |= 1 << i
+                cost = ev.evaluate(problem.decode_genome(mask))
+                done += 1
+                if cost is None:
+                    continue               # illegal grouping in this region
+                front.append((tuple(c - b for c, b
+                                    in zip(components(cost), base)), mask))
+            acc = _pareto([(tuple(x + y for x, y in zip(av, fv)), am | fm)
+                           for av, am in acc for fv, fm in front])
+            best_mask = min(acc, key=lambda r: (metric(r[0]), r[1]))[1]
+            best_f = problem.fitness(problem.decode_genome(best_mask))
+            history.append(best_f)
+            if observer is not None and observer(step + 1, best_f, done,
+                                                 done):
+                break
+        best_state = problem.decode_genome(best_mask)
+        # canonical re-score: the composed winner's fitness comes from the
+        # evaluator itself, not from summed deltas (float sum-order ulps)
+        best_f = problem.fitness(best_state)
+        return GAResult(best_state=best_state, best_fitness=best_f,
+                        history=history, evaluations=done,
+                        offspring_evaluated=done)

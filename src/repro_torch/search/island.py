@@ -232,12 +232,19 @@ def _island_process(problem, config: GAConfig, sync_gens: List[int],
                     migration_gens: List[int], migrants: int,
                     chan: _Chan) -> None:
     """Entry of an island process.  One intra-op thread first (as PyTorch's
-    DataLoader workers do).  Under ``spawn`` the problem arrives pickled and
-    is rebuilt here, so a failure to rebuild it (no card for a CUDA
-    evaluator) goes back to the parent as an error message."""
+    DataLoader workers do), and the default SIGTERM/SIGINT handlers: a
+    forked child inherits its parent's Python handlers (the daemon's
+    shutdown trigger), and would then outlive its parent's ``terminate``.
+    Under ``spawn`` the problem arrives pickled and is rebuilt here, so a
+    failure to rebuild it (no card for a CUDA evaluator) goes back to the
+    parent as an error message."""
+    import signal
+
     import torch
 
     from repro_torch.kernels.ga_labels.ops import ga_labels
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(signum, signal.SIG_DFL)
     torch.set_num_threads(1)
     # this process's launches only (a forked child inherits the parent's)
     ga_labels.variant_launches = dict.fromkeys(ga_labels.variant_launches, 0)

@@ -21,8 +21,8 @@ resolve:
 
 * ``name`` or ``name@key=value,key=value`` — a registry entry, with
   params validated/coerced against its schema (``mobilenet_v3@hw=160``);
-* ``file:model.json`` — a GraphIR document (the reference's form; the
-  port refuses it until the IR import pipeline is ported);
+* ``file:model.json`` — a :mod:`repro_torch.ir` GraphIR document imported
+  through the canonicalization pipeline (no registration needed);
 * ``ir:<fingerprint>`` — IR embedded in a search artifact; resolvable
   only through the artifact that carries it.
 
@@ -176,10 +176,9 @@ def build_workload(spec: str, **kwargs):
             raise WorkloadParamError(
                 f"file: workload specs take no params "
                 f"(got {sorted(kwargs)}); edit the IR document instead")
-        raise RegistryError(
-            f"workload spec {spec!r}: file: GraphIR documents need the IR "
-            f"import pipeline (repro/ir/passes.py), which the port does not "
-            f"have yet; use a zoo workload")
+        from repro_torch.ir import load
+        from repro_torch.workloads.base import GraphIRWorkload
+        return GraphIRWorkload(load(spec[len("file:"):])).build()
     if spec.startswith("ir:"):
         raise RegistryError(
             f"workload spec {spec!r} names IR embedded in a search "
@@ -204,6 +203,10 @@ def workload_schemas() -> Dict[str, Dict[str, Any]]:
 def build_costmodel(name: str):
     """Resolve a registered cost-model factory (not yet bound to a graph/
     accelerator — the session binds it)."""
+    if name == "tpu" and name not in COSTMODELS:
+        raise RegistryError(
+            "the tpu cost model is not ported to repro_torch yet (ROADMAP "
+            "A2); run it with the reference package (python -m repro)")
     return COSTMODELS.get(name)
 
 

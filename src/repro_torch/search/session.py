@@ -12,9 +12,7 @@ so individual backends stay oblivious to stopping policy.
 
 The port's copy of ``repro/search/session.py``.  Both entry points take a
 ``device``: ``None`` means CUDA (and raises when no card is present),
-``"cpu"`` runs the population engine's plain PyTorch label pass.  Not
-ported yet, and refused with an error: the static fusion-space analysis
-(``spacemap=True``).
+``"cpu"`` runs the population engine's plain PyTorch label pass.
 """
 from __future__ import annotations
 
@@ -50,8 +48,8 @@ class _CustomObjectiveProblem(FusionProblem):
     know natively: costs still come from the memoized group cache, but the
     metric is the registered ``(ScheduleCost) -> float`` function."""
 
-    def __init__(self, graph, evaluator, objective: str):
-        super().__init__(graph, evaluator, objective)
+    def __init__(self, graph, evaluator, objective: str, spacemap=None):
+        super().__init__(graph, evaluator, objective, spacemap=spacemap)
         self._metric = OBJECTIVES.get(objective)
         self._baseline = self._metric(evaluator.layerwise())
 
@@ -83,24 +81,19 @@ class SearchSession:
         # JSONL span destination (CLI --trace); REPRO_TRACE is the env
         # fallback, checked at run() so tests can set it per-run
         self.trace_path = trace_path
-        # externally-owned collector (the reference's daemon): the session
+        # externally-owned collector (repro_torch.serve.daemon): the session
         # attaches it for the run so callers can stream per-generation
         # records live, but does NOT embed its summary in the artifact
         # unless the spec itself asks for telemetry — daemon-produced
         # artifacts stay byte-compatible with direct SearchSession runs
         self._external_obs = obs
         self.telemetry: Optional[TelemetryCollector] = None
-        # artifacts for workloads with no registry entry (direct graphs
-        # recorded as ir:<fingerprint>) embed the canonical GraphIR so they
-        # stay reproducible anywhere; registry workloads can opt in
-        # (embed_ir=True / CLI --embed-ir)
+        # artifacts for workloads with no registry entry (file: documents,
+        # direct graphs recorded as ir:<fingerprint>) embed the canonical
+        # GraphIR so they stay reproducible anywhere; registry workloads
+        # can opt in (embed_ir=True / CLI --embed-ir)
         self.embed_ir = bool(embed_ir) if embed_ir is not None else \
             spec.workload.startswith(("file:", "ir:"))
-        if spec.spacemap:
-            raise BackendError(
-                "SearchSpec(spacemap=True) is not ported to repro_torch yet "
-                "(ROADMAP A2); run it with the reference package "
-                "(repro.search)")
         # resolve everything eagerly so bad names fail at session creation,
         # not generations into a search
         if "seed" in spec.backend_config or "observer" in spec.backend_config:
@@ -129,12 +122,21 @@ class SearchSession:
                                    em or DEFAULT_ENERGY,
                                    costmodel=costmodel_factory,
                                    device=device)
+        # static fusion-space analysis (opt-in): frozen genes + regions,
+        # derived independently of the engine (repro_torch.analysis.spacemap)
+        self.spacemap = None
+        if spec.spacemap:
+            from repro_torch.analysis.spacemap import build_spacemap
+            self.spacemap = build_spacemap(self.graph, spec.costmodel,
+                                           spec.accelerator)
         if spec.objective in NATIVE_OBJECTIVES:
             self.problem = FusionProblem(self.graph, self.evaluator,
-                                         spec.objective)
+                                         spec.objective,
+                                         spacemap=self.spacemap)
         else:
             self.problem = _CustomObjectiveProblem(self.graph, self.evaluator,
-                                                   spec.objective)
+                                                   spec.objective,
+                                                   spacemap=self.spacemap)
         self.result = None                 # GAResult after run()
         self.artifact: Optional[ScheduleArtifact] = None
 
@@ -252,6 +254,7 @@ class SearchSession:
             baseline=self.evaluator.layerwise(), best=best_cost,
             wall_s=wall_s, backend_stats=self.evaluator.cache_stats(),
             group_breakdowns=breakdowns, embed_ir=self.embed_ir,
+            spacemap=self.spacemap.summary() if self.spacemap else None,
             telemetry=telemetry)
         return self.artifact
 

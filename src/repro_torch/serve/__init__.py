@@ -1,5 +1,5 @@
-"""``repro_torch.serve`` — the batch scheduling service over the search
-facade (the port's copy of the parts of ``repro.serve`` the CLI runs).
+"""``repro_torch.serve`` — the scheduling service over the search facade
+(the port's copy of ``repro.serve``).
 
 * :mod:`repro_torch.serve.store` — an on-disk, content-addressed
   :class:`ArtifactStore`: finished :class:`~repro_torch.search.
@@ -11,8 +11,16 @@ facade (the port's copy of the parts of ``repro.serve`` the CLI runs).
   dedups in-flight identical specs, serves store hits without searching,
   and fans misses out across a worker pool (``spawn`` on CUDA, ``fork`` on
   the CPU);
-* the CLI verbs ``python -m repro_torch serve --requests jobs.json`` and
-  ``python -m repro_torch submit`` (see ``repro_torch.__main__``).
+* :mod:`repro_torch.serve.daemon` — the always-on service: HTTP/JSON API
+  over a crash-safe persistent priority queue
+  (:mod:`repro_torch.serve.queue`, whose journal either package replays)
+  with opt-in warm-started searches (:mod:`repro_torch.serve.warmstart`);
+  its worker threads search on the card by default;
+* :mod:`repro_torch.serve.gc` — LRU-by-access store eviction that never
+  touches objects pinned by queued/running jobs;
+* the CLI verbs ``serve --requests jobs.json``, ``submit``, ``daemon``,
+  ``jobs`` and ``store gc`` of ``python -m repro_torch`` (see
+  ``repro_torch.__main__``).
 
     from repro_torch.serve import ArtifactStore, BatchScheduler
     store = ArtifactStore("schedules/")
@@ -20,15 +28,20 @@ facade (the port's copy of the parts of ``repro.serve`` the CLI runs).
     for spec in specs:
         sched.submit(spec)
     outcome = sched.run()       # outcome.stats: searched / cache_hits / ...
-
-Not ported yet (ROADMAP A2): the daemon and its HTTP API, the persistent
-job queue, warm starts and ``store gc``.
 """
+from repro_torch.serve.daemon import DaemonError, JobCancelled, ScheduleDaemon
+from repro_torch.serve.gc import GCResult, collect_garbage, live_keys_for_store
+from repro_torch.serve.queue import JobQueue, QueuedJob, QueueError
 from repro_torch.serve.scheduler import BatchScheduler, Job, ServeOutcome
 from repro_torch.serve.store import (ArtifactStore, StoreError, artifact_key,
                                      spec_hash)
+from repro_torch.serve.warmstart import WarmStartSeed, find_warm_start
 
 __all__ = [
     "ArtifactStore", "BatchScheduler", "Job", "ServeOutcome", "StoreError",
     "artifact_key", "spec_hash",
+    "ScheduleDaemon", "DaemonError", "JobCancelled",
+    "JobQueue", "QueuedJob", "QueueError",
+    "GCResult", "collect_garbage", "live_keys_for_store",
+    "WarmStartSeed", "find_warm_start",
 ]

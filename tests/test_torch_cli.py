@@ -9,24 +9,26 @@ seconds, span durations, the engine's throughput), the engine's name
 ``--telemetry``, ``--schedule``, ``--json``), ``trace``, ``serve`` (the
 README's jobs file: an island job twice, deduplicated, and a second
 workload), ``submit`` (served from the store), ``verify`` of artifacts and
-of the store, and ``list``.  One round runs as subprocesses, as a user runs
-it; the rest call ``main`` in-process, as the reference's tests do.  The
-subcommands not ported yet exit 2 with a message naming the ROADMAP item,
-and without a card the default device is an error (exit 2), never a silent
-CPU run.
+of the store, ``list``, ``analyze``, ``store gc`` and ``lint``.  One round
+runs as subprocesses, as a user runs it, and so does the daemon with its
+``jobs`` client (submit, list, status, wait, cancel) and a restart that
+replays the journal; the rest call ``main`` in-process, as the reference's
+tests do.  The ``tpu`` cost model, the one part not ported, exits 2 with a
+message naming ROADMAP A2, and without a card the default device is an
+error (exit 2), never a silent CPU run.
 """
 import json
 import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
 
 import repro_torch.search.island as island
 from repro.__main__ import main as ref_main
-from repro_torch.__main__ import UNPORTED
 from repro_torch.__main__ import main
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -250,25 +252,188 @@ def test_list_shows_the_ported_registries(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["daemon", "--store", "S", "--port", "0"],
-    ["jobs", "list"],
-    ["store", "gc", "--store", "S", "--max-objects", "1"],
-    ["analyze", "mobilenet_v3"],
-    ["lint"],
-    ["export", "--workload", "vgg16"],
+    ["search", "--workload", "vgg16", "--costmodel", "tpu"],
+    ["search", "--workload", "vgg16", "--costmodel", "tpu", "--spacemap"],
+    ["search", "--workload", "resnet50", "--costmodel", "tpu", "--backend",
+     "random"],
+    ["analyze", "mobilenet_v3", "--costmodel", "tpu"],
+    ["analyze", "vgg16", "--costmodel", "tpu", "--json"],
+    ["search", "--workload", "unet", "--costmodel", "tpu", "--backend",
+     "exhaustive", "--spacemap"],
 ])
 def test_unported_subcommands_exit_2_naming_the_roadmap(argv, capsys,
                                                         tmp_path,
                                                         monkeypatch):
+    """Every subcommand is ported; the ``tpu`` cost model is not, and each
+    command that would run it exits 2 naming ROADMAP A2, writing
+    nothing."""
     monkeypatch.chdir(tmp_path)
-    assert main(argv) == 2
+    assert main(argv + (["--device", "cpu"] if argv[0] != "analyze"
+                        else [])) == 2
     err = capsys.readouterr().err
-    assert f"`{argv[0]}` is not ported to repro_torch yet" in err
-    assert "ROADMAP A2" in err and argv[0] in UNPORTED
+    assert "tpu cost model is not ported to repro_torch yet" in err
+    assert "ROADMAP A2" in err
     assert not (tmp_path / "S").exists()
+    assert not (tmp_path / "artifact.json").exists()
 
 
 def test_search_refuses_spacemap(tmp_path, capsys):
-    assert main(["search", "--workload", "vgg16", "--spacemap", "--out",
-                 str(tmp_path / "a.json"), "--device", "cpu"]) == 2
-    assert "spacemap=True) is not ported" in capsys.readouterr().err
+    """``--spacemap`` searches now (vgg16's factorized space, as the
+    reference's); only its ``tpu`` capacity rule is refused."""
+    out = tmp_path / "a.json"
+    assert main(["search", "--workload", "vgg16", "--spacemap", "--backend",
+                 "exhaustive", "--out", str(out), "--device", "cpu"]) == 0
+    capsys.readouterr()
+    art = json.loads(out.read_text())
+    assert art["spacemap"]["forced_off"] == [1, 4, 7, 8, 11, 12, 15, 16]
+    assert int(art["genome_mask"], 16) == 0x1A4225
+    assert main(["verify", str(out)]) == 0
+    assert "[ok  ] spacemap:" in capsys.readouterr().out
+    assert main(["search", "--workload", "vgg16", "--spacemap", "--costmodel",
+                 "tpu", "--out", str(tmp_path / "b.json"), "--device",
+                 "cpu"]) == 2
+    assert "tpu cost model is not ported" in capsys.readouterr().err
+
+
+# ---- the subcommands of this slice -------------------------------------------------
+
+@pytest.mark.parametrize("argv", [
+    ["analyze", "mobilenet_v3"],
+    ["analyze", "vgg16", "--accel", "eyeriss@act+64", "--json"],
+    ["analyze", "resnet50", "--costmodel", "nosuchmodel"],
+])
+def test_analyze_prints_the_references(argv, dirs, capsys):
+    same(capsys, dirs, argv)
+
+
+def test_store_gc_prints_the_references(dirs, capsys):
+    _, port, ref = dirs
+    for d in (port, ref):
+        _jobs(d / "jobs.json")
+    same(capsys, dirs, ["serve", "--store", "S", "--requests", "jobs.json",
+                        "--device", "cpu"],
+         ["serve", "--store", "S", "--requests", "jobs.json"])
+    for d in (port, ref):                 # the same access order in both
+        for i, p in enumerate(sorted((d / "S" / "objects").rglob("*.json"))):
+            os.utime(p, (1000.0 + i, 1000.0 + i))
+    # the same keys go; the sizes differ by the artifacts' clock digits
+    for argv in (["store", "gc", "--store", "S", "--max-objects", "1",
+                  "--dry-run", "--json"],
+                 ["store", "gc", "--store", "S", "--max-bytes", "1",
+                  "--dry-run"],
+                 ["store", "gc", "--store", "S", "--max-objects", "1"]):
+        (rc, out), (ref_rc, ref_out) = run_both(capsys, dirs, argv)
+        assert rc == ref_rc == 0
+        if "--json" in argv:
+            mine, ref = json.loads(out), json.loads(ref_out)
+            assert mine["evicted"] and mine["evicted"] == ref["evicted"]
+            for k in ("bytes_total", "evicted_bytes", "bytes_after"):
+                assert abs(mine.pop(k) - ref.pop(k)) <= 8, k
+            assert mine == ref
+        else:
+            assert re.sub(r"\d+ bytes", "<n> bytes", out) == \
+                re.sub(r"\d+ bytes", "<n> bytes", ref_out)
+    assert len(list((port / "S" / "objects").rglob("*.json"))) == 1
+    same(capsys, dirs, ["store", "gc", "--store", "missing"], rc=2)
+
+
+def _daemon(store, cwd, *extra):
+    """``python -m repro_torch daemon`` on a free port of 127.0.0.1, on the
+    CPU; returns (process, base URL) once it listens."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "daemon", "--store", store,
+         "--port", "0", "--device", "cpu", *extra], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for line in proc.stdout:
+        m = re.search(r"listening on (http://\S+)", line)
+        if m:
+            return proc, m.group(1)
+    raise AssertionError(f"daemon did not start: rc {proc.wait()}")
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _http(method, url, payload=None):
+    import urllib.request
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.load(r)
+
+
+def test_daemon_and_jobs_round_trip_in_subprocesses(tmp_path):
+    """The daemon and its client as a user runs them: a job left queued by
+    a daemon with no workers is replayed by a restart on the same store;
+    ``jobs submit --wait`` gives the reference's artifact; a long job is
+    cancelled while running (``jobs cancel``, ``jobs wait``); ``jobs
+    list``."""
+    from repro.search import search as ref_search
+    from repro_torch.search import ScheduleArtifact, SearchSpec
+    proc, base = _daemon("S", tmp_path, "--workers", "0")
+    try:
+        queued = _http("POST", f"{base}/jobs", {"spec": SearchSpec(
+            workload="vgg16", seed=3,
+            backend_config={"preset": "fast", "generations": 4}
+        ).to_dict()})
+        assert queued["state"] == "queued"
+    finally:
+        _stop(proc)
+    proc, base = _daemon("S", tmp_path, "--workers", "1")
+    try:
+        r = _cli("repro_torch", "jobs", "--daemon", base, "submit",
+                 "--workload", "mobilenet_v3", "--preset", "fast",
+                 "--generations", "6", "--seed", "2", "--wait", "--json",
+                 cwd=tmp_path)
+        assert r.returncode == 0, r.stderr
+        job = json.loads(r.stdout)
+        assert job["state"] == "done" and job["outcome"] == "searched"
+        assert job["id"] == queued["id"] + 1           # ids go on
+        replayed = _http("GET", f"{base}/jobs/{queued['id']}")
+        assert replayed["outcome"] == "searched"       # ran before job
+        long = _http("POST", f"{base}/jobs", {"spec": SearchSpec(
+            workload="unet", backend_config={"preset": "fast",
+                                             "generations": 100000}
+        ).to_dict()})
+        deadline = time.monotonic() + 60
+        while _http("GET", f"{base}/jobs/{long['id']}")["state"] != \
+                "running":
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        c = _cli("repro_torch", "jobs", "--daemon", base, "cancel",
+                 str(long["id"]), cwd=tmp_path)
+        assert c.returncode == 0
+        assert c.stdout.startswith(f"job {long['id']}: cancel")
+        w = _cli("repro_torch", "jobs", "--daemon", base, "wait",
+                 str(long["id"]), "--json", cwd=tmp_path)
+        assert json.loads(w.stdout)["state"] == "cancelled"
+        listed = _cli("repro_torch", "jobs", "--daemon", base, "list",
+                      cwd=tmp_path)
+        assert listed.stdout.strip().endswith("3 job(s)")
+    finally:
+        _stop(proc)
+    art = ScheduleArtifact.load(
+        str(tmp_path / "S" / "objects" / job["key"][:2] /
+            f"{job['key']}.json"))
+    ref = ref_search("mobilenet_v3", seed=2,
+                     backend_config={"preset": "fast", "generations": 6})
+    assert (art.genome_mask, art.best_fitness, art.evaluations) == \
+        (ref.genome_mask, ref.best_fitness, ref.evaluations)
+
+
+def test_lint_json_on_a_tree_with_findings(tmp_path, capsys):
+    core = tmp_path / "src" / "repro_torch" / "core"
+    core.mkdir(parents=True)
+    (core / "m.py").write_text("import time\nT = time.time()\n")
+    assert main(["lint", "--root", str(tmp_path), "--json"]) == 1
+    found = json.loads(capsys.readouterr().out)
+    assert [(f["path"], f["rule"], f["symbol"]) for f in found] == [
+        ("src/repro_torch/core/m.py", "wall-clock", "time.time")]

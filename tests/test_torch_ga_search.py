@@ -19,7 +19,7 @@ import torch
 
 from repro.search import ScheduleArtifact as RefArtifact
 from repro.search import search as ref_search
-from repro_torch.search import (BackendError, RegistryError, ScheduleArtifact,
+from repro_torch.search import (RegistryError, ScheduleArtifact,
                                 SearchSession, SearchSpec, search)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -125,17 +125,24 @@ def test_chip_smoke_golden_constants_are_the_references(run):
     assert _comparable(mine) == _comparable(ref)
 
 
-# telemetry and the island backend are ported (tests/test_torch_obs.py,
-# tests/test_torch_island.py); spacemap stays refused with every backend
+# telemetry, the island backend, spacemap and file: workloads are ported
+# (tests/test_torch_obs.py, test_torch_island.py, test_torch_spacemap.py,
+# test_torch_ir_passes.py); the tpu cost model is refused with each of them
 @pytest.mark.parametrize("what", [
     dict(spacemap=True), dict(spacemap=True, backend="exhaustive"),
     dict(spacemap=True, backend="island"),
-    dict(costmodel="tpu"), dict(workload="file:model.json")])
-def test_unported_parts_are_refused(what):
-    kw = dict(workload="vgg16", accelerator="simba", backend="ga")
+    dict(), dict(workload="file:model.json")])
+def test_unported_parts_are_refused(what, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    from repro_torch.ir import save
+    from repro_torch.workloads import vgg16
+    save(vgg16(), "model.json")
+    kw = dict(workload="vgg16", accelerator="simba", backend="ga",
+              costmodel="tpu")
     kw.update(what)
-    err = RegistryError if set(what) & {"costmodel",
-                                        "workload"} else BackendError
-    with pytest.raises(err):
+    with pytest.raises(RegistryError, match=r"tpu cost model is not ported"
+                                            r".*ROADMAP A2"):
         SearchSession(SearchSpec(**kw), device="cpu")
+    kw["costmodel"] = "default"            # the same search without it runs
+    assert SearchSession(SearchSpec(**kw), device="cpu").problem
 

@@ -128,4 +128,10 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.serve.scheduler", "repro_torch.serve.store",
                  "repro_torch.analysis.verify", "repro_torch.obs.collect"):
         assert name in out["modules"], name
+    # the daemon side, the spacemap, the IR pipeline and the lint
+    for name in ("repro_torch.serve.daemon", "repro_torch.serve.queue",
+                 "repro_torch.serve.warmstart", "repro_torch.serve.gc",
+                 "repro_torch.analysis.spacemap", "repro_torch.analysis.lint",
+                 "repro_torch.ir.passes"):
+        assert name in out["modules"], name
     assert out["bad"] == []

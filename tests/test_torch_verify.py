@@ -8,8 +8,8 @@ corruption of ``tests/test_analysis_verify.py`` (genome bits, embedded IR,
 costs, group counts, an unschedulable forged genome, store objects edited
 under their key or torn).  Then that file's artifact-mode tests on the port
 (the verifier still imports neither ``core.fusion`` nor
-``costmodel.evaluator``), the parts the port refuses (a spacemap summary,
-the ``tpu`` cost model), and ``tests/test_report.py``'s schedule report,
+``costmodel.evaluator``), the part the port refuses (the ``tpu`` cost
+model; a spacemap summary verifies now), and ``tests/test_report.py``'s schedule report,
 whose text must equal the reference's.
 """
 import dataclasses
@@ -349,11 +349,17 @@ def test_tpu_costmodel_is_refused_not_verified():
 
 
 def test_spacemap_artifact_is_refused_not_verified():
+    """The reference's spacemap artifact verifies now (its check re-derives
+    the map: tests/test_torch_spacemap.py); one of the ``tpu`` cost model
+    is refused, naming the part not ported."""
     ref = rs.search("unet", "simba", backend="exhaustive", spacemap=True,
                     workload_kwargs={"depth": 1})
     art = ScheduleArtifact.from_json(ref.to_json())
     assert art.spacemap is not None
-    with pytest.raises(RegistryError, match="spacemap"):
+    report = verify_artifact(art)
+    assert report.ok and report.check("spacemap").ok
+    art = dataclasses.replace(art, spec=art.spec.replace(costmodel="tpu"))
+    with pytest.raises(RegistryError, match="tpu cost model is not ported"):
         verify_artifact(art)
 
 
