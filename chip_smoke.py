@@ -32,8 +32,8 @@ non-zero (no phase's failure is caught):
    on both decode kernels, the plan's and the other one forced (the warp
    decode kernel at G 1 and every head_dim, key positions, window, chunk,
    up to 8 queries, B 1 with many splits, one split without the merge
-   kernel, and G * Sq at R_MAX and R_MAX + 1), and at phi-3-vision's decode
-   both are timed; the GA's group-label kernel (bit-equal to its plain version on
+   kernel, and G * Sq at R_MAX and R_MAX + 1), and at phi-3-vision's and
+   qwen2-7b's decode both are timed; the GA's group-label kernel (bit-equal to its plain version on
    mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
    random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
    all-one row, on a graph too long for shared memory at 4096, and at the
@@ -43,8 +43,10 @@ non-zero (no phase's failure is caught):
    and every variant that can take a case is forced on it, checked and,
    where the case is timed, timed beside the others (and the group labels
    beside a bare launch);
-4. serve: chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b and
-   phi-3-vision-4.2b, each at its published widths and full depth in bf16,
+4. serve: chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b,
+   phi-3-vision-4.2b and qwen2-7b (GQA 28:4, QKV biases: its decode on the
+   warp decode kernel at 7 query heads a kv head), each at its published
+   widths and full depth in bf16,
    random weights from a seeded CUDA generator, 8 prompts and 32 greedy
    tokens through ``repro_torch.launch.serve.generate`` (recurrentgemma's
    prompt of 4096 tokens is twice its attention window, so the window cuts
@@ -66,7 +68,13 @@ non-zero (no phase's failure is caught):
    reference's genome, fitness and evaluation count exactly (GA_RUNS, held
    equal to the JAX package's by ``tests/test_torch_ga_search.py``), and
    every engine batch must have launched the label kernel once.  One line
-   per run in ``BENCH_ga.json``'s record schema.
+   per run in ``BENCH_ga.json``'s record schema.  Then the same paper GA
+   under the ``tpu`` cost model (the modelled TPU target's roofline; the
+   label pass on the card), held to TPU_GA_RUN the same way, and one
+   host-only TPU training-schedule search (``search_tpu_schedule``,
+   qwen2-7b at ``train_4k``, the reference's defaults) held to
+   TPU_SCHEDULE_RUN (both pinned to the JAX package's by
+   ``tests/test_torch_tpu_costmodel.py``).
 
 7. schedule service: the ``island`` backend at BENCH_island.json's cell
    (mobilenet_v3 on simba, seed 0, 60 generations, migrating every 20) at
@@ -103,8 +111,13 @@ non-zero (no phase's failure is caught):
    on the card (SPACEMAP_RUNS), ``export`` of mobilenet_v3 and ``search
    --workload file:...`` on the card (the zoo run's golden result and
    fingerprint, FILE_RUN), and ``verify`` of every artifact of the phase.
-   The goldens are the reference's, pinned by
-   ``tests/test_torch_spacemap.py`` and ``tests/test_torch_ir_passes.py``.
+   Then ``repro_torch.ir.from_torch`` imports a small CNN module
+   (``SmokeCNN``: depthwise, squeeze-excite, residual, concat, pooling) and
+   its graph is searched on the card (FROM_TORCH_RUN: the fingerprint of
+   ``from_jax`` on the same network written in JAX, and the reference's
+   search result).  The goldens are the reference's, pinned by
+   ``tests/test_torch_spacemap.py``, ``tests/test_torch_ir_passes.py`` and
+   ``tests/test_torch_trace.py``.
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
@@ -145,6 +158,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch import nn  # noqa: E402
 
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -196,7 +210,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVES = (("chatglm3-6b", 8, 1024, 32),
           ("recurrentgemma-2b", 8, 4096, 32),
           ("falcon-mamba-7b", 8, 1024, 32),
-          ("phi-3-vision-4.2b", 8, 1024, 32))
+          ("phi-3-vision-4.2b", 8, 1024, 32),
+          ("qwen2-7b", 8, 1024, 32))
 # decode logits vs one full forward, relative RMS error over all logits.
 # bf16: both sides round every product to 8 mantissa bits (2^-9 = 2e-3
 # relative per rounding) but at different places (cuBLAS picks other kernels
@@ -255,6 +270,24 @@ ISLAND_RUNS = {
             best_fitness=1.5827601514969192, history_len=60,
             evaluations=41126, offspring_evaluated=43200),
 }
+
+
+# phase 6: the paper's GA under the ``tpu`` cost model and the TPU
+# training-schedule search, and the reference's results for them (``repro.
+# search.search`` and ``repro.search.tpu.search_tpu_schedule`` with the same
+# arguments; pinned equal to them by tests/test_torch_tpu_costmodel.py)
+TPU_GA_RUN = dict(
+    spec=dict(workload="mobilenet_v3", accelerator="simba", costmodel="tpu",
+              backend="ga", backend_config={"preset": "paper"}, seed=0),
+    golden=dict(genome_mask=0x1fd7fefefbf773feffe7affefdfd,
+                best_fitness=5.867129250256347, evaluations=54009))
+TPU_SCHEDULE_RUN = dict(
+    arch="qwen2-7b", shape="train_4k",
+    golden=dict(best=dict(remat="none", microbatches=1,
+                          grad_compression=False, sharding="fsdp"),
+                edp_improvement=1.0358422092053245,
+                energy_j=14849.141844200652, evaluations=60,
+                history_len=30))
 
 
 def island_config(islands: int) -> dict:
@@ -534,8 +567,11 @@ def flash_cases() -> list:
     prefill).  Then head_dim 96: phi-3-vision-4.2b's serve prefill (1024
     image + 1024 text positions, MHA 32:32) and first decode step (2049 of
     2080 slots), ragged cases reaching each kernel at D 96, G 1 among them,
-    and phase 5's fp32 prefill (1024 image + 128 text positions).  Last,
-    decode cases for the warp kernel: G 1 at each head_dim, a wrapped
+    and phase 5's fp32 prefill (1024 image + 128 text positions).  Then
+    qwen2-7b's (D 128, GQA 28:4): its serve prefill, its decode at the
+    first, a middle and the last step (1025, 1041 and 1055 keys: the warp
+    kernel at 7 rows a kv head) and phase 5's fp32 prefill.  Last, decode
+    cases for the warp kernel: G 1 at each head_dim, a wrapped
     rolling buffer with key positions, window, chunk, 2 and 8 queries, B 1
     with a long cache (many splits), a grid large enough for one split,
     and G 8 and 9 (R_MAX and R_MAX + 1 rows a kv head)."""
@@ -553,6 +589,10 @@ def flash_cases() -> list:
     heads_v = (phi.n_heads, phi.n_kv_heads, phi.resolved_head_dim)
     S_v = phi.img_tokens + P_v                # prefill positions: 2048
     S_fp32 = phi.img_tokens + FP32_PROMPT
+    arch_q, B_q, P_q, N_q = SERVES[4]
+    qw = get_config(arch_q)
+    heads_q = (qw.n_heads, qw.n_kv_heads, qw.resolved_head_dim)
+    last_q = P_q + N_q - 2                    # the last decode step's query
     return [
         ("prefill", (B, P, P, hq, hkv, hd), {}),
         ("decode", (B, 1, P + N, hq, hkv, hd),
@@ -631,6 +671,14 @@ def flash_cases() -> list:
         ("kpos_prefill_d96", (1, 24, 24, 4, 2, 96),
          dict(window=8, k_pos=torch.arange(24, dtype=torch.int32))),
         ("prefill_d96_s1152", (8, S_fp32, S_fp32) + heads_v, {}),
+        ("prefill_qwen", (B_q, P_q, P_q) + heads_q, {}),
+        ("decode_qwen", (B_q, 1, P_q + N_q) + heads_q,
+         dict(q_offset=P_q + 16, kv_len=P_q + 17)),
+        ("decode_qwen_first", (B_q, 1, P_q + N_q) + heads_q,
+         dict(q_offset=P_q, kv_len=P_q + 1)),
+        ("decode_qwen_last", (B_q, 1, P_q + N_q) + heads_q,
+         dict(q_offset=last_q, kv_len=last_q + 1)),
+        ("prefill_qwen_s128", (8, FP32_PROMPT, FP32_PROMPT) + heads_q, {}),
         ("warp_d16_g1", (2, 1, 300, 4, 4, 16), dict(q_offset=299)),
         ("warp_d32_g1_kv_len", (2, 1, 300, 4, 4, 32),
          dict(q_offset=250, kv_len=251)),
@@ -661,10 +709,13 @@ FLASH_TIMED = {torch.bfloat16: {"prefill": "tc_prefill",
                                 "prefill_d256_window": "tc_prefill",
                                 "decode_d256_rolling": "split_decode",
                                 "prefill_d96": "tc_prefill",
-                                "decode_d96": "warp_decode"},
+                                "decode_d96": "warp_decode",
+                                "prefill_qwen": "tc_prefill",
+                                "decode_qwen": "warp_decode"},
                torch.float32: {"prefill_s128": "simt",
                                "prefill_d256_s128_window": "simt",
-                               "prefill_d96_s1152": "simt"}}
+                               "prefill_d96_s1152": "simt",
+                               "prefill_qwen_s128": "simt"}}
 
 
 def flash_check(name: str, out, ref, dt) -> tuple:
@@ -685,8 +736,8 @@ def kernels_flash(timer: Timer, rn) -> list:
     case of at most 8 query rows also runs the other decode kernel, forced
     (its own entry, ``forced``: true).  Timed at the FLASH_TIMED shapes
     (bf16 first: its prefill is the kernel line's headline), and at
-    phi-3-vision's decode the forced split kernel beside the warp kernel,
-    in turns.  At each timed decode the plain version without the newest
+    phi-3-vision's and qwen2-7b's decode the forced split kernel beside the
+    warp kernel, in turns.  At each timed decode the plain version without the newest
     key must fail FLASH_ROW_TOL, or the check could not see a kernel that
     skips it."""
     cases = []
@@ -1348,6 +1399,9 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
         del ref32
     else:
         check = {"limit": SERVE_REL_TOL_FP32}
+    # the whole check's peak: the forward's activations and, in bf16, the
+    # weights' fp32 copy (qwen2-7b's ~30 GB)
+    check["check_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": batch, "prompt": prompt, "img_tokens": cfg.img_tokens,
            "tokens": new,
@@ -1389,7 +1443,8 @@ def phase_fp32() -> dict:
     are (their prefills are where the SIMT kernel runs on a model path)."""
     runs = {}
     for arch, layers in (("chatglm3-6b", 2), ("recurrentgemma-2b", 3),
-                         ("falcon-mamba-7b", 2), ("phi-3-vision-4.2b", 2)):
+                         ("falcon-mamba-7b", 2), ("phi-3-vision-4.2b", 2),
+                         ("qwen2-7b", 2)):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   param_dtype="float32")
         label = f"fp32 {layers}-layer {arch}"
@@ -1420,12 +1475,13 @@ def phase_fp32() -> dict:
 
 
 def phase_search() -> dict:
-    """Each GA_RUNS search through a ``SearchSession`` on the card, counts
-    set to 0 just before it and read just after: the reference's genome,
-    fitness and evaluations exactly; one label-kernel launch per engine
-    batch, through the ``warp`` variant, and no other kernel."""
+    """Each GA_RUNS search and TPU_GA_RUN through a ``SearchSession`` on the
+    card, counts set to 0 just before it and read just after: the
+    reference's genome, fitness and evaluations exactly; one label-kernel
+    launch per engine batch, through the ``warp`` variant, and no other
+    kernel.  Then ``tpu_schedule_run``."""
     runs = {}
-    for label, run in GA_RUNS.items():
+    for label, run in {**GA_RUNS, "tpu_ga": TPU_GA_RUN}.items():
         session = SearchSession(SearchSpec(**run["spec"]), device=DEV)
         reset_counts()
         art = session.run()
@@ -1469,7 +1525,35 @@ def phase_search() -> dict:
             raise AssertionError(f"{label}: launches {launches}, variants "
                                  f"{variants}, engine {eng}")
         runs[label] = res
+    runs["tpu_schedule"] = tpu_schedule_run()
     return runs
+
+
+def tpu_schedule_run() -> dict:
+    """``search_tpu_schedule`` (the GA over remat x microbatches x gradient
+    compression x sharding of a training step on the modelled TPU target)
+    for TPU_SCHEDULE_RUN's cell with the reference's defaults: host-only,
+    so no kernel may launch; held to TPU_SCHEDULE_RUN exactly."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.search.tpu import search_tpu_schedule
+    run = TPU_SCHEDULE_RUN
+    reset_counts()
+    t0 = time.perf_counter()
+    res = search_tpu_schedule(get_config(run["arch"]), SHAPES[run["shape"]])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    got = dict(best=dataclasses.asdict(res.best),
+               edp_improvement=res.edp_improvement,
+               energy_j=res.best_cost.energy_j,
+               evaluations=res.evaluations, history_len=len(res.history))
+    out = {"name": "tpu_schedule", "arch": run["arch"],
+           "shape": run["shape"], **got, "wall_s": wall,
+           "launches": launches}
+    log(f"[search] {json.dumps(out)}")
+    if got != run["golden"] or any(launches.values()):
+        raise AssertionError(f"tpu_schedule: {got}, launches {launches} != "
+                             f"reference {run['golden']}, none")
+    return out
 
 
 # ---- phase 7: the schedule service --------------------------------------------------
@@ -2095,18 +2179,98 @@ def spacemap_and_file() -> dict:
     return {"launches": launches}
 
 
+# the ``from_torch`` import: SmokeCNN's graph (the fingerprint ``from_jax``
+# gives for the same network written in JAX) and the reference's result
+# for its search (``repro.search.SearchSession.from_objects`` on that graph
+# with FROM_TORCH_RUN's arguments); pinned by tests/test_torch_trace.py
+FROM_TORCH_RUN = dict(
+    input_shape=(1, 3, 64, 64), accelerator="simba",
+    search=dict(backend="ga", backend_config={"preset": "paper"}, seed=0),
+    fingerprint="ir1:a470d342f2081254bb13080ed59f04e7dbfd54c3cc9dadcd945b87"
+                "35037ea7d0",
+    golden=dict(genome_mask=0x33fcb, best_fitness=2.051913528129443,
+                evaluations=8951))
+
+
+class SmokeCNN(nn.Module):
+    """Phase 8's ``from_torch`` import: a stem conv with batch norm, a
+    depthwise-separable block with squeeze-excite and a residual add, max
+    pooling, two 1x1 branches concatenated, a conv, global pooling and a
+    classifier (tests/test_torch_trace.py writes the same network in JAX
+    for ``from_jax``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stem = nn.Conv2d(3, 16, 3, stride=2, padding=1, bias=False)
+        self.bn = nn.BatchNorm2d(16)
+        self.dw = nn.Conv2d(16, 16, 3, padding=1, groups=16)
+        self.pw = nn.Conv2d(16, 16, 1)
+        self.se1 = nn.Linear(16, 4)
+        self.se2 = nn.Linear(4, 16)
+        self.pool = nn.MaxPool2d(2)
+        self.a = nn.Conv2d(16, 8, 1)
+        self.b = nn.Conv2d(16, 8, 1)
+        self.head = nn.Conv2d(16, 32, 3, padding=1)
+        self.gap = nn.AdaptiveAvgPool2d(1)
+        self.fc = nn.Linear(32, 10)
+
+    def forward(self, x):
+        y = F.relu(self.bn(self.stem(x)))
+        z = self.pw(F.relu(self.dw(y)))
+        s = torch.sigmoid(self.se2(F.relu(self.se1(z.mean((2, 3))))))
+        y = self.pool(y + z * s.view(1, -1, 1, 1))
+        y = torch.cat([self.a(y), self.b(y)], 1)
+        y = F.relu(self.head(y))
+        return self.fc(torch.flatten(self.gap(y), 1))
+
+
+def from_torch_run() -> dict:
+    """Phase 8's last part: ``from_torch`` of SmokeCNN (on the card, in eval
+    mode) against FROM_TORCH_RUN's fingerprint, then its search on the card
+    against the golden result, one label launch per engine batch."""
+    from repro_torch.costmodel import SIMBA
+    from repro_torch.ir import from_torch
+    run = FROM_TORCH_RUN
+    model = SmokeCNN().to(DEV).eval()
+    t0 = time.perf_counter()
+    gir = from_torch(model, (torch.zeros(run["input_shape"], device=DEV),),
+                     name="smoke_cnn")
+    trace_s = time.perf_counter() - t0
+    graph = gir.build()
+    session = SearchSession.from_objects(graph, SIMBA, device=DEV,
+                                         **run["search"])
+    reset_counts()
+    art = session.run()
+    launches = read_counts()
+    eng = engine_of(session)
+    out = {"fingerprint": gir.fingerprint(), "layers": len(gir.nodes),
+           "kinds": [n["kind"] for n in gir.nodes], "trace_s": trace_s,
+           **job_record("from_torch", session, art)}
+    log(f"[from_torch] {json.dumps(out)}")
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["ga_labels"] = label_launches_for(eng["batches"])
+    if gir.fingerprint() != run["fingerprint"] or \
+            golden_of(art) != run["golden"] or launches != expect or \
+            art.backend_stats["pop_backend"] != engine_name():
+        raise AssertionError(f"from_torch: {gir.fingerprint()}, "
+                             f"{golden_of(art)}, launches {launches}")
+    return {"launches": launches}
+
+
 def phase_daemon() -> dict:
     """Phase 8: the in-process daemon on the card (two concurrent GA_RUNS
     jobs, a duplicate, a store hit, a warm start, a 2-island job, a
     cancelled job), the daemon's restart replay and ``store gc`` in
-    subprocesses, then the spacemap and ``file:`` runs.  Returns the
-    in-process runs, counted with phases 4-7's."""
+    subprocesses, then the spacemap and ``file:`` runs and the
+    ``from_torch`` import.  Returns the in-process runs, counted with phases
+    4-7's."""
     t0 = time.perf_counter()
     shutil.rmtree(DAEMON_DIR, ignore_errors=True)
     DAEMON_DIR.mkdir(parents=True)
     runs = {"daemon": daemon_in_process()}
     daemon_restart()
     runs["spacemap_file"] = spacemap_and_file()
+    runs["from_torch"] = from_torch_run()
     log(f"[daemon] phase 8 took {time.perf_counter() - t0:.1f} s")
     return runs
 

@@ -25,9 +25,7 @@ Every subcommand takes the reference's flags.  ``search``, ``submit``,
 ``serve`` and ``daemon`` also take ``--device``: by default every search's
 label pass runs on the card (and the command fails without one);
 ``--device cpu`` runs the plain PyTorch version.  ``jobs`` is a client of a
-running daemon and searches nothing itself.  The ``tpu`` cost model is not
-ported (ROADMAP A2): ``--costmodel tpu`` exits 2 naming it.  Nothing runs
-at import.
+running daemon and searches nothing itself.  Nothing runs at import.
 """
 from __future__ import annotations
 

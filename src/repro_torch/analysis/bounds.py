@@ -1,6 +1,5 @@
 """Communication (DRAM-traffic) lower bounds for fused schedules (the
-port's copy of ``repro/analysis/bounds.py``; the ``tpu`` cost model's
-capacity is not ported).
+port's copy of ``repro/analysis/bounds.py``).
 
 "Communication Lower Bound in Convolution Accelerators" (Chen et al.,
 arXiv 1911.05662 / HPCA'20) shows off-chip traffic of a convolution is
@@ -157,18 +156,15 @@ def onchip_words_for(costmodel: str, accelerator: str) -> Optional[int]:
 
     * ``default`` — the paper's mini-Timeloop mapper: activation +
       weight SRAM of the named machine (repartition suffixes honored);
-    * ``tpu`` — the reference's TPU roofline (its VMEM activation budget):
-      not ported, so an artifact of it raises
-      :class:`~repro_torch.search.registry.RegistryError` here.
+    * ``tpu`` — the TPU roofline: the VMEM activation budget
+      (:data:`repro_torch.costmodel.tpu_fusion.VMEM_BYTES`, half budgeted
+      to activations, bf16 words) — weights stream, so the floor dominates.
     """
     if costmodel == "default":
         from repro_torch.search.registry import build_accelerator
         acc = build_accelerator(accelerator)
         return acc.act_buf_words + acc.weight_buf_words
     if costmodel == "tpu":
-        from repro_torch.search.registry import RegistryError
-        raise RegistryError(
-            "the tpu cost model is not ported to repro_torch yet (ROADMAP "
-            "A2); verify its artifacts with the reference (python -m repro "
-            "verify)")
+        from repro_torch.costmodel.tpu_fusion import VMEM_BYTES
+        return int(VMEM_BYTES / 2) // 2
     return None

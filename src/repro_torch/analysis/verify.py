@@ -1,10 +1,7 @@
 """Independent artifact verification (no ``core.fusion``, no evaluator).
 
 The port's copy of ``repro/analysis/verify.py``: every artifact the port
-writes, and the reference's of the same kinds.  An artifact that needs the
-part not ported yet (the ``tpu`` cost model) raises
-:class:`~repro_torch.search.registry.RegistryError` naming it, rather than
-failing a check.
+writes, and the reference's of the same kinds.
 
 A :class:`~repro_torch.search.artifact.ScheduleArtifact` asserts: *this genome,
 on this graph, forms these groups, is schedulable, fits the machine, and
@@ -362,15 +359,10 @@ def _act_capacity(costmodel: str, accelerator: str
         return acc.act_buf_words, \
             f"{accelerator} act_buf ({acc.act_buf_words} words)"
     if costmodel == "tpu":
-        _not_ported("the tpu cost model")
+        from repro_torch.costmodel.tpu_fusion import VMEM_BYTES
+        words = int(VMEM_BYTES / 2) // 2
+        return words, f"TPU VMEM activation budget ({words} words)"
     return None, f"no capacity rule for costmodel {costmodel!r}"
-
-
-def _not_ported(what: str) -> None:
-    from repro_torch.search.registry import RegistryError
-    raise RegistryError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A2); run it "
-        f"with the reference package (python -m repro)")
 
 
 # ---- the verifier ----------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The paper's cost layer, ported from ``repro.costmodel`` (the ``default``
-mini-Timeloop mapper; the ``tpu`` cost model is not ported)."""
+"""The paper's cost layer, ported from ``repro.costmodel``: the ``default``
+mini-Timeloop mapper and the ``tpu`` roofline of the modelled TPU target."""
 from repro_torch.costmodel.accelerator import (ARCHS, EYERISS, SIMBA,
                                                SIMBA2X2, Accelerator)
 from repro_torch.costmodel.base import CostBreakdown, CostModel, GroupKey
@@ -9,9 +9,10 @@ from repro_torch.costmodel.evaluator import Evaluator, ScheduleCost
 from repro_torch.costmodel.mapper import (LayerCost, map_layer,
                                           resolve_dataflow,
                                           spatial_utilization)
+from repro_torch.costmodel.tpu_fusion import TpuFusionCostModel
 
 __all__ = ["ARCHS", "EYERISS", "SIMBA", "SIMBA2X2", "Accelerator",
            "CostBreakdown", "CostModel", "DEFAULT_ENERGY",
            "DefaultCostModel", "EnergyModel", "Evaluator", "GroupKey",
-           "LayerCost", "ScheduleCost", "map_layer", "resolve_dataflow",
-           "spatial_utilization"]
+           "LayerCost", "ScheduleCost", "TpuFusionCostModel", "map_layer",
+           "resolve_dataflow", "spatial_utilization"]

@@ -1,5 +1,5 @@
 """``repro_torch.ir`` — the serializable graph IR and its import pipeline
-(the port's copy of ``repro/ir``, without the JAX tracer).
+(the port's copy of ``repro/ir``; its tracer reads PyTorch programs).
 
 A CNN is a *document* — a versioned, JSON-serializable :class:`GraphIR`
 that anything can produce and everything downstream (search, cost,
@@ -9,6 +9,8 @@ serving, artifacts) consumes:
 
     graph = ir.load("model.json").build()          # file -> LayerGraph
     ir.save(graph, "model.json")                   # LayerGraph -> file
+
+    gir = ir.from_torch(model, (x,), name="my_cnn")  # code -> IR
 
     # or through the facade, with no Python at all:
     #   python -m repro_torch search --workload file:model.json --accel simba
@@ -23,9 +25,10 @@ Pieces:
 * ``passes.py`` — the import pipeline (:func:`canonicalize` =
   topo-sort -> fold no-op glue -> dead-node elimination -> validate),
   idempotent, applied to everything entering from outside.
-
-The reference's tracer (``repro/ir/trace.py``, ``from_jax``) has no
-counterpart here: its port is a ``from_torch`` tracer of a later slice.
+* ``trace.py`` — :func:`~repro_torch.ir.trace.from_torch`, the counterpart
+  of the reference's ``from_jax``: a ``torch.fx`` walker mapping conv2d /
+  linear / pooling / elementwise ops onto the same Layer kinds and node
+  names.
 
 ``load``/``loads`` canonicalize; ``GraphIR.from_graph`` (and
 ``LayerGraph.to_ir``) are exact and run no passes — fingerprints always
@@ -33,7 +36,7 @@ describe the structure a genome actually indexes.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Callable, Tuple, Union
 
 from repro_torch.core.graph import LayerGraph
 
@@ -75,8 +78,16 @@ def fingerprint(obj: Union[GraphIR, LayerGraph]) -> str:
     return ir.fingerprint()
 
 
+def from_torch(module: Callable[..., Any], example_inputs: Tuple[Any, ...],
+               *, name: str = "traced_cnn") -> GraphIR:
+    """Trace a PyTorch module or function into canonical GraphIR (see
+    :mod:`repro_torch.ir.trace`; imports ``torch.fx`` lazily)."""
+    from repro_torch.ir.trace import from_torch as _from_torch
+    return _from_torch(module, example_inputs, name=name)
+
+
 __all__ = [
     "GraphIR", "IRError", "IR_VERSION", "PIPELINE", "canonicalize",
-    "eliminate_dead", "fingerprint", "fold_noops", "load", "loads", "save",
-    "topo_sort", "validate",
+    "eliminate_dead", "fingerprint", "fold_noops", "from_torch", "load",
+    "loads", "save", "topo_sort", "validate",
 ]

@@ -4,8 +4,8 @@ the caches (counterpart: ``examples/serve_decode.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \
         [--layers N] [--batch 8] [--prompt-len 1024] [--tokens 32]
 
-with ARCH one of chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b,
-phi-3-vision-4.2b; it runs the configuration at its published widths with
+with ARCH one of ``SERVED_ARCHS`` (chatglm3-6b, recurrentgemma-2b,
+falcon-mamba-7b, phi-3-vision-4.2b, qwen2-7b); it runs the configuration at its published widths with
 random weights from ``--seed`` on the CUDA card and prints one JSON line of
 timings, taken after a short untimed warm-up (which also builds the
 kernels).  For phi-3-vision-4.2b each prompt of ``--prompt-len`` text tokens
@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.configs import SERVED_ARCHS, get_config, get_reduced
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.transformer import Transformer
@@ -79,7 +79,7 @@ def generate(model: Transformer, prompts: torch.Tensor, max_new: int,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="chatglm3-6b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="chatglm3-6b", choices=SERVED_ARCHS)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to N layers (0: the config's own)")
     ap.add_argument("--batch", type=int, default=8)

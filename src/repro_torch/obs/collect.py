@@ -242,10 +242,11 @@ class TelemetryCollector:
 
     def progress_records(self) -> List[Dict[str, Any]]:
         """JSON-safe snapshot of the per-generation convergence records, in
-        tick order — what the reference's daemon serves from ``GET
-        /jobs/<id>`` while a search is still running.  Floats are rounded
-        like trace attributes; the snapshot copies the record list first so
-        a concurrent ``on_step`` append never tears the serialization."""
+        tick order — what the daemon (``repro_torch.serve.daemon``) serves
+        from ``GET /jobs/<id>`` while a search is still running.  Floats are
+        rounded like trace attributes; the snapshot copies the record list
+        first so a concurrent ``on_step`` append never tears the
+        serialization."""
         return [{k: (_r6(v) if isinstance(v, float) else v)
                  for k, v in rec.items()}
                 for rec in list(self.generations)]

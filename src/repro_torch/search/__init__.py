@@ -40,7 +40,10 @@ The store (``repro_torch.serve.ArtifactStore``) keys artifacts exactly as
 the reference's does, so each package's store serves the other's objects.
 ``spacemap=True`` searches the statically reduced space (and ``exhaustive``
 composes it per region), and ``file:model.json`` workloads import GraphIR
-documents.  Not ported yet: the ``tpu`` cost model (ROADMAP A2).
+documents.  ``costmodel="tpu"`` prices schedules on the modelled TPU
+roofline (``repro_torch.costmodel.tpu_fusion``), and
+``repro_torch.search.tpu.search_tpu_schedule`` searches TPU training
+schedules of the ten model configs with the same backends.
 """
 from repro_torch.search.artifact import (FingerprintMismatch,
                                          ScheduleArtifact, graph_fingerprint)

@@ -1,7 +1,7 @@
 """String-keyed registries: workloads, accelerators, objectives, backends,
 cost models (the port's copy of ``repro/search/registry.py``, populated
 with the zoo workloads, the catalog accelerators, the native objectives
-and the ``default`` cost model).
+and the ``default`` and ``tpu`` cost models).
 
 Every extension point of the search facade is a named registry entry, so a
 new workload / accelerator / objective / search strategy / cost backend is
@@ -203,10 +203,6 @@ def workload_schemas() -> Dict[str, Dict[str, Any]]:
 def build_costmodel(name: str):
     """Resolve a registered cost-model factory (not yet bound to a graph/
     accelerator — the session binds it)."""
-    if name == "tpu" and name not in COSTMODELS:
-        raise RegistryError(
-            "the tpu cost model is not ported to repro_torch yet (ROADMAP "
-            "A2); run it with the reference package (python -m repro)")
     return COSTMODELS.get(name)
 
 
@@ -227,6 +223,7 @@ def _install_builtins() -> None:
     """Populate the registries from the paper's tables (idempotent)."""
     from repro_torch.costmodel.default import DefaultCostModel
     from repro_torch.costmodel.evaluator import NATIVE_OBJECTIVES
+    from repro_torch.costmodel.tpu_fusion import TpuFusionCostModel
     from repro_torch.hw.catalog import ALL_SPECS
     from repro_torch.workloads import WORKLOADS as _ZOO
 
@@ -243,9 +240,9 @@ def _install_builtins() -> None:
         if obj not in OBJECTIVES:
             OBJECTIVES.register(
                 obj, (lambda o: lambda cost: cost.metric(o))(obj))
-    # the reference's ``tpu`` cost model is not ported
-    if DefaultCostModel.name not in COSTMODELS:
-        COSTMODELS.register(DefaultCostModel.name, DefaultCostModel)
+    for cm in (DefaultCostModel, TpuFusionCostModel):
+        if cm.name not in COSTMODELS:
+            COSTMODELS.register(cm.name, cm)
 
 
 _install_builtins()

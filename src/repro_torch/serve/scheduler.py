@@ -26,10 +26,10 @@ intra-op thread.  Pool workers are daemonic, so island searches inside
 them run their islands as threads.
 
 Job specs name workloads in any ``repro_torch.search.registry`` spec form
-(registry names with inline params, ``mobilenet_v3@hw=160``); the port
-fails ``file:`` GraphIR jobs with the error naming the missing import
-pipeline.  (``ir:<fingerprint>`` specs are artifact-bound and fail the job
-with the error explaining where to rebuild from.)
+(registry names with inline params, ``mobilenet_v3@hw=160``, and
+``file:model.json`` GraphIR documents).  (``ir:<fingerprint>`` specs are
+artifact-bound and fail the job with the error explaining where to rebuild
+from.)
 """
 from __future__ import annotations
 

@@ -13,9 +13,9 @@ of the store, ``list``, ``analyze``, ``store gc`` and ``lint``.  One round
 runs as subprocesses, as a user runs it, and so does the daemon with its
 ``jobs`` client (submit, list, status, wait, cancel) and a restart that
 replays the journal; the rest call ``main`` in-process, as the reference's
-tests do.  The ``tpu`` cost model, the one part not ported, exits 2 with a
-message naming ROADMAP A2, and without a card the default device is an
-error (exit 2), never a silent CPU run.
+tests do.  ``--costmodel tpu`` searches and analyses print the reference's
+output too, and without a card the default device is an error (exit 2),
+never a silent CPU run.
 """
 import json
 import os
@@ -244,7 +244,7 @@ def test_list_shows_the_ported_registries(capsys):
     out = capsys.readouterr().out
     assert "island" in out and "migrate_every" in out
     assert "crossover_rate" in out
-    assert "costmodels: default\n" in out          # the tpu one: not ported
+    assert "costmodels: default, tpu\n" in out
     assert main(["list", "--json"]) == 0
     payload = json.loads(capsys.readouterr().out)
     assert sorted(payload["backends"]) == [
@@ -261,25 +261,30 @@ def test_list_shows_the_ported_registries(capsys):
     ["search", "--workload", "unet", "--costmodel", "tpu", "--backend",
      "exhaustive", "--spacemap"],
 ])
-def test_unported_subcommands_exit_2_naming_the_roadmap(argv, capsys,
-                                                        tmp_path,
-                                                        monkeypatch):
-    """Every subcommand is ported; the ``tpu`` cost model is not, and each
-    command that would run it exits 2 naming ROADMAP A2, writing
-    nothing."""
-    monkeypatch.chdir(tmp_path)
-    assert main(argv + (["--device", "cpu"] if argv[0] != "analyze"
-                        else [])) == 2
-    err = capsys.readouterr().err
-    assert "tpu cost model is not ported to repro_torch yet" in err
-    assert "ROADMAP A2" in err
-    assert not (tmp_path / "S").exists()
-    assert not (tmp_path / "artifact.json").exists()
+def test_unported_subcommands_exit_2_naming_the_roadmap(argv, capsys, dirs):
+    """The ``tpu`` cost model is ported: each command that runs it (these
+    once exited 2 naming ROADMAP A2) now prints what ``python -m repro``
+    prints, clocks left out, with its exit code (unet's exhaustive space
+    is over the limit in both: 2), and writes the reference's
+    artifact."""
+    port = argv + (["--device", "cpu"] if argv[0] != "analyze" else [])
+    (rc, out), (ref_rc, ref_out) = run_both(capsys, dirs, port, argv)
+    assert (rc, norm(out)) == (ref_rc, norm(ref_out))
+    assert rc == (2 if "unet" in argv else 0)
+    if argv[0] == "search" and rc == 0:
+        _, pdir, rdir = dirs
+        mine, ref = (json.loads((d / "artifact.json").read_text())
+                     for d in (pdir, rdir))
+        assert mine["spec"]["costmodel"] == "tpu"
+        for key in ("genome_mask", "best_fitness", "evaluations",
+                    "history", "group_breakdowns", "spacemap"):
+            assert mine.get(key) == ref.get(key), key
 
 
 def test_search_refuses_spacemap(tmp_path, capsys):
-    """``--spacemap`` searches now (vgg16's factorized space, as the
-    reference's); only its ``tpu`` capacity rule is refused."""
+    """``--spacemap`` searches (vgg16's factorized space, as the
+    reference's), under the ``tpu`` capacity rule too (once refused): the
+    reference's genome, and an artifact that verifies."""
     out = tmp_path / "a.json"
     assert main(["search", "--workload", "vgg16", "--spacemap", "--backend",
                  "exhaustive", "--out", str(out), "--device", "cpu"]) == 0
@@ -289,10 +294,20 @@ def test_search_refuses_spacemap(tmp_path, capsys):
     assert int(art["genome_mask"], 16) == 0x1A4225
     assert main(["verify", str(out)]) == 0
     assert "[ok  ] spacemap:" in capsys.readouterr().out
+    from repro.search import search as ref_search
+    tpu = tmp_path / "b.json"
     assert main(["search", "--workload", "vgg16", "--spacemap", "--costmodel",
-                 "tpu", "--out", str(tmp_path / "b.json"), "--device",
-                 "cpu"]) == 2
-    assert "tpu cost model is not ported" in capsys.readouterr().err
+                 "tpu", "--preset", "fast", "--generations", "4", "--out",
+                 str(tpu), "--device", "cpu"]) == 0
+    capsys.readouterr()
+    ref = ref_search("vgg16", "simba", costmodel="tpu", spacemap=True,
+                     backend="ga", backend_config={"preset": "fast",
+                                                   "generations": 4})
+    art = json.loads(tpu.read_text())
+    assert int(art["genome_mask"], 16) == ref.genome_mask
+    assert art["spacemap"] == json.loads(ref.to_json())["spacemap"]
+    assert main(["verify", str(tpu)]) == 0
+    assert "[ok  ] spacemap:" in capsys.readouterr().out
 
 
 # ---- the subcommands of this slice -------------------------------------------------

@@ -177,9 +177,9 @@ def test_warp_slices_cover_each_tile_once():
 @pytest.mark.parametrize("arch,batch,prompt,new", _chip_smoke().SERVES)
 def test_expected_flash_impls_follow_the_plan(arch, batch, prompt, new):
     """``chip_smoke.expected_flash_impls`` (phase 4's exact counts) agrees
-    with ``plan`` for each served model: phi-3-vision-4.2b's 992 decode
-    launches on the warp kernel, chatglm3-6b's and recurrentgemma-2b's on
-    the split kernel, falcon-mamba-7b none."""
+    with ``plan`` for each served model: phi-3-vision-4.2b's 992 and
+    qwen2-7b's 868 decode launches on the warp kernel, chatglm3-6b's and
+    recurrentgemma-2b's on the split kernel, falcon-mamba-7b none."""
     cs = _chip_smoke()
     cfg = get_config(arch)
     got = cs.expected_flash_impls(cfg, new)
@@ -190,7 +190,8 @@ def test_expected_flash_impls_follow_the_plan(arch, batch, prompt, new):
     want = {"phi-3-vision-4.2b": ("warp_decode", 992),
             "chatglm3-6b": ("split_decode", 868),
             "recurrentgemma-2b": ("split_decode", 248),
-            "falcon-mamba-7b": (None, 0)}[arch]
+            "falcon-mamba-7b": (None, 0),
+            "qwen2-7b": ("warp_decode", 868)}[arch]
     assert (impl, attn * (new - 1)) == want
     assert sum(got.values()) == attn * new
     assert got["tc_prefill"] == attn
@@ -198,6 +199,21 @@ def test_expected_flash_impls_follow_the_plan(arch, batch, prompt, new):
         assert got[impl] == want[1]
         other = ({"split_decode", "warp_decode"} - {impl}).pop()
         assert got[other] == 0
+
+
+def test_qwen2_decode_plan_is_pinned():
+    """qwen2-7b's 31 decode steps (8 sequences, 4 kv heads of 7 query
+    heads, head_dim 128, 1025-1055 keys): the warp kernel, 17 tiles dealt
+    into 6 splits of 3 tiles (32 blocks a split, under WARP_MIN_BLOCKS),
+    192 blocks, in bf16 and fp32."""
+    cfg = get_config("qwen2-7b")
+    for kv_len in range(1025, 1056):
+        for dtype in (torch.bfloat16, torch.float32):
+            how = plan(8, 1, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, dtype, kv_len)
+            assert how == Plan("warp_decode", splits=6, tiles_per_split=3,
+                               blocks=192), kv_len
+    assert warp_decode_layout(7, 128, torch.bfloat16)[0] == 4
 
 
 # ---- the warp kernel's arithmetic ----

@@ -19,8 +19,8 @@ import torch
 
 from repro.search import ScheduleArtifact as RefArtifact
 from repro.search import search as ref_search
-from repro_torch.search import (RegistryError, ScheduleArtifact,
-                                SearchSession, SearchSpec, search)
+from repro_torch.search import (ScheduleArtifact, SearchSession,
+                                SearchSpec, search)
 
 ROOT = Path(__file__).resolve().parents[1]
 CLOCKS = ("created_unix", "wall_s")
@@ -127,22 +127,32 @@ def test_chip_smoke_golden_constants_are_the_references(run):
 
 # telemetry, the island backend, spacemap and file: workloads are ported
 # (tests/test_torch_obs.py, test_torch_island.py, test_torch_spacemap.py,
-# test_torch_ir_passes.py); the tpu cost model is refused with each of them
+# test_torch_ir_passes.py), and so is the tpu cost model: with each of them
+# it gives the reference's artifact
 @pytest.mark.parametrize("what", [
     dict(spacemap=True), dict(spacemap=True, backend="exhaustive"),
     dict(spacemap=True, backend="island"),
     dict(), dict(workload="file:model.json")])
 def test_unported_parts_are_refused(what, tmp_path, monkeypatch):
+    """Once refused naming ROADMAP A2; now each search under the ``tpu``
+    cost model equals the reference's (island: in processes, as the
+    reference runs them; exhaustive: unet at depth 1, whose space is
+    small: under the VMEM budget vgg16's spacemap freezes nothing)."""
     monkeypatch.chdir(tmp_path)
-    from repro_torch.ir import save
-    from repro_torch.workloads import vgg16
-    save(vgg16(), "model.json")
+    from repro.ir import save as ref_save
+    from repro.workloads import vgg16 as ref_vgg16
+    ref_save(ref_vgg16(), "model.json")
     kw = dict(workload="vgg16", accelerator="simba", backend="ga",
-              costmodel="tpu")
+              costmodel="tpu", seed=0,
+              backend_config={"preset": "fast", "generations": 4})
     kw.update(what)
-    with pytest.raises(RegistryError, match=r"tpu cost model is not ported"
-                                            r".*ROADMAP A2"):
-        SearchSession(SearchSpec(**kw), device="cpu")
-    kw["costmodel"] = "default"            # the same search without it runs
-    assert SearchSession(SearchSpec(**kw), device="cpu").problem
-
+    if kw["backend"] == "island":
+        kw["backend_config"] = {"islands": 2, "migrate_every": 2,
+                                "preset": "fast", "generations": 4}
+    if kw["backend"] == "exhaustive":
+        kw.update(workload="unet", backend_config={},
+                  workload_kwargs={"depth": 1})
+    ref = ref_search(**kw)
+    got = SearchSession(SearchSpec(**kw), device="cpu").run()
+    assert got.spec.costmodel == "tpu"
+    assert _comparable(got) == _comparable(ref)

@@ -601,7 +601,7 @@ def test_every_linted_port_file_is_pinned_against_repro_and_jax():
     linted = [p for p in linted
               if p.split(os.sep)[2] in ("core", "search", "serve",
                                         "costmodel", "ir", "hw", "obs",
-                                        "analysis")]
+                                        "analysis", "roofline")]
     assert len(linted) > 40
     for rel in linted + ["src/repro_torch/__main__.py"]:
         assert {"repro", "jax"} <= set(table.get(rel, ())), rel

@@ -1,4 +1,5 @@
-"""The port's chatglm3-6b model path against the JAX reference on the CPU.
+"""The port's chatglm3-6b and qwen2-7b model paths against the JAX reference
+on the CPU.
 
 The reduced config runs in fp32 on both sides (the reference's dense
 attention rounds its probabilities to the dtype before P.V, the port's flash
@@ -232,3 +233,113 @@ def test_params_from_jax_bfloat16_bits():
         np_params["segments"]["seg0"]["pos0"]["attn"]["wq"][1].astype(np.float32))
     model = Transformer(get_reduced(ARCH), "cpu")
     model.load_state_dict(state)     # strict: the key sets agree
+
+
+# ---- qwen2-7b: GQA 7:1 with QKV biases and rope_theta 1e6 ---------------------
+
+QWEN = "qwen2-7b"
+
+
+@pytest.fixture(scope="module")
+def qwen_models():
+    """qwen2-7b's reduced config (GQA 2:1 at test size) in fp32 on both
+    sides, equal weights, biases and norm scales perturbed as above."""
+    from repro.configs import qwen2_7b as jax_qwen
+    jcfg = dataclasses.replace(jax_qwen.reduced(), param_dtype="float32")
+    tcfg = dataclasses.replace(get_reduced(QWEN), param_dtype="float32")
+    rng = np.random.default_rng(10)
+    np_params = jax.tree.map(np.asarray,
+                             T.init_params(jcfg, jax.random.PRNGKey(10)))
+
+    def perturb(path, a):
+        if path[-1].key in ("bq", "bk", "bv", "scale"):
+            return (a + rng.normal(0.0, 0.5, a.shape)).astype(a.dtype)
+        return a
+
+    np_params = jax.tree_util.tree_map_with_path(perturb, np_params)
+    model = Transformer(tcfg, "cpu")
+    model.load_state_dict(params_from_jax(np_params, tcfg))
+    return jax.tree.map(jnp.asarray, np_params), jcfg, model, tcfg
+
+
+def test_qwen2_config_matches_reference():
+    from repro.configs import qwen2_7b as jax_qwen
+    from repro_torch.configs import qwen2_7b
+    for port, ref in ((get_config(QWEN), jax_qwen.CONFIG),
+                      (qwen2_7b.reduced(), jax_qwen.reduced())):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.layer_kinds() == ref.layer_kinds()
+    cfg = get_config(QWEN)
+    assert (cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.qkv_bias, cfg.rope_theta) == (7, 128, True, 1e6)
+    check_ported(cfg)
+
+
+def test_qwen2_forward_matches_reference(qwen_models):
+    params, jcfg, model, tcfg = qwen_models
+    toks = np.random.default_rng(11).integers(0, tcfg.vocab, (2, 24))
+    ref, _ = T.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    out = model(torch.from_numpy(toks))
+    assert out.shape == (2, 24, tcfg.vocab)
+    _close(out, ref)
+
+
+def test_qwen2_prefill_and_decode_match_reference(qwen_models):
+    params, jcfg, model, tcfg = qwen_models
+    rng = np.random.default_rng(12)
+    B, S, steps = 2, 12, 8
+    toks = rng.integers(0, tcfg.vocab, (B, S))
+    feed = rng.integers(0, tcfg.vocab, (steps, B, 1))
+    lg, caches, _ = T.prefill(params, jcfg, {"tokens": jnp.asarray(toks)},
+                              max_len=S + steps, cache_dtype=jnp.float32)
+    out, cache = model.prefill(torch.from_numpy(toks), max_len=S + steps)
+    _close(out, lg)
+    step = jax.jit(lambda p, tok, pos, c: T.decode_step(p, jcfg, tok, pos, c))
+    for i in range(steps):
+        lg, caches = step(params, jnp.asarray(feed[i]), jnp.int32(S + i),
+                          caches)
+        out, cache = model.decode_step(torch.from_numpy(feed[i]), S + i,
+                                       cache)
+        _close(out, lg)
+    ref_v = np.asarray(caches["seg0"]["pos0"]["attn"]["v"])
+    port_v = torch.stack([c["v"] for c in cache.layers])
+    np.testing.assert_allclose(port_v.numpy(), ref_v, atol=TOL, rtol=TOL)
+
+
+def test_qwen2_generate_matches_reference_greedy_loop(qwen_models):
+    """The port's ``generate`` against the reference's prefill and decode
+    steps driven greedily: the same tokens and, within TOL, the same
+    logits each token was chosen from."""
+    from repro_torch.launch.serve import generate
+    params, jcfg, model, tcfg = qwen_models
+    B, S, new = 3, 10, 6
+    toks = np.random.default_rng(13).integers(0, tcfg.vocab, (B, S))
+    lg, caches, _ = T.prefill(params, jcfg, {"tokens": jnp.asarray(toks)},
+                              max_len=S + new, cache_dtype=jnp.float32)
+    cur = jnp.argmax(lg[:, 0], -1)[:, None]
+    ref_toks, ref_lgs = [cur], [lg[:, 0]]
+    for i in range(new - 1):
+        lg, caches = T.decode_step(params, jcfg, cur, jnp.int32(S + i),
+                                   caches)
+        cur = jnp.argmax(lg[:, 0], -1)[:, None]
+        ref_toks.append(cur)
+        ref_lgs.append(lg[:, 0])
+    out = generate(model, torch.from_numpy(toks), new)
+    np.testing.assert_array_equal(out.tokens.numpy(),
+                                  np.concatenate(ref_toks, 1))
+    _close(out.logits, jnp.stack(ref_lgs, 1))
+
+
+def test_qwen2_params_from_jax_bfloat16_bits_with_biases():
+    """bf16 reference params, QKV biases included, arrive bit-exact."""
+    from repro.configs import qwen2_7b as jax_qwen
+    jcfg = jax_qwen.reduced()
+    np_params = jax.tree.map(np.asarray,
+                             T.init_params(jcfg, jax.random.PRNGKey(14)))
+    state = params_from_jax(np_params, get_reduced(QWEN))
+    attn = np_params["segments"]["seg0"]["pos0"]["attn"]
+    for leaf in ("bq", "bk", "bv", "wk"):
+        np.testing.assert_array_equal(
+            state[f"layers.1.attn.{leaf}"].float().numpy(),
+            attn[leaf][1].astype(np.float32))
+    Transformer(get_reduced(QWEN), "cpu").load_state_dict(state)

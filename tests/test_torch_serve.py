@@ -21,7 +21,7 @@ from repro_torch.search import SearchSession, SearchSpec, search
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "chatglm3-6b"
-ARCHS = ["chatglm3-6b", "recurrentgemma-2b", "falcon-mamba-7b"]
+ARCHS = ["chatglm3-6b", "recurrentgemma-2b", "falcon-mamba-7b", "qwen2-7b"]
 
 
 def _model(dtype="float32", seed=0, arch=ARCH):
@@ -133,5 +133,17 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.serve.warmstart", "repro_torch.serve.gc",
                  "repro_torch.analysis.spacemap", "repro_torch.analysis.lint",
                  "repro_torch.ir.passes"):
+        assert name in out["modules"], name
+    # the tpu cost model and roofline, the ten configs, the tracer
+    for name in ("repro_torch.roofline.analysis",
+                 "repro_torch.costmodel.tpu_model",
+                 "repro_torch.costmodel.tpu_fusion",
+                 "repro_torch.search.tpu", "repro_torch.core.tpu_ga",
+                 "repro_torch.ir.trace", "repro_torch.configs.qwen2_7b",
+                 "repro_torch.configs.dbrx_132b",
+                 "repro_torch.configs.llama4_maverick_400b",
+                 "repro_torch.configs.stablelm_1_6b",
+                 "repro_torch.configs.starcoder2_3b",
+                 "repro_torch.configs.whisper_small"):
         assert name in out["modules"], name
     assert out["bad"] == []

@@ -6,8 +6,8 @@ search on ``device="cpu"``: static verdicts are sound against brute force,
 regions confine every group, the per-region exhaustive composition is
 exact, search operators respect the freeze, artifacts round-trip the
 summary through ``verify``, and the checker stays engine-isolated.  The
-``tpu`` cost model is not ported, so its composition case asserts the
-port's "not ported (ROADMAP A2)" error instead.  The second part holds the
+``tpu`` cost model's composition case also holds the map and both
+artifacts to the reference's.  The second part holds the
 port to the reference on the same inputs: ``build_spacemap(...).to_dict()``
 for every zoo workload on every catalog accelerator, fixed-seed
 ``spacemap=True`` artifacts (GA, island, per-region exhaustive), the
@@ -28,9 +28,9 @@ from repro_torch.analysis import SpaceMap, build_spacemap, verify_artifact
 from repro_torch.analysis.verify import _GraphView
 from repro_torch.core.fusion import FusionState
 from repro_torch.core.graph import Layer, LayerGraph
-from repro_torch.search import (OBJECTIVES, BackendError, RegistryError,
-                                ScheduleArtifact, SearchSession, SearchSpec,
-                                build_accelerator, register_objective, search)
+from repro_torch.search import (OBJECTIVES, BackendError, ScheduleArtifact,
+                                SearchSession, SearchSpec, build_accelerator,
+                                register_objective, search)
 
 # ---- graphs ----------------------------------------------------------------------
 # simba's activation buffer is 32768 words: the `small` layers below
@@ -206,16 +206,26 @@ def test_per_region_composition_matches_flat_brute_force(builder, objective):
 
 
 def test_per_region_composition_matches_flat_on_tpu_costmodel():
-    """The reference composes regions under its ``tpu`` cost model too; the
-    port has no ``tpu`` cost model yet, so both the flat and the factorized
-    session raise its "not ported (ROADMAP A2)" error, and so does the
-    spacemap's capacity rule on its own."""
+    """tests/test_spacemap.py:196 on the port (once refused naming ROADMAP
+    A2): under the ``tpu`` cost model the factorized search finds the flat
+    one's fitness, and the map and both artifacts are the reference's."""
+    from repro.analysis import build_spacemap as ref_build_spacemap
+    from repro.search import SearchSession as RefSession
+    from repro.search import build_accelerator as ref_build_accelerator
     graph = mixed()
-    for spacemap in (False, True):
-        with pytest.raises(RegistryError, match=r"not ported.*ROADMAP A2"):
-            session_for(graph, spacemap=spacemap, costmodel="tpu")
-    with pytest.raises(RegistryError, match=r"not ported.*ROADMAP A2"):
-        build_spacemap(graph, "tpu", "simba")
+    flat = session_for(graph, spacemap=False, costmodel="tpu").run()
+    fact = session_for(graph, spacemap=True, costmodel="tpu").run()
+    assert fact.best_fitness == pytest.approx(flat.best_fitness, rel=1e-12)
+    ref_graph = rs.ScheduleArtifact.from_json(fact.to_json()).rebuild_graph()
+    sm = build_spacemap(graph, "tpu", "simba")
+    ref_sm = ref_build_spacemap(ref_graph, "tpu", "simba")
+    assert sm.to_dict() == ref_sm.to_dict()
+    for spacemap, mine in ((False, flat), (True, fact)):
+        ref = RefSession.from_objects(
+            ref_graph, ref_build_accelerator("simba"), backend="exhaustive",
+            spacemap=spacemap, costmodel="tpu").run()
+        assert (mine.genome_mask, mine.best_fitness, mine.evaluations) == \
+            (ref.genome_mask, ref.best_fitness, ref.evaluations)
 
 
 def test_vgg16_solved_exactly_by_region_composition():

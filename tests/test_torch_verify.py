@@ -8,9 +8,9 @@ corruption of ``tests/test_analysis_verify.py`` (genome bits, embedded IR,
 costs, group counts, an unschedulable forged genome, store objects edited
 under their key or torn).  Then that file's artifact-mode tests on the port
 (the verifier still imports neither ``core.fusion`` nor
-``costmodel.evaluator``), the part the port refuses (the ``tpu`` cost
-model; a spacemap summary verifies now), and ``tests/test_report.py``'s schedule report,
-whose text must equal the reference's.
+``costmodel.evaluator``), artifacts of the ``tpu`` cost model and
+spacemap summaries (both once refused), and ``tests/test_report.py``'s
+schedule report, whose text must equal the reference's.
 """
 import dataclasses
 import json
@@ -30,8 +30,8 @@ from repro_torch.analysis.bounds import (graph_bound, group_bound,
 from repro_torch.analysis.verify import _GraphView
 from repro_torch.core.fusion import FusionState
 from repro_torch.core.graph import Layer, LayerGraph
-from repro_torch.search import (RegistryError, ScheduleArtifact,
-                                SearchSession, build_accelerator, search)
+from repro_torch.search import (ScheduleArtifact, SearchSession,
+                                build_accelerator, search)
 from repro_torch.search.artifact import graph_fingerprint
 from repro_torch.serve import ArtifactStore
 
@@ -340,18 +340,30 @@ def test_bounds_equal_the_references():
 # ---- what the port refuses --------------------------------------------------------
 
 def test_tpu_costmodel_is_refused_not_verified():
-    with pytest.raises(RegistryError, match="tpu cost model is not ported"):
-        onchip_words_for("tpu", "simba")
+    """Once refused naming ROADMAP A2; now the ``tpu`` capacity is the
+    reference's (the VMEM activation budget), a tpu search verifies with
+    the reference's verdict and certificate, and a default-costed artifact
+    relabelled ``tpu`` gets the reference's verdict (checked against the
+    VMEM budget, not refused)."""
+    from repro.analysis.bounds import onchip_words_for as ref_onchip
+    assert onchip_words_for("tpu", "simba") == ref_onchip("tpu", "simba") \
+        > onchip_words_for("default", "simba")
+    tpu = SearchSession.from_objects(
+        residual(PORT, "res_tpu"), build_accelerator("simba"), backend="ga",
+        costmodel="tpu", backend_config={"preset": "fast", "generations": 6},
+        device="cpu").run()
+    v = both_verify(tpu)
+    assert v["ok"], v
     art = dataclasses.replace(clean(), spec=clean().spec.replace(
         costmodel="tpu"))
-    with pytest.raises(RegistryError, match="tpu cost model is not ported"):
-        verify_artifact(art)
+    v = both_verify(art)
+    assert v["certificate"]["onchip_words"] == ref_onchip("tpu", "simba")
 
 
 def test_spacemap_artifact_is_refused_not_verified():
     """The reference's spacemap artifact verifies now (its check re-derives
-    the map: tests/test_torch_spacemap.py); one of the ``tpu`` cost model
-    is refused, naming the part not ported."""
+    the map: tests/test_torch_spacemap.py); relabelled to the ``tpu`` cost
+    model (once refused) it gets the reference's verdict."""
     ref = rs.search("unet", "simba", backend="exhaustive", spacemap=True,
                     workload_kwargs={"depth": 1})
     art = ScheduleArtifact.from_json(ref.to_json())
@@ -359,8 +371,7 @@ def test_spacemap_artifact_is_refused_not_verified():
     report = verify_artifact(art)
     assert report.ok and report.check("spacemap").ok
     art = dataclasses.replace(art, spec=art.spec.replace(costmodel="tpu"))
-    with pytest.raises(RegistryError, match="tpu cost model is not ported"):
-        verify_artifact(art)
+    both_verify(art)
 
 
 # ---- the schedule report (tests/test_report.py) -----------------------------------
