@@ -33,7 +33,12 @@ non-zero (no phase's failure is caught):
    decode kernel at G 1 and every head_dim, key positions, window, chunk,
    up to 8 queries, B 1 with many splits, one split without the merge
    kernel, and G * Sq at R_MAX and R_MAX + 1), and at phi-3-vision's and
-   qwen2-7b's decode both are timed; the GA's group-label kernel (bit-equal to its plain version on
+   qwen2-7b's decode both are timed; flash attention at the LayerNorm
+   models' serve shapes, timed: stablelm-1.6b (MHA, D 64), starcoder2-3b
+   (its decode on the split kernel at G 12) and whisper-small (the
+   encoder's 1500 frames and the cross attention of 416 queries over them,
+   both without a mask, and both decodes on the warp kernel), with small
+   unmasked calls whose queries and keys differ in number; the GA's group-label kernel (bit-equal to its plain version on
    mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
    random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
    all-one row, on a graph too long for shared memory at 4096, and at the
@@ -44,9 +49,13 @@ non-zero (no phase's failure is caught):
    where the case is timed, timed beside the others (and the group labels
    beside a bare launch);
 4. serve: chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b,
-   phi-3-vision-4.2b and qwen2-7b (GQA 28:4, QKV biases: its decode on the
-   warp decode kernel at 7 query heads a kv head), each at its published
-   widths and full depth in bf16,
+   phi-3-vision-4.2b, qwen2-7b (GQA 28:4, QKV biases: its decode on the
+   warp decode kernel at 7 query heads a kv head), and the LayerNorm
+   models, which launch no RMSNorm: stablelm-1.6b, starcoder2-3b and
+   whisper-small (1500 frame embeddings drawn from the same generator
+   through a 12-layer encoder, once, in the prefill; 416 + 32 decoder
+   positions; two flash calls a decoder layer and position, self and
+   cross), each at its published widths and full depth in bf16,
    random weights from a seeded CUDA generator, 8 prompts and 32 greedy
    tokens through ``repro_torch.launch.serve.generate`` (recurrentgemma's
    prompt of 4096 tokens is twice its attention window, so the window cuts
@@ -58,7 +67,8 @@ non-zero (no phase's failure is caught):
    (``torch.profiler``: device time by block, by kernel, and inside the
    RG-LRU blocks by op);
 5. the same check in fp32 at full width with 2 or 3 layers (phi-3-vision
-   with its 1024 image tokens; launch counts exact, every prefill attention
+   with its 1024 image tokens, whisper-small with 2 encoder and 2 decoder
+   layers over its 1500 frames; launch counts exact, every prefill attention
    on the SIMT kernel), and each reduced config's CUDA logits
    (forward and generate) against its plain CPU path (which the CPU tests
    hold against the JAX reference);
@@ -211,7 +221,12 @@ SERVES = (("chatglm3-6b", 8, 1024, 32),
           ("recurrentgemma-2b", 8, 4096, 32),
           ("falcon-mamba-7b", 8, 1024, 32),
           ("phi-3-vision-4.2b", 8, 1024, 32),
-          ("qwen2-7b", 8, 1024, 32))
+          ("qwen2-7b", 8, 1024, 32),
+          ("stablelm-1.6b", 8, 1024, 32),
+          ("starcoder2-3b", 8, 1024, 32),
+          # 416 + 32 = 448 decoder positions, whisper's published context,
+          # after the encoder's 1500 frames
+          ("whisper-small", 8, 416, 32))
 # decode logits vs one full forward, relative RMS error over all logits.
 # bf16: both sides round every product to 8 mantissa bits (2^-9 = 2e-3
 # relative per rounding) but at different places (cuBLAS picks other kernels
@@ -483,7 +498,8 @@ def ran_variant(fn, before: dict) -> str:
 def kernels_rmsnorm(timer: Timer, rn) -> dict:
     """Both forms, both dtypes; serve shapes (the prefill rows, batch x
     (image + text positions), and the decode rows, batch, of each SERVES
-    model at its d_model: 4096, 2560 and 3072) + a ragged one.  Each case
+    model with RMSNorm at its d_model: 4096, 2560, 3072 and 3584) + a
+    ragged one.  Each case
     runs the variant ``plan`` picks (``vector`` at the serve shapes); every
     variant that takes it is forced and checked.  Timed in bf16 at the serve
     shapes, every variant (``ms``: the plan's), beside a device copy of the
@@ -491,6 +507,8 @@ def kernels_rmsnorm(timer: Timer, rn) -> dict:
     shapes = []
     for arch, batch, prompt, _ in SERVES:
         cfg = get_config(arch)
+        if cfg.norm != "rmsnorm":          # LayerNorm: eager, no kernel
+            continue
         for n in (batch * (cfg.img_tokens + prompt), batch):
             if (n, cfg.d_model, True) not in shapes:
                 shapes.append((n, cfg.d_model, True))
@@ -574,7 +592,17 @@ def flash_cases() -> list:
     cases for the warp kernel: G 1 at each head_dim, a wrapped
     rolling buffer with key positions, window, chunk, 2 and 8 queries, B 1
     with a long cache (many splits), a grid large enough for one split,
-    and G 8 and 9 (R_MAX and R_MAX + 1 rows a kv head)."""
+    and G 8 and 9 (R_MAX and R_MAX + 1 rows a kv head).  Then the
+    LayerNorm models' serve shapes: stablelm-1.6b's prefill (MHA 32:32, D
+    64) and decode (the warp kernel at G 1, one split), starcoder2-3b's
+    (GQA 24:2, D 128; its decode on the split kernel at G 12), and
+    whisper-small's: the encoder's 1500 frames without a mask (ragged:
+    1500 = 23 x 64 + 28), the decoder's causal self-attention over 416
+    tokens, its cross attention of 416 queries over the 1500 encoder
+    states without a mask, and both at decode (the warp kernel over 417-447
+    and over 1500 keys); phase 5's fp32 cross prefill (128 queries over
+    1500 keys), and small ragged calls without a mask where queries and
+    keys differ in number, on the tensor-core prefill."""
     cfg = get_config("chatglm3-6b")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     _, B, P, N = SERVES[0]
@@ -593,6 +621,14 @@ def flash_cases() -> list:
     qw = get_config(arch_q)
     heads_q = (qw.n_heads, qw.n_kv_heads, qw.resolved_head_dim)
     last_q = P_q + N_q - 2                    # the last decode step's query
+    lm = {}
+    for arch, B_m, P_m, N_m in SERVES[5:]:
+        c = get_config(arch)
+        lm[arch] = (B_m, P_m, N_m, c.enc_seq,
+                    (c.n_heads, c.n_kv_heads, c.resolved_head_dim))
+    B_s, P_s, N_s, _, heads_s = lm["stablelm-1.6b"]
+    B_c, P_c, N_c, _, heads_c = lm["starcoder2-3b"]
+    B_w, P_w, N_w, T_w, heads_w = lm["whisper-small"]
     return [
         ("prefill", (B, P, P, hq, hkv, hd), {}),
         ("decode", (B, 1, P + N, hq, hkv, hd),
@@ -699,6 +735,28 @@ def flash_cases() -> list:
          dict(q_offset=150, kv_len=151)),
         ("warp_d128_g8", (2, 1, 500, 16, 2, 128), dict(q_offset=499)),
         ("warp_d128_g9", (2, 1, 500, 18, 2, 128), dict(q_offset=499)),
+        ("prefill_stablelm", (B_s, P_s, P_s) + heads_s, {}),
+        ("decode_stablelm", (B_s, 1, P_s + N_s) + heads_s,
+         dict(q_offset=P_s + 16, kv_len=P_s + 17)),
+        ("prefill_starcoder2", (B_c, P_c, P_c) + heads_c, {}),
+        ("decode_starcoder2", (B_c, 1, P_c + N_c) + heads_c,
+         dict(q_offset=P_c + 16, kv_len=P_c + 17)),
+        ("prefill_whisper_encoder", (B_w, T_w, T_w) + heads_w,
+         dict(causal=False)),
+        ("prefill_whisper_self", (B_w, P_w, P_w) + heads_w, {}),
+        ("prefill_whisper_cross", (B_w, P_w, T_w) + heads_w,
+         dict(causal=False)),
+        ("decode_whisper_self", (B_w, 1, P_w + N_w) + heads_w,
+         dict(q_offset=P_w + 16, kv_len=P_w + 17)),
+        ("decode_whisper_cross", (B_w, 1, T_w) + heads_w,
+         dict(causal=False)),
+        ("prefill_whisper_cross_s128", (B_w, FP32_PROMPT, T_w) + heads_w,
+         dict(causal=False)),
+        ("tc_d64_cross_ragged", (2, 100, 333, 4, 4, 64), dict(causal=False)),
+        ("tc_d64_cross_few_keys", (1, 300, 70, 2, 2, 64),
+         dict(causal=False)),
+        ("tc_d128_cross_kv_len", (2, 130, 400, 4, 2, 128),
+         dict(causal=False, kv_len=333)),
     ]
 
 
@@ -711,11 +769,22 @@ FLASH_TIMED = {torch.bfloat16: {"prefill": "tc_prefill",
                                 "prefill_d96": "tc_prefill",
                                 "decode_d96": "warp_decode",
                                 "prefill_qwen": "tc_prefill",
-                                "decode_qwen": "warp_decode"},
+                                "decode_qwen": "warp_decode",
+                                "prefill_stablelm": "tc_prefill",
+                                "decode_stablelm": "warp_decode",
+                                "prefill_starcoder2": "tc_prefill",
+                                "decode_starcoder2": "split_decode",
+                                "prefill_whisper_encoder": "tc_prefill",
+                                "prefill_whisper_self": "tc_prefill",
+                                "prefill_whisper_cross": "tc_prefill",
+                                "decode_whisper_self": "warp_decode",
+                                "decode_whisper_cross": "warp_decode"},
                torch.float32: {"prefill_s128": "simt",
                                "prefill_d256_s128_window": "simt",
                                "prefill_d96_s1152": "simt",
-                               "prefill_qwen_s128": "simt"}}
+                               "prefill_qwen_s128": "simt",
+                               "prefill_whisper_encoder": "simt",
+                               "prefill_whisper_cross_s128": "simt"}}
 
 
 def flash_check(name: str, out, ref, dt) -> tuple:
@@ -790,7 +859,8 @@ def kernels_flash(timer: Timer, rn) -> list:
                                          f"tolerance")
                 case["newest_key_dropped_row_scaled_err"] = miss
             if serve:
-                lib = sdpa_call(q, k, v, True, kw.get("window", 0),
+                lib = sdpa_call(q, k, v, kw.get("causal", True),
+                                kw.get("window", 0),
                                 kw.get("q_offset", 0), kw.get("kv_len"),
                                 kw.get("k_pos"))
                 case.update(
@@ -1169,43 +1239,57 @@ def read_counts() -> dict:
     return {k: counts[k] for k in KERNELS}
 
 
+def flash_calls(cfg, new: int) -> tuple:
+    """(prefill, decode) flash calls of ``generate``: a position runs each
+    attention layer once, an ``is_encdec`` decoder layer twice (self and
+    cross attention); whisper's encoder layers run once, in the prefill."""
+    attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    if cfg.is_encdec:
+        return cfg.n_enc_layers + 2 * attn, 2 * attn * (new - 1)
+    return attn, attn * (new - 1)
+
+
 def expected_launches(cfg, new: int) -> dict:
     """What ``generate`` launches: one prefill and new - 1 decode steps run
     every norm (two a layer outside the ssm family, one inside, plus the
-    final one), every attention layer and every RG-LRU layer (the gated
-    kernel, prefill and decode step alike); the Mamba scan runs in the
-    prefill only (its decode step is plain torch ops); neither the residual
-    form nor the RG-LRU interface entry is on the path."""
+    final one) on RMSNorm's kernel, unless the config's norm is LayerNorm
+    (eager, no kernel), every attention call (``flash_calls``) and every
+    RG-LRU layer (the gated kernel, prefill and decode step alike); the
+    Mamba scan runs in the prefill only (its decode step is plain torch
+    ops); neither the residual form nor the RG-LRU interface entry is on
+    the path."""
     kinds = cfg.layer_kinds()
     norms = len(kinds) * (1 if cfg.family == "ssm" else 2) + 1
+    if cfg.norm != "rmsnorm":
+        norms = 0
     return {"rmsnorm": norms * new, "rmsnorm_residual": 0,
-            "flash_attention": sum(k.startswith("attn") for k in kinds) * new,
+            "flash_attention": sum(flash_calls(cfg, new)),
             "rglru_scan": 0, "rglru_gated": kinds.count("rglru") * new,
             "mamba_scan": kinds.count("mamba"), "ga_labels": 0}
 
 
 def expected_flash_impls(cfg, new: int) -> dict:
-    """Which flash kernel ``generate`` runs: every attention layer's prefill
-    on the tensor cores in bf16, on the SIMT kernel in fp32; its new - 1
-    decode steps (one query a sequence) on the decode kernel the plan
-    picks for the config's heads: ``warp_decode`` at up to R_MAX query
-    heads per kv head, else ``split_decode``."""
-    attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    """Which flash kernel ``generate`` runs: every prefill call on the
+    tensor cores in bf16, on the SIMT kernel in fp32; the new - 1 decode
+    steps' calls (one query a sequence; cross attention's too) on the
+    decode kernel the plan picks for the config's heads: ``warp_decode``
+    at up to R_MAX query heads per kv head, else ``split_decode``."""
+    prefill, decode = flash_calls(cfg, new)
     bf16 = cfg.param_dtype == "bfloat16"
     impls = dict.fromkeys(flash_attention.impl_launches, 0)
-    if attn:
-        decode = flash_plan(1, 1, cfg.n_heads, cfg.n_kv_heads,
-                            cfg.resolved_head_dim,
-                            torch.bfloat16 if bf16 else torch.float32, 1)
-        impls[decode.impl] = attn * (new - 1)
-        impls["tc_prefill" if bf16 else "simt"] = attn
+    if prefill:
+        how = flash_plan(1, 1, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.resolved_head_dim,
+                         torch.bfloat16 if bf16 else torch.float32, 1)
+        impls[how.impl] = decode
+        impls["tc_prefill" if bf16 else "simt"] = prefill
     return impls
 
 
 def check_launches(cfg, new: int, res: dict) -> None:
     """A serve run's launch counts must be exactly as expected, and so must
-    the flash kernel each attention call went to; every norm runs
-    RMSNorm's ``vector`` variant."""
+    the flash kernel each attention call went to; every RMSNorm runs its
+    ``vector`` variant (a LayerNorm model runs none)."""
     expect = expected_launches(cfg, new)
     if res["launches"] != expect:
         raise AssertionError(f"{cfg.name}: launches {res['launches']} != "
@@ -1367,16 +1451,19 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
     model = Transformer(cfg, DEV, generator=g)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
                             device=DEV)
-    img = None
+    img = frames = None
     if cfg.img_tokens:            # as serve.main draws them
         img = torch.randn(batch, cfg.img_tokens, cfg.d_model, generator=g,
                           device=DEV).to(model.dtype)
+    if cfg.is_encdec:             # likewise
+        frames = torch.randn(batch, cfg.enc_seq, cfg.d_model, generator=g,
+                             device=DEV).to(model.dtype)
     if warm:                      # cuBLAS handles, allocator: not timed
         generate(model, prompts[:, :16], 2,
-                 None if img is None else img[:, :16])
+                 None if img is None else img[:, :16], frames)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = generate(model, prompts, new, img)
+    out = generate(model, prompts, new, img, frames)
     launches = read_counts()
     flash_impls = dict(flash_attention.impl_launches)
     norm_variants = dict(fused_rmsnorm.variant_launches)
@@ -1386,12 +1473,12 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
         raise AssertionError(f"{label}: bad generate output")
     full = torch.cat([prompts, out.tokens[:, :-1]], 1)
-    ref = model(full, last=new, img_embeds=img)
+    ref = model(full, last=new, img_embeds=img, frames=frames)
     err = rel_rms(out.logits, ref)
     agree = (out.logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
     bf16 = cfg.param_dtype == "bfloat16"
     if bf16:                      # the same weights in fp32 arithmetic
-        ref32 = model.float()(full, last=new, img_embeds=img)
+        ref32 = model.float()(full, last=new, img_embeds=img, frames=frames)
         floor = rel_rms(ref, ref32)
         check = {"decode_rel_rms_vs_fp32_forward": rel_rms(out.logits, ref32),
                  "bf16_forward_rel_rms_vs_fp32_forward": floor,
@@ -1404,6 +1491,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
     check["check_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": batch, "prompt": prompt, "img_tokens": cfg.img_tokens,
+           "enc_frames": 0 if frames is None else frames.shape[1],
            "tokens": new,
            "prefill_ms": out.prefill_s * 1e3,
            "decode_ms_per_step": out.decode_s * 1e3 / max(new - 1, 1),
@@ -1420,7 +1508,7 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
     if not checked <= check["limit"]:
         raise AssertionError(f"{label}: decode logits relative RMS error "
                              f"{checked:.3e} > {check['limit']:.3e}")
-    del model, out, ref, full, prompts, img
+    del model, out, ref, full, prompts, img, frames
     torch.cuda.empty_cache()
     return res
 
@@ -1444,9 +1532,12 @@ def phase_fp32() -> dict:
     runs = {}
     for arch, layers in (("chatglm3-6b", 2), ("recurrentgemma-2b", 3),
                          ("falcon-mamba-7b", 2), ("phi-3-vision-4.2b", 2),
-                         ("qwen2-7b", 2)):
+                         ("qwen2-7b", 2), ("stablelm-1.6b", 2),
+                         ("starcoder2-3b", 2), ("whisper-small", 2)):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   param_dtype="float32")
+        if cfg.is_encdec:         # as many encoder layers
+            cfg = dataclasses.replace(cfg, n_enc_layers=layers)
         label = f"fp32 {layers}-layer {arch}"
         res = serve_check(cfg, 8, FP32_PROMPT, 8, label)
         check_launches(cfg, 8, res)
@@ -1462,11 +1553,15 @@ def phase_fp32() -> dict:
         toks = torch.randint(0, small.vocab, (2, 37), generator=g)
         img = (torch.randn(2, small.img_tokens, small.d_model, generator=g)
                if small.img_tokens else None)
+        frames = (torch.randn(2, small.enc_seq, small.d_model, generator=g)
+                  if small.is_encdec else None)
         img_dev = None if img is None else img.to(DEV)
-        err = close(gpu(toks.to(DEV), img_embeds=img_dev).cpu(),
-                    cpu(toks, img_embeds=img), 1e-4)
-        gen_gpu = generate(gpu, toks[:, :21].to(DEV), 6, img_dev)
-        gen_cpu = generate(cpu, toks[:, :21], 6, img)
+        frames_dev = None if frames is None else frames.to(DEV)
+        err = close(gpu(toks.to(DEV), img_embeds=img_dev,
+                        frames=frames_dev).cpu(),
+                    cpu(toks, img_embeds=img, frames=frames), 1e-4)
+        gen_gpu = generate(gpu, toks[:, :21].to(DEV), 6, img_dev, frames_dev)
+        gen_cpu = generate(cpu, toks[:, :21], 6, img, frames)
         err_gen = close(gen_gpu.logits.cpu(), gen_cpu.logits, 1e-4)
         log(f"[serve] reduced {small.name} cuda vs cpu plain path: max abs "
             f"err forward {err:.3e}, generate {err_gen:.3e} (tol 1e-4 abs + "

@@ -33,7 +33,8 @@ ARCH_IDS = list(_MODULES)
 
 #: the configs whose model path the port runs (``launch/serve.py``)
 SERVED_ARCHS = ["chatglm3-6b", "recurrentgemma-2b", "falcon-mamba-7b",
-                "phi-3-vision-4.2b", "qwen2-7b"]
+                "phi-3-vision-4.2b", "qwen2-7b", "stablelm-1.6b",
+                "starcoder2-3b", "whisper-small"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -9,7 +9,10 @@ layer ``offset + r * len(pattern) + p``, where ``offset`` counts the layers
 of the segments before it.  The port has one module per layer, so each
 stacked leaf is unstacked into ``layers.<i>.<leaf path>``.  With tied
 embeddings there is no ``unembed``; an ``img_tokens`` config carries
-``img_proj`` across as it is.  Leaves arrive as numpy arrays (the
+``img_proj`` across as it is.  An ``is_encdec`` config also carries
+``dec_pos_embed`` and the encoder: ``enc/pos_embed``, ``enc/final_norm``
+and its layers, stacked as one segment of ``n_enc_layers`` bidirectional
+layers (``enc/segments/seg0/pos0``), into ``enc.layers.<i>``.  Leaves arrive as numpy arrays (the
 tests convert the JAX pytree with ``np.asarray``), so this module needs no
 JAX.
 """
@@ -64,17 +67,32 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Ten
     """State dict for ``Transformer(cfg)`` from the reference's params (a
     nested dict of numpy arrays)."""
     check_ported(cfg)
-    segs = np_params["segments"]
-    layout = segments(cfg)
-    if sorted(segs) != [f"seg{si}" for si in range(len(layout))]:
-        raise ValueError(f"segments {sorted(segs)} do not match the config's "
-                         f"{len(layout)}")
-    state = {"embed": _tensor(np_params["embed"]),
-             "final_norm.scale": _tensor(np_params["final_norm"]["scale"])}
+    state = {"embed": _tensor(np_params["embed"])}
+    for path, leaf in _flatten(np_params["final_norm"], "final_norm.").items():
+        state[path] = _tensor(leaf)
     if not cfg.tie_embeddings:
         state["unembed"] = _tensor(np_params["unembed"])
     if cfg.img_tokens:
         state["img_proj"] = _tensor(np_params["img_proj"])
+    _unstack(state, "layers.", np_params["segments"], segments(cfg))
+    if cfg.is_encdec:
+        enc = np_params["enc"]
+        state["dec_pos_embed"] = _tensor(np_params["dec_pos_embed"])
+        state["enc.pos_embed"] = _tensor(enc["pos_embed"])
+        for path, leaf in _flatten(enc["final_norm"],
+                                   "enc.final_norm.").items():
+            state[path] = _tensor(leaf)
+        _unstack(state, "enc.layers.", enc["segments"],
+                 [(("attn_bidir",), cfg.n_enc_layers)])
+    return state
+
+
+def _unstack(state: Dict[str, torch.Tensor], prefix: str, segs: Mapping,
+             layout: List[Tuple[Tuple[str, ...], int]]) -> None:
+    """Each stacked leaf of ``segs`` into ``<prefix><i>.<leaf path>``."""
+    if sorted(segs) != [f"seg{si}" for si in range(len(layout))]:
+        raise ValueError(f"segments {sorted(segs)} do not match the config's "
+                         f"{len(layout)}")
     offset = 0
     for si, (pattern, reps) in enumerate(layout):
         seg = segs[f"seg{si}"]
@@ -90,6 +108,5 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Ten
                         f"stacked, the config has {reps}")
                 for r in range(reps):
                     i = offset + r * len(pattern) + pi
-                    state[f"layers.{i}.{path}"] = _tensor(stacked[r])
+                    state[f"{prefix}{i}.{path}"] = _tensor(stacked[r])
         offset += reps * len(pattern)
-    return state

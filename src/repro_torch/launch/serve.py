@@ -5,13 +5,16 @@ the caches (counterpart: ``examples/serve_decode.py``).
         [--layers N] [--batch 8] [--prompt-len 1024] [--tokens 32]
 
 with ARCH one of ``SERVED_ARCHS`` (chatglm3-6b, recurrentgemma-2b,
-falcon-mamba-7b, phi-3-vision-4.2b, qwen2-7b); it runs the configuration at its published widths with
+falcon-mamba-7b, phi-3-vision-4.2b, qwen2-7b, stablelm-1.6b, starcoder2-3b,
+whisper-small); it runs the configuration at its published widths with
 random weights from ``--seed`` on the CUDA card and prints one JSON line of
 timings, taken after a short untimed warm-up (which also builds the
 kernels).  For phi-3-vision-4.2b each prompt of ``--prompt-len`` text tokens
 comes after the config's 1024 image-patch embeddings, drawn standard normal
 from the same seeded generator (the vision frontend is a stub, as in the
-reference).
+reference).  For whisper-small the encoder takes the config's 1500 frame
+embeddings, drawn the same way (the conv frontend is a stub), and the
+prompts are decoder tokens (448 positions is the published context).
 ``--reduced --device cpu`` runs the test-size configuration on the CPU.
 """
 from __future__ import annotations
@@ -45,11 +48,13 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Transformer, prompts: torch.Tensor, max_new: int,
-             img_embeds: Optional[torch.Tensor] = None) -> Generation:
+             img_embeds: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None) -> Generation:
     """Greedy continuation of ``prompts`` (B, S), after the image embeddings
     (B, N, d) of an ``img_tokens`` model: one prefill over the N + S
     positions, then ``max_new - 1`` decode steps from position N + S, each
-    on the previous step's argmax."""
+    on the previous step's argmax.  An ``is_encdec`` model takes the frames
+    (B, T, d) it encodes in the prefill; positions count the tokens only."""
     if max_new < 1:
         raise ValueError("max_new must be at least 1")
     # positions the prefill fills, image ones first
@@ -60,6 +65,8 @@ def generate(model: Transformer, prompts: torch.Tensor, max_new: int,
     batch = {"tokens": prompts}
     if img_embeds is not None:
         batch["img_embeds"] = img_embeds
+    if frames is not None:
+        batch["frames"] = frames
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(batch)
@@ -100,21 +107,27 @@ def main(argv=None) -> dict:
     g = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=g, device=device)
-    img = None
+    img = frames = None
     if cfg.img_tokens:     # as the reference's train.py draws them
         img = torch.randn(args.batch, cfg.img_tokens, cfg.d_model,
                           generator=g, device=device).to(model.dtype)
+    if cfg.is_encdec:      # likewise
+        frames = torch.randn(args.batch, cfg.enc_seq, cfg.d_model,
+                             generator=g, device=device).to(model.dtype)
     # not timed: the kernels' first-use build, cuBLAS handles, the allocator
-    generate(model, prompts[:, :16], 2, None if img is None else img[:, :16])
+    generate(model, prompts[:, :16], 2, None if img is None else img[:, :16],
+             frames)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    out = generate(model, prompts, args.tokens, img)
+    out = generate(model, prompts, args.tokens, img, frames)
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "batch": args.batch, "prompt_len": args.prompt_len,
-        "img_tokens": cfg.img_tokens, "tokens": args.tokens,
+        "img_tokens": cfg.img_tokens,
+        "enc_frames": cfg.enc_seq if cfg.is_encdec else 0,
+        "tokens": args.tokens,
         "prefill_ms": out.prefill_s * 1e3,
         "decode_tok_per_s": args.batch * (args.tokens - 1) / out.decode_s
         if args.tokens > 1 else None,

@@ -1,9 +1,11 @@
-"""Shared model building blocks: dtypes, params, RMSNorm, RoPE, init,
-activations.
+"""Shared model building blocks: dtypes, params, RMSNorm, LayerNorm, RoPE,
+init, activations.
 
 Counterpart: ``repro/models/common.py``.  Mesh and sharding helpers are not
 ported (one card).  ``rmsnorm`` goes through the fused kernel's wrapper, so a
 CUDA tensor runs ``csrc/rmsnorm.cu`` and a CPU tensor its plain version.
+``layernorm`` is eager PyTorch on both: the reference computes it outside
+any Pallas kernel, as it does the projections.
 """
 from __future__ import annotations
 
@@ -30,6 +32,15 @@ def param(t: torch.Tensor) -> torch.nn.Parameter:
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * w`` in fp32, cast to x's dtype."""
     return fused_rmsnorm(x, w, eps=eps)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5):
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` over the last axis,
+    in fp32 (scale and bias too), cast to x's dtype."""
+    y = F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
+                     eps)
+    return y.to(x.dtype)
 
 
 # ---- initializers (the reference's scheme, drawn from a torch.Generator) ----

@@ -1,24 +1,31 @@
 """Decoder LM: forward, decode caches, prefill and greedy-decode steps.
 
 Counterpart: ``repro/models/transformer.py`` (``_attn_apply``,
-``_mlp_apply``, ``_layer_apply``, ``_unembed``, ``forward``, ``init_cache``,
-``prefill``, ``decode_step``).  The reference stacks the layers of each
-segment on a leading axis and scans them; here every layer is its own module
-and a Python loop runs them (``repro_torch.convert`` unstacks reference
-params).  Layer kinds: full causal attention (``attn``), sliding-window
-attention with a rolling cache (``attn_local``), the RG-LRU block
-(``rglru``) and the Mamba-1 block (``mamba``); an ``ssm``-family layer has
-no MLP.  A ``vlm`` config (``img_tokens``) takes precomputed image-patch
+``_mlp_apply``, ``_layer_apply``, ``encode``, ``_unembed``, ``forward``,
+``init_cache``, ``prefill``, ``decode_step``).  The reference stacks the
+layers of each segment on a leading axis and scans them; here every layer
+is its own module and a Python loop runs them (``repro_torch.convert``
+unstacks reference params).  Layer kinds: full causal attention
+(``attn``), sliding-window attention with a rolling cache
+(``attn_local``), the RG-LRU block (``rglru``) and the Mamba-1 block
+(``mamba``); an ``ssm``-family layer has no MLP.  A ``vlm`` config (``img_tokens``) takes precomputed image-patch
 embeddings (B, N, d), projected by ``img_proj`` and put before the token
 embeddings: positions and the causal mask run over the N image tokens, then
 the text, and decoding goes on at position N + S (the vision frontend is a
-stub, as in the reference).
+stub, as in the reference).  An ``is_encdec`` config (whisper) takes
+precomputed frame embeddings (B, T, d) instead (the conv frontend is a stub
+too): an encoder of ``n_enc_layers`` bidirectional layers over them with
+learned positions, then decoder layers with causal self-attention and cross
+attention to the encoder's output, learned positions ``dec_pos_embed`` on
+the tokens and no RoPE anywhere.  The cross K/V are projected once, in the
+prefill, and kept in the cache (the reference re-projects them from the
+encoder output in every decode step: the same products).
 
 Numerics follow the reference: the residual stream, projections and MLP run
 in the param dtype; RMSNorm is fp32 inside and rounds to the dtype (through
 the fused kernel, plain form: ``x + mix`` is rounded before it is
-normalised, as the reference does); RoPE angles are fp32; recurrent states
-are fp32; the logits are ``x @ unembed`` (or ``x @ embed.T`` when tied) in
+normalised, as the reference does); LayerNorm is fp32 inside, eps 1e-5;
+RoPE angles are fp32; recurrent states are fp32; the logits are ``x @ unembed`` (or ``x @ embed.T`` when tied) in
 the dtype, then cast to fp32.  Attention keeps its probabilities in fp32
 (the flash kernel's numerics), where the reference's dense path rounds them
 to the dtype before P.V; the two agree tightly in fp32 only.
@@ -27,7 +34,7 @@ Other model features raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -38,13 +45,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.common import (act_fn, apply_rope, dense_init,
-                                       dtype_of, embed_init, param, rmsnorm)
+                                       dtype_of, embed_init, layernorm, param,
+                                       rmsnorm)
 from repro_torch.models.mamba import Mamba
 from repro_torch.models.rglru import RGLRU
 
 _LATER = "a later slice of the port (ROADMAP.md, queue A)"
 PORTED_KINDS = ("attn", "attn_local", "rglru", "mamba")
-PORTED_MLPS = ("swiglu", "geglu")
+PORTED_MLPS = ("swiglu", "geglu", "gelu")
+#: rows of the decoder's learned positions (the reference's table)
+DEC_POSITIONS = 32_768
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -56,8 +66,6 @@ def check_ported(cfg: ModelConfig) -> None:
     unported = (
         ("n_experts (MoE)", cfg.n_experts, "the MoE slice"),
         (f"mlp={cfg.mlp!r}", cfg.mlp not in PORTED_MLPS, _LATER),
-        (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm", _LATER),
-        ("is_encdec", cfg.is_encdec, _LATER),
         ("attn_logit_softcap", cfg.attn_logit_softcap, _LATER),
     )
     for what, present, where in unported:
@@ -81,6 +89,9 @@ class Cache:
       position in each slot (-1: unwritten).
     - RG-LRU: ``h`` (B, W) fp32 and ``conv`` (B, K-1, W).
     - Mamba: ``ssm`` (B, Di, N) fp32 and ``conv`` (B, K-1, Di).
+    - an ``is_encdec`` decoder layer also holds ``cross_k``, ``cross_v``
+      (B, T, Hkv, D) in the dtype: its cross-attention K/V, projected from
+      the T encoder states by the prefill.
     """
     layers: List[LayerCache]
     length: int = 0
@@ -95,13 +106,36 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = param(torch.ones(d, dtype=dtype, device=device))
+        self.bias = param(torch.zeros(d, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x)
+
+
+def make_norm(cfg: ModelConfig, dtype, device) -> nn.Module:
+    return (RMSNorm if cfg.norm == "rmsnorm" else LayerNorm)(
+        cfg.d_model, dtype, device)
+
+
 class Attention(nn.Module):
+    """Self-attention of a layer kind: ``attn`` (causal), ``attn_local``
+    (causal, sliding window) or ``attn_bidir`` (the encoder's, no mask); or
+    an ``attn_cross`` layer's cross attention (``kv_from``, ``attend``).
+    RoPE rotates Q and K of causal self-attention outside an ``is_encdec``
+    model only."""
+
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
                  generator):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         self.cfg = cfg
         self.window = cfg.attn_window if kind == "attn_local" else 0
+        self.causal = kind not in ("attn_bidir", "attn_cross")
+        self.rope = self.causal and not cfg.is_encdec
         self.wq = param(dense_init(d, cfg.n_heads * hd, dtype, device, generator))
         self.wk = param(dense_init(d, cfg.n_kv_heads * hd, dtype, device, generator))
         self.wv = param(dense_init(d, cfg.n_kv_heads * hd, dtype, device, generator))
@@ -129,14 +163,15 @@ class Attention(nn.Module):
         k = self._proj(x, self.wk, "bk").view(B, S, hkv, hd)
         v = self._proj(x, self.wv, "bv").view(B, S, hkv, hd)
         positions = torch.arange(pos, pos + S, device=x.device)
-        q = apply_rope(q, positions, fraction=cfg.rope_fraction,
-                       theta=cfg.rope_theta)
-        k = apply_rope(k, positions, fraction=cfg.rope_fraction,
-                       theta=cfg.rope_theta)
+        if self.rope:
+            q = apply_rope(q, positions, fraction=cfg.rope_fraction,
+                           theta=cfg.rope_theta)
+            k = apply_rope(k, positions, fraction=cfg.rope_fraction,
+                           theta=cfg.rope_theta)
         if cache is None or S > 1:
             if pos:
                 raise ValueError("a multi-token call starts at position 0")
-            out = attention(q, k, v, window=self.window)
+            out = attention(q, k, v, causal=self.causal, window=self.window)
         if cache is not None:
             ck, cv, kpos = cache["k"], cache["v"], cache.get("kpos")
             L = ck.shape[1]
@@ -160,30 +195,51 @@ class Attention(nn.Module):
                                 window=self.window)
         return out.reshape(B, S, hq * hd) @ self.wo
 
+    def kv_from(self, src: torch.Tensor):
+        """Cross attention's K and V (B, T, Hkv, D) from the encoder states
+        src (B, T, d), without ``bk``/``bv`` (the reference's ``kv_src``)."""
+        B, T, _ = src.shape
+        shape = (B, T, self.cfg.n_kv_heads, self.cfg.resolved_head_dim)
+        return (src @ self.wk).view(shape), (src @ self.wv).view(shape)
+
+    def attend(self, x, k, v):
+        """Cross attention of x (B, S, d) over every key of ``kv_from``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = self._proj(x, self.wq, "bq").view(B, S, cfg.n_heads,
+                                              cfg.resolved_head_dim)
+        out = attention(q, k, v, causal=False)
+        return out.reshape(B, S, -1) @ self.wo
+
 
 class MLP(nn.Module):
-    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU (``jax.nn.gelu``)."""
+    """SwiGLU, GeGLU, or the non-gated ``gelu`` MLP (``w_up``, ``w_down``
+    only); the GELU is the tanh form (``jax.nn.gelu``)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device, generator):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         self.act = act_fn("silu" if cfg.mlp == "swiglu" else "gelu")
-        self.w_gate = param(dense_init(d, f, dtype, device, generator))
+        if cfg.mlp != "gelu":
+            self.w_gate = param(dense_init(d, f, dtype, device, generator))
         self.w_up = param(dense_init(d, f, dtype, device, generator))
         self.w_down = param(dense_init(f, d, dtype, device, generator))
 
     def forward(self, x):
+        if not hasattr(self, "w_gate"):
+            return self.act(x @ self.w_up) @ self.w_down
         return (self.act(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
 
 
 class Layer(nn.Module):
-    """Pre-norm residual layer: a token mixer of its kind, then (outside the
-    ``ssm`` family) a gated MLP."""
+    """Pre-norm residual layer: a token mixer of its kind, then in a decoder
+    layer of an ``is_encdec`` model cross attention to the encoder, then
+    (outside the ``ssm`` family) an MLP.  Norms by ``cfg.norm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
-                 generator):
+                 generator, with_cross: bool = False):
         super().__init__()
-        self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+        self.norm1 = make_norm(cfg, dtype, device)
         # the mixer under the reference's name of its params
         self.mixer = "attn" if kind.startswith("attn") else kind
         if self.mixer == "attn":
@@ -192,15 +248,56 @@ class Layer(nn.Module):
             self.rglru = RGLRU(cfg, dtype, device, generator)
         else:
             self.mamba = Mamba(cfg, dtype, device, generator)
+        if with_cross:
+            self.norm_cross = make_norm(cfg, dtype, device)
+            self.cross = Attention(cfg, "attn_cross", dtype, device,
+                                   generator)
         if cfg.family != "ssm":
-            self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+            self.norm2 = make_norm(cfg, dtype, device)
             self.mlp = MLP(cfg, dtype, device, generator)
 
-    def forward(self, x, pos: int = 0, cache: Optional[LayerCache] = None):
+    def forward(self, x, pos: int = 0, cache: Optional[LayerCache] = None,
+                enc: Optional[torch.Tensor] = None):
+        """``enc``: the encoder's output (B, T, d), which a cross-attention
+        layer projects to K/V (and keeps in ``cache``); without it such a
+        layer reads them from ``cache`` (a decode step)."""
         x = x + getattr(self, self.mixer)(self.norm1(x), pos, cache)
+        if hasattr(self, "cross"):
+            if enc is None:
+                kv = cache["cross_k"], cache["cross_v"]
+            else:
+                kv = self.cross.kv_from(enc)
+                if cache is not None:
+                    cache["cross_k"], cache["cross_v"] = kv
+            x = x + self.cross.attend(self.norm_cross(x), *kv)
         if hasattr(self, "mlp"):
             x = x + self.mlp(self.norm2(x))
         return x
+
+
+class Encoder(nn.Module):
+    """whisper's encoder (the reference's ``encode``): learned positions
+    ``pos_embed`` (enc_seq, d) added to the frames, ``n_enc_layers``
+    bidirectional layers without cross attention, then ``final_norm``.  Its
+    layers see the config as the reference runs them, with ``is_encdec``
+    off (and no MoE)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        enc_cfg = replace(cfg, is_encdec=False, n_experts=0)
+        self.pos_embed = param(embed_init(cfg.enc_seq, cfg.d_model, dtype,
+                                          device, generator))
+        self.layers = nn.ModuleList(
+            Layer(enc_cfg, "attn_bidir", dtype, device, generator)
+            for _ in range(cfg.n_enc_layers))
+        self.final_norm = make_norm(cfg, dtype, device)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, T, d) in the model's dtype, T <= enc_seq."""
+        x = frames + self.pos_embed[:frames.shape[1]]
+        for layer in self.layers:
+            x = layer(x)
+        return self.final_norm(x)
 
 
 class Transformer(nn.Module):
@@ -208,7 +305,9 @@ class Transformer(nn.Module):
     (normal/sqrt(d_in) projections, 0.02 embeddings, zero biases, unit norm
     scales, the recurrent blocks' own) from ``generator``, or from a
     generator seeded with ``seed``.  Load reference weights with
-    ``load_state_dict(params_from_jax(...))``."""
+    ``load_state_dict(params_from_jax(...))``.  An ``is_encdec`` model
+    holds an ``Encoder`` (``enc``) and ``dec_pos_embed``, and each of its
+    layers cross attention."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
                  seed: int = 0, generator: Optional[torch.Generator] = None):
@@ -221,15 +320,21 @@ class Transformer(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         self.embed = param(embed_init(cfg.vocab, cfg.d_model, dtype, device,
                                       generator))
-        self.final_norm = RMSNorm(cfg.d_model, dtype, device)
+        self.final_norm = make_norm(cfg, dtype, device)
         if not cfg.tie_embeddings:
             self.unembed = param(dense_init(cfg.d_model, cfg.vocab, dtype,
                                             device, generator))
-        self.layers = nn.ModuleList(Layer(cfg, kind, dtype, device, generator)
-                                    for kind in cfg.layer_kinds())
+        self.layers = nn.ModuleList(
+            Layer(cfg, kind, dtype, device, generator,
+                  with_cross=cfg.is_encdec)
+            for kind in cfg.layer_kinds())
         if cfg.img_tokens:
             self.img_proj = param(dense_init(cfg.d_model, cfg.d_model, dtype,
                                              device, generator))
+        if cfg.is_encdec:
+            self.enc = Encoder(cfg, dtype, device, generator)
+            self.dec_pos_embed = param(embed_init(
+                DEC_POSITIONS, cfg.d_model, dtype, device, generator))
 
     @property
     def device(self) -> torch.device:
@@ -255,20 +360,46 @@ class Transformer(nn.Module):
         img = img_embeds.to(x.dtype) @ self.img_proj
         return torch.cat([img, x], 1)
 
+    def _inputs(self, tokens: torch.Tensor,
+                img_embeds: Optional[torch.Tensor],
+                frames: Optional[torch.Tensor]):
+        """(the decoder's input (B, positions, d), the encoder's output
+        (B, T, d) or None).  An ``is_encdec`` config requires frames
+        (B, T, d), T <= enc_seq, cast to the model's dtype and encoded, and
+        adds ``dec_pos_embed`` to the tokens; the others refuse frames."""
+        cfg = self.cfg
+        x = self._embed(tokens, img_embeds)
+        if not cfg.is_encdec:
+            if frames is not None:
+                raise ValueError(f"{cfg.name} takes no frames")
+            return x, None
+        if frames is None:
+            raise ValueError(f"{cfg.name} needs frames (B, T, {cfg.d_model})")
+        B = tokens.shape[0]
+        if frames.dim() != 3 or frames.shape[0] != B \
+                or frames.shape[2] != cfg.d_model \
+                or not 0 < frames.shape[1] <= cfg.enc_seq:
+            raise ValueError(f"frames {tuple(frames.shape)}: want ({B}, T, "
+                             f"{cfg.d_model}), T <= {cfg.enc_seq}")
+        x = x + self.dec_pos_embed[:x.shape[1]]
+        return x, self.enc(frames.to(self.dtype))
+
     def _unembed(self, x):
         x = self.final_norm(x)
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return (x @ w).float()
 
     def forward(self, tokens: torch.Tensor, last: Optional[int] = None,
-                img_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                img_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, vocab) fp32, no cache; with
         ``last``, the logits of the last ``last`` positions only.  With
         image embeddings (B, N, d) the logits cover all N + S positions, the
-        image ones first, as the reference's."""
-        x = self._embed(tokens, img_embeds)
+        image ones first, as the reference's.  An ``is_encdec`` config
+        takes the frames (B, T, d) its decoder attends to."""
+        x, enc = self._inputs(tokens, img_embeds, frames)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, enc=enc)
         if last is not None:
             x = x[:, -last:].contiguous()
         return self._unembed(x)
@@ -298,16 +429,19 @@ class Transformer(nn.Module):
         return Cache(layers)
 
     def prefill(self, tokens: torch.Tensor, max_len: int,
-                img_embeds: Optional[torch.Tensor] = None
+                img_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Run the prompt (B, S), after the image embeddings (B, N, d) of an
         ``img_tokens`` config, from position 0, filling a fresh cache for
-        ``max_len`` positions (image ones included).  Returns
-        (last-position logits (B, 1, V), cache holding N + S positions)."""
+        ``max_len`` positions (image ones included).  An ``is_encdec``
+        config encodes its frames (B, T, d) here, and the cache keeps each
+        layer's cross K/V.  Returns (last-position logits (B, 1, V), cache
+        holding N + S positions)."""
         cache = self.init_cache(tokens.shape[0], max_len)
-        x = self._embed(tokens, img_embeds)
+        x, enc = self._inputs(tokens, img_embeds, frames)
         for layer, c in zip(self.layers, cache.layers):
-            x = layer(x, 0, c)
+            x = layer(x, 0, c, enc)
         cache.length = x.shape[1]
         return self._unembed(x[:, -1:].contiguous()), cache
 
@@ -321,6 +455,8 @@ class Transformer(nn.Module):
             raise ValueError(f"decode at position {pos} but the cache holds "
                              f"{cache.length} positions")
         x = F.embedding(token, self.embed)
+        if self.cfg.is_encdec:
+            x = x + self.dec_pos_embed[pos]
         for layer, c in zip(self.layers, cache.layers):
             x = layer(x, pos, c)
         cache.length = pos + 1

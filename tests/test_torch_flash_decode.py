@@ -177,28 +177,61 @@ def test_warp_slices_cover_each_tile_once():
 @pytest.mark.parametrize("arch,batch,prompt,new", _chip_smoke().SERVES)
 def test_expected_flash_impls_follow_the_plan(arch, batch, prompt, new):
     """``chip_smoke.expected_flash_impls`` (phase 4's exact counts) agrees
-    with ``plan`` for each served model: phi-3-vision-4.2b's 992 and
-    qwen2-7b's 868 decode launches on the warp kernel, chatglm3-6b's and
-    recurrentgemma-2b's on the split kernel, falcon-mamba-7b none."""
+    with ``plan`` for each served model: phi-3-vision-4.2b's 992,
+    qwen2-7b's 868, stablelm-1.6b's 744 and whisper-small's 744 (self and
+    cross) decode launches on the warp kernel, chatglm3-6b's,
+    recurrentgemma-2b's and starcoder2-3b's on the split kernel,
+    falcon-mamba-7b none; whisper's prefill runs its 12 encoder layers, 12
+    self and 12 cross attentions on the tensor cores."""
     cs = _chip_smoke()
     cfg = get_config(arch)
     got = cs.expected_flash_impls(cfg, new)
     attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    calls = 2 * attn if cfg.is_encdec else attn    # a position's calls
+    enc = cfg.n_enc_layers if cfg.is_encdec else 0
     impl = plan(batch, 1, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                 torch.bfloat16, cfg.img_tokens + prompt + 1).impl if attn \
         else None
-    want = {"phi-3-vision-4.2b": ("warp_decode", 992),
-            "chatglm3-6b": ("split_decode", 868),
-            "recurrentgemma-2b": ("split_decode", 248),
-            "falcon-mamba-7b": (None, 0),
-            "qwen2-7b": ("warp_decode", 868)}[arch]
-    assert (impl, attn * (new - 1)) == want
-    assert sum(got.values()) == attn * new
-    assert got["tc_prefill"] == attn
+    want = {"phi-3-vision-4.2b": ("warp_decode", 992, 32),
+            "chatglm3-6b": ("split_decode", 868, 28),
+            "recurrentgemma-2b": ("split_decode", 248, 8),
+            "falcon-mamba-7b": (None, 0, 0),
+            "qwen2-7b": ("warp_decode", 868, 28),
+            "stablelm-1.6b": ("warp_decode", 744, 24),
+            "starcoder2-3b": ("split_decode", 930, 30),
+            "whisper-small": ("warp_decode", 744, 36)}[arch]
+    assert (impl, calls * (new - 1), enc + calls) == want
+    assert sum(got.values()) == enc + calls * new
+    assert got["tc_prefill"] == want[2]
     if impl:
         assert got[impl] == want[1]
         other = ({"split_decode", "warp_decode"} - {impl}).pop()
         assert got[other] == 0
+
+
+@pytest.mark.parametrize("arch,kv_lens,want", [
+    # MHA at D 64: 8 x 32 kv heads is already WARP_MIN_BLOCKS, one split
+    ("stablelm-1.6b", range(1025, 1056),
+     Plan("warp_decode", splits=1, tiles_per_split=17, blocks=256)),
+    # G 12 > R_MAX: the split kernel, 16-row blocks (4 rows idle), 17
+    # one-tile splits of 16 blocks
+    ("starcoder2-3b", range(1025, 1056),
+     Plan("split_decode", splits=17, tiles_per_split=1, blocks=272)),
+    # whisper's self-attention over 417-447 keys and its cross attention
+    # over the 1500 encoder states: 96 blocks a split, so 3 splits
+    ("whisper-small", range(417, 448),
+     Plan("warp_decode", splits=3, tiles_per_split=3, blocks=288)),
+    ("whisper-small", (1500,),
+     Plan("warp_decode", splits=3, tiles_per_split=8, blocks=288)),
+])
+def test_decode_plans_are_pinned(arch, kv_lens, want):
+    """The decode plans of phase 4's LayerNorm models (8 sequences), in
+    bf16 and fp32, at every step of a 32-token generate."""
+    cfg = get_config(arch)
+    for kv_len in kv_lens:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert plan(8, 1, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, dtype, kv_len) == want, kv_len
 
 
 def test_qwen2_decode_plan_is_pinned():

@@ -203,9 +203,7 @@ def test_config_matches_reference():
     (dict(n_experts=4), "MoE"),
     (dict(attn_chunk=8, global_every=4), "attn_chunk"),
     (dict(attn_logit_softcap=30.0), "softcap"),
-    (dict(is_encdec=True), "is_encdec"),
-    (dict(norm="layernorm"), "layernorm"),
-    (dict(mlp="gelu"), "mlp='gelu'"),
+    (dict(mlp="relu"), "mlp='relu'"),
 ])
 def test_unported_kinds_raise(change, match):
     cfg = dataclasses.replace(get_reduced(ARCH), **change)

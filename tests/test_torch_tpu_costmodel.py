@@ -118,13 +118,13 @@ def test_registry_schema_and_cells_are_the_references():
 
 def test_only_the_ported_families_are_served():
     """The serve path builds only SERVED_ARCHS; the rest are data the
-    model refuses (MoE, LayerNorm, GELU, encoder-decoder, chunked
-    attention)."""
+    model refuses (MoE, chunked attention)."""
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Transformer, check_ported
     assert SERVED_ARCHS == ["chatglm3-6b", "recurrentgemma-2b",
                             "falcon-mamba-7b", "phi-3-vision-4.2b",
-                            "qwen2-7b"]
+                            "qwen2-7b", "stablelm-1.6b", "starcoder2-3b",
+                            "whisper-small"]
     for arch in ARCH_IDS:
         if arch in SERVED_ARCHS:
             check_ported(get_config(arch))
