@@ -38,7 +38,12 @@ non-zero (no phase's failure is caught):
    (its decode on the split kernel at G 12) and whisper-small (the
    encoder's 1500 frames and the cross attention of 416 queries over them,
    both without a mask, and both decodes on the warp kernel), with small
-   unmasked calls whose queries and keys differ in number; the GA's group-label kernel (bit-equal to its plain version on
+   unmasked calls whose queries and keys differ in number; flash attention
+   at the MoE models' serve shapes, timed: dbrx-132b's prefill (GQA 48:8)
+   and decode (the warp kernel at G 6), llama4's prefill of 2 x 8200 with
+   the 8192-position chunk mask and without it (GQA 40:8), its decode over
+   the wrapped chunk buffer with key positions and over its global layer's
+   8216 keys (the warp kernel at G 5), SDPA given the same chunk mask; the GA's group-label kernel (bit-equal to its plain version on
    mobilenet_v3, resnet50, a 1040-node chain with skips, each at 65536
    random genomes of fused-bit density 0.1 and 0.5 with an all-zero and an
    all-one row, on a graph too long for shared memory at 4096, and at the
@@ -47,7 +52,11 @@ non-zero (no phase's failure is caught):
    ``warp``, ``block``, ``global``) must run the variant their plan picks,
    and every variant that can take a case is forced on it, checked and,
    where the case is timed, timed beside the others (and the group labels
-   beside a bare launch);
+   beside a bare launch).  Then the MoE dispatch at full width in fp32 (one
+   dbrx-132b layer, one llama4 MoE layer, 1024 tokens at capacity factor
+   1.25, picks dropped): the compact dispatch against the reference's
+   slot-buffer algorithm, the kept picks equal and the outputs within
+   1e-5, both timed, with its host synchronisations counted;
 4. serve: chatglm3-6b, recurrentgemma-2b, falcon-mamba-7b,
    phi-3-vision-4.2b, qwen2-7b (GQA 28:4, QKV biases: its decode on the
    warp decode kernel at 7 query heads a kv head), and the LayerNorm
@@ -55,7 +64,13 @@ non-zero (no phase's failure is caught):
    whisper-small (1500 frame embeddings drawn from the same generator
    through a 12-layer encoder, once, in the prefill; 416 + 32 decoder
    positions; two flash calls a decoder layer and position, self and
-   cross), each at its published widths and full depth in bf16,
+   cross), and the MoE models (the MoE FFN is eager PyTorch, no counted
+   kernel): dbrx-132b at 8 of its 40 layers (8 x 1024) and
+   llama4-maverick-400b-a17b at 4 of its 48 (2 x 8200: the prompt crosses
+   the 8192-position chunk boundary and the chunk buffers wrap at every
+   decode step), at their published capacity factor, their kept and
+   dropped picks logged for the prefill and the decode steps; each at its
+   published widths and full depth (the MoE models at SERVE_LAYERS) in bf16,
    random weights from a seeded CUDA generator, 8 prompts and 32 greedy
    tokens through ``repro_torch.launch.serve.generate`` (recurrentgemma's
    prompt of 4096 tokens is twice its attention window, so the window cuts
@@ -65,11 +80,16 @@ non-zero (no phase's failure is caught):
    exactly and its decode logits are held against one full forward;
    recurrentgemma-2b's run then profiles one prefill and one decode step
    (``torch.profiler``: device time by block, by kernel, and inside the
-   RG-LRU blocks by op);
+   RG-LRU blocks by op).  A MoE model's decode is held by ``routed_check``:
+   with no drops (capacity factor E / K), the fp32 forward a layer at a
+   time, and the floor rule over the positions whose picks agree with the
+   fp32 reference's on both bf16 sides;
 5. the same check in fp32 at full width with 2 or 3 layers (phi-3-vision
    with its 1024 image tokens, whisper-small with 2 encoder and 2 decoder
-   layers over its 1500 frames; launch counts exact, every prefill attention
-   on the SIMT kernel), and each reduced config's CUDA logits
+   layers over its 1500 frames, dbrx-132b at 2 layers, llama4 at 4 with 16
+   of its 128 experts and a chunk of 64 positions, both MoE models with no
+   drops; launch counts exact, every prefill attention on the SIMT kernel),
+   and each reduced config's CUDA logits
    (forward and generate) against its plain CPU path (which the CPU tests
    hold against the JAX reference);
 6. search: the paper's GA (mobilenet_v3 on simba, preset ``paper``, seed 0)
@@ -150,6 +170,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -195,6 +216,8 @@ from repro_torch.kernels.rmsnorm.ops import plan as rms_plan  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import variants as rms_variants  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models.moe import MoE, moe_slots_ref  # noqa: E402
+from repro_torch.models.moe import dispatch as moe_dispatch  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.search import SearchSession, SearchSpec  # noqa: E402
 from repro_torch.search import build_workload  # noqa: E402
@@ -226,7 +249,16 @@ SERVES = (("chatglm3-6b", 8, 1024, 32),
           ("starcoder2-3b", 8, 1024, 32),
           # 416 + 32 = 448 decoder positions, whisper's published context,
           # after the encoder's 1500 frames
-          ("whisper-small", 8, 416, 32))
+          ("whisper-small", 8, 416, 32),
+          ("dbrx-132b", 8, 1024, 32),
+          # the prompt crosses llama4's 8192-position chunk boundary, and
+          # the 8192-slot chunk buffers wrap at every decode step
+          ("llama4-maverick-400b-a17b", 2, 8200, 32))
+# the MoE models' depth on one 80 GB card (published widths; their bf16
+# weights at full depth are ~264 and ~800 GB): dbrx-132b 8 of 40 layers
+# (~55 GB), llama4 one period of its pattern, 4 of 48 (three chunked layers
+# and a global one, layers 1 and 3 MoE: ~70 GB)
+SERVE_LAYERS = {"dbrx-132b": 8, "llama4-maverick-400b-a17b": 4}
 # decode logits vs one full forward, relative RMS error over all logits.
 # bf16: both sides round every product to 8 mantissa bits (2^-9 = 2e-3
 # relative per rounding) but at different places (cuBLAS picks other kernels
@@ -243,6 +275,13 @@ FLOOR_MULT = 1.1
 # phase 5's prompts in text tokens (phi-3-vision's after its 1024 image
 # tokens)
 FP32_PROMPT = 128
+# the MoE dispatch at full width (``phase_moe``): tokens of one call
+MOE_TOKENS = 1024
+# phase 5's cuts of llama4 besides depth, to fit fp32 at 4 layers on one
+# card (~28 GB): 16 routed experts, and a chunk of 64 positions, which the
+# 128-token prompt crosses and the decode's buffers wrap
+FP32_MOE_CUTS = {"llama4-maverick-400b-a17b": dict(n_experts=16,
+                                                   attn_chunk=64)}
 # fp32 (TF32 off): sums in another order only (~1e-6); bf16 arithmetic or
 # TF32 would give >= 1e-3 and fail it.
 SERVE_REL_TOL_FP32 = 1e-4
@@ -430,12 +469,12 @@ def flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=True, window=0, chunk=0,
     return bound(nbytes, 4 * D * B * Hq * int(ok.sum()), dt)
 
 
-def sdpa_call(q, k, v, causal, window, q_offset, kv_len, k_pos):
+def sdpa_call(q, k, v, causal, window, q_offset, kv_len, k_pos, chunk=0):
     """One ``scaled_dot_product_attention`` call computing what the flash
     kernel computes (the mask built beforehand, not timed)."""
     Sq, Skv = q.shape[1], k.shape[1]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if not window and k_pos is None:          # a prefix of the keys
+    if not window and not chunk and k_pos is None:   # a prefix of the keys
         n = Skv if kv_len is None else kv_len
         kt, vt = kt[:, :, :n], vt[:, :, :n]
         return lambda: F.scaled_dot_product_attention(
@@ -449,6 +488,8 @@ def sdpa_call(q, k, v, causal, window, q_offset, kv_len, k_pos):
         mask &= kp <= qp
     if window:
         mask &= kp > qp - window
+    if chunk:
+        mask &= kp // chunk == qp // chunk
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
@@ -498,7 +539,7 @@ def ran_variant(fn, before: dict) -> str:
 def kernels_rmsnorm(timer: Timer, rn) -> dict:
     """Both forms, both dtypes; serve shapes (the prefill rows, batch x
     (image + text positions), and the decode rows, batch, of each SERVES
-    model with RMSNorm at its d_model: 4096, 2560, 3072 and 3584) + a
+    model with RMSNorm at its d_model: 4096, 2560, 3072, 3584 and 5120) + a
     ragged one.  Each case
     runs the variant ``plan`` picks (``vector`` at the serve shapes); every
     variant that takes it is forced and checked.  Timed in bf16 at the serve
@@ -602,7 +643,14 @@ def flash_cases() -> list:
     states without a mask, and both at decode (the warp kernel over 417-447
     and over 1500 keys); phase 5's fp32 cross prefill (128 queries over
     1500 keys), and small ragged calls without a mask where queries and
-    keys differ in number, on the tensor-core prefill."""
+    keys differ in number, on the tensor-core prefill.  Last, the MoE
+    models' shapes (GQA 48:8 and 40:8, D 128): dbrx-132b's prefill (8 x
+    1024, causal) and decode (the warp kernel at G 6 over 1041 keys);
+    llama4's prefill of 2 x 8200 with the 8192-position chunk mask and
+    without it (its global layer), its chunked decode over the wrapped
+    8192-slot chunk buffer with key positions at position 8215, and its
+    global decode over 8216 keys (the warp kernel at G 5); and phase 5's
+    fp32 prefills of both (8 x 128, llama4's with its 64-position chunk)."""
     cfg = get_config("chatglm3-6b")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     _, B, P, N = SERVES[0]
@@ -629,6 +677,10 @@ def flash_cases() -> list:
     B_s, P_s, N_s, _, heads_s = lm["stablelm-1.6b"]
     B_c, P_c, N_c, _, heads_c = lm["starcoder2-3b"]
     B_w, P_w, N_w, T_w, heads_w = lm["whisper-small"]
+    B_d, P_d, N_d, _, heads_d = lm["dbrx-132b"]
+    B_l, P_l, N_l, _, heads_l = lm["llama4-maverick-400b-a17b"]
+    C_l = get_config("llama4-maverick-400b-a17b").attn_chunk
+    pos_l = P_l + 15                          # the 16th decode step: 8215
     return [
         ("prefill", (B, P, P, hq, hkv, hd), {}),
         ("decode", (B, 1, P + N, hq, hkv, hd),
@@ -757,6 +809,22 @@ def flash_cases() -> list:
          dict(causal=False)),
         ("tc_d128_cross_kv_len", (2, 130, 400, 4, 2, 128),
          dict(causal=False, kv_len=333)),
+        ("prefill_dbrx", (B_d, P_d, P_d) + heads_d, {}),
+        ("decode_dbrx", (B_d, 1, P_d + N_d) + heads_d,
+         dict(q_offset=P_d + 16, kv_len=P_d + 17)),
+        ("prefill_llama4_chunk", (B_l, P_l, P_l) + heads_l,
+         dict(chunk=C_l)),
+        ("prefill_llama4_global", (B_l, P_l, P_l) + heads_l, {}),
+        ("decode_llama4_chunk", (B_l, 1, C_l) + heads_l,
+         dict(q_offset=pos_l, kv_len=C_l, chunk=C_l,
+              k_pos=rolling_kpos(pos_l, C_l))),
+        ("decode_llama4_global", (B_l, 1, P_l + N_l) + heads_l,
+         dict(q_offset=pos_l, kv_len=pos_l + 1)),
+        # phase 5's fp32 prefills of the MoE models (llama4's chunk cut)
+        ("prefill_dbrx_s128", (8, FP32_PROMPT, FP32_PROMPT) + heads_d, {}),
+        ("prefill_llama4_s128_chunk", (8, FP32_PROMPT, FP32_PROMPT)
+         + heads_l, dict(chunk=FP32_MOE_CUTS[
+             "llama4-maverick-400b-a17b"]["attn_chunk"])),
     ]
 
 
@@ -778,13 +846,21 @@ FLASH_TIMED = {torch.bfloat16: {"prefill": "tc_prefill",
                                 "prefill_whisper_self": "tc_prefill",
                                 "prefill_whisper_cross": "tc_prefill",
                                 "decode_whisper_self": "warp_decode",
-                                "decode_whisper_cross": "warp_decode"},
+                                "decode_whisper_cross": "warp_decode",
+                                "prefill_dbrx": "tc_prefill",
+                                "decode_dbrx": "warp_decode",
+                                "prefill_llama4_chunk": "tc_prefill",
+                                "prefill_llama4_global": "tc_prefill",
+                                "decode_llama4_chunk": "warp_decode",
+                                "decode_llama4_global": "warp_decode"},
                torch.float32: {"prefill_s128": "simt",
                                "prefill_d256_s128_window": "simt",
                                "prefill_d96_s1152": "simt",
                                "prefill_qwen_s128": "simt",
                                "prefill_whisper_encoder": "simt",
-                               "prefill_whisper_cross_s128": "simt"}}
+                               "prefill_whisper_cross_s128": "simt",
+                               "prefill_dbrx_s128": "simt",
+                               "prefill_llama4_s128_chunk": "simt"}}
 
 
 def flash_check(name: str, out, ref, dt) -> tuple:
@@ -851,6 +927,13 @@ def kernels_flash(timer: Timer, rn) -> list:
                              blocks=forced.blocks)
             if serve and Sq == 1:
                 short = dict(kw, kv_len=kw.get("kv_len", Skv) - 1)
+                if kw.get("chunk") and "k_pos" in kw:
+                    # a wrapped chunk buffer's last slot holds a key of the
+                    # previous chunk, masked anyway: drop the newest key by
+                    # its position instead
+                    kp = kw["k_pos"].clone()
+                    kp[kp == kw["q_offset"]] = -1
+                    short = dict(kw, k_pos=kp)
                 miss = row_scaled_err(attention_ref(q, k, v, **short), ref)
                 if not miss > FLASH_ROW_TOL[dt]:
                     raise AssertionError(f"flash {name}: dropping the newest "
@@ -862,7 +945,7 @@ def kernels_flash(timer: Timer, rn) -> list:
                 lib = sdpa_call(q, k, v, kw.get("causal", True),
                                 kw.get("window", 0),
                                 kw.get("q_offset", 0), kw.get("kv_len"),
-                                kw.get("k_pos"))
+                                kw.get("k_pos"), kw.get("chunk", 0))
                 case.update(
                     ms=timer.ms(lambda: flash_attention(q, k, v, **kw)),
                     plain_ms=timer.ms(lambda: attention_ref(q, k, v, **kw),
@@ -889,6 +972,9 @@ def kernels_flash(timer: Timer, rn) -> list:
                 log(f"[kernels] flash_attention {other}")
                 cases.append(other)
             del q, k, v, out, ref
+            # the plain version of llama4's 2 x 8200 prefill holds two 20 GiB
+            # score tensors: return the cached blocks, unsplit
+            torch.cuda.empty_cache()
     return cases
 
 
@@ -1214,6 +1300,72 @@ def phase_kernels(timer: Timer) -> dict:
     return rows
 
 
+def sync_round_trip_us(reps: int = 50) -> float:
+    """Median host microseconds of what the compact MoE dispatch adds a
+    call: a launch, then a device-to-host read of a few ints that waits
+    for it, from an idle card."""
+    t = torch.zeros(16, dtype=torch.long, device=DEV)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.add_(1).tolist()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e6
+
+
+def phase_moe(timer: Timer) -> None:
+    """The MoE dispatch at full width, in fp32: one dbrx-132b layer (d 6144,
+    16 experts top-4) and one llama4 MoE layer (d 5120, 128 experts top-1
+    and the shared expert; 65 GB), MOE_TOKENS tokens at the published
+    capacity factor 1.25, so picks are dropped.  The compact dispatch (the
+    model's ``MoE``) against its plain version, the reference's slot-buffer
+    algorithm (``moe_slots_ref``): the kept picks equal, the outputs within
+    1e-5 (abs + rel), the aux loss within 1e-6.  Both timed (``Timer``; the
+    compact form's host synchronisation and the launches after it inside
+    its time), its synchronisations a call counted, and a bare round trip
+    (``sync_round_trip_us``) timed."""
+    log(f"[moe] {json.dumps({'sync_round_trip_us': sync_round_trip_us()})}")
+    for arch in ("dbrx-132b", "llama4-maverick-400b-a17b"):
+        cfg = dataclasses.replace(get_config(arch), param_dtype="float32")
+        g = torch.Generator(device=DEV).manual_seed(5)
+        moe = MoE(cfg, torch.float32, DEV, g)
+        x = torch.randn(1, MOE_TOKENS, cfg.d_model, generator=g, device=DEV)
+        before = (moe_dispatch.kept, moe_dispatch.dropped,
+                  moe_dispatch.host_syncs)
+        y, aux = moe(x)
+        kept, dropped, syncs = (now - then for now, then in zip(
+            (moe_dispatch.kept, moe_dispatch.dropped,
+             moe_dispatch.host_syncs), before))
+        x2 = x.reshape(MOE_TOKENS, cfg.d_model)
+        _, gate, sel = moe.route(x2)
+        picks = moe_dispatch(x2, gate, sel, moe.w_gate, moe.w_up,
+                             moe.w_down, moe.capacity(MOE_TOKENS))[1]
+        y_ref, aux_ref, picks_ref = moe_slots_ref(moe, x)
+        if not torch.equal(picks, picks_ref):
+            raise AssertionError(f"moe {arch}: the compact dispatch keeps "
+                                 f"other picks than the slot buffer")
+        err = close(y, y_ref, 1e-5)
+        if not abs(aux.item() - aux_ref.item()) <= 1e-6:
+            raise AssertionError(f"moe {arch}: aux {aux.item()} vs "
+                                 f"{aux_ref.item()}")
+        active = int((torch.bincount(sel.reshape(-1),
+                                     minlength=cfg.n_experts) > 0).sum())
+        row = {"arch": arch, "d_model": cfg.d_model,
+               "experts": cfg.n_experts, "top_k": cfg.top_k,
+               "shared": cfg.n_shared_experts, "tokens": MOE_TOKENS,
+               "dtype": "float32", "capacity_factor": cfg.capacity_factor,
+               "capacity": moe.capacity(MOE_TOKENS), "kept": kept,
+               "dropped": dropped, "experts_with_rows": active,
+               "picks_equal": True, "tol": 1e-5, "max_abs_err": err,
+               "host_syncs_per_call": syncs,
+               "ms": timer.ms(lambda: moe(x)),
+               "plain_ms": timer.ms(lambda: moe_slots_ref(moe, x))}
+        log(f"[moe] {json.dumps(row)}")
+        del moe, x, x2, y, y_ref, gate, sel, picks, picks_ref
+        torch.cuda.empty_cache()
+
+
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return ((a - b).norm() / b.norm()).item()
@@ -1439,14 +1591,160 @@ def layer_profile(model, prompts, img, new) -> dict:
     return out
 
 
-def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
+class RouteLog:
+    """Forward hooks on a model's MoE layers: the kept and dropped picks of
+    its calls, the prefill's (more than one token a sequence) apart from the
+    decode steps', from the dispatch's counters; with ``record``, each
+    layer's picks (B, S, K) at each call, recomputed from the layer's input
+    (the router is deterministic).  ``close`` removes the hooks."""
+
+    def __init__(self, model, record: bool = False):
+        self.moes = [m for m in model.modules() if isinstance(m, MoE)]
+        self.record = record
+        self.sel = [[] for _ in self.moes]
+        self.picks = {ph: {"kept": 0, "dropped": 0, "host_syncs": 0}
+                      for ph in ("prefill", "decode")}
+        self.hooks = [h for i, m in enumerate(self.moes) for h in (
+            m.register_forward_pre_hook(self._before),
+            m.register_forward_hook(
+                lambda mod, args, out, i=i: self._after(i, mod, args)))]
+
+    @staticmethod
+    def _counts() -> tuple:
+        return moe_dispatch.kept, moe_dispatch.dropped, moe_dispatch.host_syncs
+
+    def _before(self, mod, args) -> None:
+        self.start = self._counts()
+
+    def _after(self, i, mod, args) -> None:
+        x = args[0]
+        B, S, D = x.shape
+        tally = self.picks["decode" if S == 1 else "prefill"]
+        for key, now, then in zip(("kept", "dropped", "host_syncs"),
+                                  self._counts(), self.start):
+            tally[key] += now - then
+        if self.record:
+            self.sel[i].append(mod.route(x.reshape(B * S, D))[2]
+                               .view(B, S, -1).sort(-1).values)
+
+    def close(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def fp32_params(module):
+    """Inside: the module's parameters as fp32 copies, the originals back
+    after (bf16 -> fp32 -> bf16 is exact); 3-D parameters (a MoE layer's
+    expert stacks) stay as they are, and ``models.moe.expert`` casts them
+    an expert at a time."""
+    saved = [(p, p.data) for p in module.parameters()
+             if p.dim() < 3 and p.dtype != torch.float32]
+    for p, data in saved:
+        p.data = data.float()
+    try:
+        yield
+    finally:
+        for p, data in saved:
+            p.data = data
+
+
+def forward_fp32_by_layer(model, tokens, last: int) -> torch.Tensor:
+    """``model(tokens, last=last)`` in fp32 arithmetic on a bf16 model's
+    weights, with no fp32 copy of the model (dbrx-132b's 8 layers would take
+    104 GB, llama4's 4 layers 140 GB): each layer's parameters in fp32 for
+    its own pass only, the experts cast one at a time, the unembedding in
+    blocks of 32768 columns.  For configs without image tokens or frames
+    (the MoE models)."""
+    x = F.embedding(tokens, model.embed).float()
+    for layer in model.layers:
+        with fp32_params(layer):
+            x = layer(x)
+    x = x[:, -last:].contiguous()
+    with fp32_params(model.final_norm):
+        x = model.final_norm(x)
+    w = model.embed.t() if model.cfg.tie_embeddings else model.unembed
+    return torch.cat([x @ w[:, i:i + 32768].float()
+                      for i in range(0, w.shape[1], 32768)], -1)
+
+
+def routed_check(model, prompts, new: int) -> dict:
+    """The bf16 decode-vs-forward check of a MoE model.  Capacity depends
+    on the tokens of a call (a decode step routes B tokens, the forward B x
+    positions), so it runs on the same weights with no drops (capacity
+    factor E / K: capacity >= N), its own ``generate`` beside the timed one;
+    the fp32 forward goes a layer at a time (``forward_fp32_by_layer``).  A
+    token whose k-th and (k+1)-th router probabilities are closer than
+    bf16's rounding picks another expert, which moves its logits by order 1:
+    the floor rule (FLOOR_MULT, unchanged) is applied over the positions
+    whose picks, in every MoE layer, agree with the fp32 reference's on both
+    bf16 sides, the decode and the forward; the rest are counted and left
+    out.  A wrong cache slot, key position or chunk buffer still moves every
+    remaining position by order 1."""
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    capacity = [m.capacity_factor for m in moes]
+    logs = []
+
+    def logged(fn):
+        log_ = RouteLog(model, record=True)
+        try:
+            return fn()
+        finally:
+            log_.close()
+            logs.append(log_)
+
+    for m in moes:
+        m.capacity_factor = m.n_experts / m.top_k
+    try:
+        out = logged(lambda: generate(model, prompts, new))
+        full = torch.cat([prompts, out.tokens[:, :-1]], 1)
+        ref = logged(lambda: model(full, last=new))
+        ref32 = logged(lambda: forward_fp32_by_layer(model, full, new))
+    finally:
+        for m, cf in zip(moes, capacity):
+            m.capacity_factor = cf
+    # each side's picks at the positions whose logits are compared (the
+    # prompt's last, then the decode steps'): (layers, B, new, K)
+    dec = torch.stack([torch.cat([sel[0][:, -1:]] + sel[1:], 1)
+                       for sel in logs[0].sel])
+    fwd, f32 = (torch.stack([sel[0][:, -new:] for sel in log_.sel])
+                for log_ in logs[1:])
+    agree_dec = (dec == f32).all(-1).all(0)          # (B, new)
+    agree_fwd = (fwd == f32).all(-1).all(0)
+    keep = agree_dec & agree_fwd
+    if not keep.any():
+        raise AssertionError("routed check: no position's picks agree with "
+                             "the fp32 reference's on both sides")
+    floor = rel_rms(ref[keep], ref32[keep])
+    err = rel_rms(out.logits, ref)
+    agree = (out.logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return {"capacity_factor": "E / K (no drops)",
+            "logits_rel_rms_vs_forward": err,
+            "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
+            "argmax_agreement": agree,
+            "positions": keep.numel(),
+            "positions_checked": int(keep.sum()),
+            "positions_left_out": int((~keep).sum()),
+            "positions_flipped_decode": int((~agree_dec).sum()),
+            "positions_flipped_forward": int((~agree_fwd).sum()),
+            "decode_rel_rms_vs_fp32_forward": rel_rms(out.logits[keep],
+                                                      ref32[keep]),
+            "bf16_forward_rel_rms_vs_fp32_forward": floor,
+            "limit": FLOOR_MULT * floor}
+
+
+def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False,
+                cuts=None):
     """generate() then one forward over prompt + generated tokens; the
     decode logits must match the forward's at the same positions (only
     those are unembedded: recurrentgemma-2b's (8, 4127, 256000) fp32 logits
     would take 34 GB): in fp32 within SERVE_REL_TOL_FP32, in bf16 within the
-    rounding floor (FLOOR_MULT), for which the model is then cast to fp32.
-    ``profile``: after the counted run, ``layer_profile`` of a prefill and
-    a decode step."""
+    rounding floor (FLOOR_MULT), for which the model is then cast to fp32;
+    a bf16 MoE model is held by ``routed_check`` instead.  A MoE model's
+    kept and dropped picks of the counted run are logged (``moe_picks``:
+    the prefill's and the decode steps'), as are ``cuts``, what the run cut
+    from the published config.  ``profile``: after the counted run,
+    ``layer_profile`` of a prefill and a decode step."""
     g = torch.Generator(device=DEV).manual_seed(0)
     model = Transformer(cfg, DEV, generator=g)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
@@ -1462,9 +1760,12 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
         generate(model, prompts[:, :16], 2,
                  None if img is None else img[:, :16], frames)
     torch.cuda.reset_peak_memory_stats()
+    routes = RouteLog(model) if cfg.n_experts else None
     reset_counts()
     out = generate(model, prompts, new, img, frames)
     launches = read_counts()
+    if routes is not None:
+        routes.close()
     flash_impls = dict(flash_attention.impl_launches)
     norm_variants = dict(fused_rmsnorm.variant_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1472,22 +1773,31 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
     if out.tokens.shape != (batch, new) or out.logits.shape != (
             batch, new, cfg.vocab) or not torch.isfinite(out.logits).all():
         raise AssertionError(f"{label}: bad generate output")
-    full = torch.cat([prompts, out.tokens[:, :-1]], 1)
-    ref = model(full, last=new, img_embeds=img, frames=frames)
-    err = rel_rms(out.logits, ref)
-    agree = (out.logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
     bf16 = cfg.param_dtype == "bfloat16"
-    if bf16:                      # the same weights in fp32 arithmetic
-        ref32 = model.float()(full, last=new, img_embeds=img, frames=frames)
-        floor = rel_rms(ref, ref32)
-        check = {"decode_rel_rms_vs_fp32_forward": rel_rms(out.logits, ref32),
-                 "bf16_forward_rel_rms_vs_fp32_forward": floor,
-                 "limit": FLOOR_MULT * floor}
-        del ref32
+    if bf16 and cfg.n_experts:
+        check = routed_check(model, prompts, new)
     else:
-        check = {"limit": SERVE_REL_TOL_FP32}
+        full = torch.cat([prompts, out.tokens[:, :-1]], 1)
+        ref = model(full, last=new, img_embeds=img, frames=frames)
+        check = {"logits_rel_rms_vs_forward": rel_rms(out.logits, ref),
+                 "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
+                 "argmax_agreement": (out.logits.argmax(-1)
+                                      == ref.argmax(-1)).float().mean().item()}
+        if bf16:                  # the same weights in fp32 arithmetic
+            ref32 = model.float()(full, last=new, img_embeds=img,
+                                  frames=frames)
+            floor = rel_rms(ref, ref32)
+            check.update(decode_rel_rms_vs_fp32_forward=rel_rms(out.logits,
+                                                                ref32),
+                         bf16_forward_rel_rms_vs_fp32_forward=floor,
+                         limit=FLOOR_MULT * floor)
+            del ref32
+        else:
+            check["limit"] = SERVE_REL_TOL_FP32
+        del ref, full
     # the whole check's peak: the forward's activations and, in bf16, the
-    # weights' fp32 copy (qwen2-7b's ~30 GB)
+    # weights' fp32 copy (qwen2-7b's ~30 GB) or a MoE model's layer-by-layer
+    # fp32 pass
     check["check_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": batch, "prompt": prompt, "img_tokens": cfg.img_tokens,
@@ -1498,19 +1808,33 @@ def serve_check(cfg, batch, prompt, new, label, warm=False, profile=False):
            "decode_tok_per_s": batch * (new - 1) / out.decode_s,
            "peak_mem_gb": peak_gb, "launches": launches,
            "flash_impls": flash_impls, "rmsnorm_variants": norm_variants,
-           "logits_rel_rms_vs_forward": err,
-           "logits_max_abs_diff": (out.logits - ref).abs().max().item(),
-           "argmax_agreement": agree, **check}
+           **check}
+    if routes is not None:
+        res["moe_picks"] = routes.picks
+        res["capacity_factor"] = cfg.capacity_factor
+    if cuts:
+        res["cuts"] = cuts
     if prof is not None:
         res["profile"] = prof
     log(f"[serve] {label} {json.dumps(res)}")
-    checked = check["decode_rel_rms_vs_fp32_forward"] if bf16 else err
+    checked = check["decode_rel_rms_vs_fp32_forward" if bf16
+                    else "logits_rel_rms_vs_forward"]
     if not checked <= check["limit"]:
         raise AssertionError(f"{label}: decode logits relative RMS error "
                              f"{checked:.3e} > {check['limit']:.3e}")
-    del model, out, ref, full, prompts, img, frames
+    del model, out, prompts, img, frames
     torch.cuda.empty_cache()
     return res
+
+
+def serve_config(arch: str) -> tuple:
+    """(phase 4's config of ``arch``, what it cuts from the published one):
+    the MoE models at their SERVE_LAYERS depth."""
+    cfg = get_config(arch)
+    if arch not in SERVE_LAYERS:
+        return cfg, None
+    cuts = {"n_layers": [cfg.n_layers, SERVE_LAYERS[arch]]}
+    return dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch]), cuts
 
 
 def phase_serve() -> dict:
@@ -1518,9 +1842,10 @@ def phase_serve() -> dict:
     before its run and read just after (``check_launches``)."""
     runs = {}
     for arch, batch, prompt, new in SERVES:
-        cfg = get_config(arch)
+        cfg, cuts = serve_config(arch)
         res = serve_check(cfg, batch, prompt, new, f"bf16 full {arch}",
-                          warm=True, profile=arch == "recurrentgemma-2b")
+                          warm=True, profile=arch == "recurrentgemma-2b",
+                          cuts=cuts)
         check_launches(cfg, new, res)
         runs[arch] = res
     return runs
@@ -1533,13 +1858,25 @@ def phase_fp32() -> dict:
     for arch, layers in (("chatglm3-6b", 2), ("recurrentgemma-2b", 3),
                          ("falcon-mamba-7b", 2), ("phi-3-vision-4.2b", 2),
                          ("qwen2-7b", 2), ("stablelm-1.6b", 2),
-                         ("starcoder2-3b", 2), ("whisper-small", 2)):
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                         ("starcoder2-3b", 2), ("whisper-small", 2),
+                         ("dbrx-132b", 2), ("llama4-maverick-400b-a17b", 4)):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers,
                                   param_dtype="float32")
+        cuts = None
         if cfg.is_encdec:         # as many encoder layers
             cfg = dataclasses.replace(cfg, n_enc_layers=layers)
+        if cfg.n_experts:
+            cuts = dict(FP32_MOE_CUTS.get(arch, {}))
+            cfg = dataclasses.replace(cfg, **cuts)
+            # no drops: cap >= N, so decode and forward route alike
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            cuts = {k: [getattr(full, k), v] for k, v in dict(
+                cuts, n_layers=layers,
+                capacity_factor=cfg.capacity_factor).items()}
         label = f"fp32 {layers}-layer {arch}"
-        res = serve_check(cfg, 8, FP32_PROMPT, 8, label)
+        res = serve_check(cfg, 8, FP32_PROMPT, 8, label, cuts=cuts)
         check_launches(cfg, 8, res)
         runs[label] = res
     # each reduced config: CUDA kernels vs the plain CPU path, same weights;
@@ -2608,8 +2945,12 @@ def main(argv=None) -> int:
     if args.scan_sweep:
         scan_sweep()
         return 0
-    rows = phase_kernels(Timer())
+    timer = Timer()
+    rows = phase_kernels(timer)
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
+    phase_moe(timer)
+    del timer
+    log(f"[time] moe dispatch done at {time.perf_counter() - t0:.1f} s")
     runs = phase_serve()
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     runs.update(phase_fp32())

@@ -3,8 +3,9 @@ rules (the port's copy of ``repro/configs/__init__.py``).
 
 All ten configs are registered as data (``ARCH_IDS``): the ``tpu`` cost
 model and the schedule search read them.  ``SERVED_ARCHS`` names the ones
-whose model path is ported, the only ones a serve entry point builds; the
-model raises ``NotImplementedError`` on the rest (``check_ported``).
+whose model path is ported, the only ones a serve entry point builds: all
+ten (the model still raises ``NotImplementedError`` on a config feature
+none of them sets, ``check_ported``).
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ ARCH_IDS = list(_MODULES)
 #: the configs whose model path the port runs (``launch/serve.py``)
 SERVED_ARCHS = ["chatglm3-6b", "recurrentgemma-2b", "falcon-mamba-7b",
                 "phi-3-vision-4.2b", "qwen2-7b", "stablelm-1.6b",
-                "starcoder2-3b", "whisper-small"]
+                "starcoder2-3b", "whisper-small", "dbrx-132b",
+                "llama4-maverick-400b-a17b"]
 
 
 def get_config(arch: str) -> ModelConfig:

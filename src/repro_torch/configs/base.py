@@ -3,10 +3,8 @@
 parameter counts and the (arch x shape) cells' ``ShapeConfig``/``SHAPES``.
 
 All ten configs are data here: the ``tpu`` cost model reads every one of
-them.  The model runs dense decoders, the Mamba-1 SSM, the RG-LRU/local-
-attention hybrid and the VLM; it raises ``NotImplementedError`` on the
-fields of the families it does not run yet (MoE, encoder-decoder,
-LayerNorm, the GELU MLP, chunked attention).
+them, and the model runs every one (it raises ``NotImplementedError`` only
+on fields none of them sets: the logit softcap, other MLPs).
 """
 from __future__ import annotations
 

@@ -9,7 +9,10 @@ layer ``offset + r * len(pattern) + p``, where ``offset`` counts the layers
 of the segments before it.  The port has one module per layer, so each
 stacked leaf is unstacked into ``layers.<i>.<leaf path>``.  With tied
 embeddings there is no ``unembed``; an ``img_tokens`` config carries
-``img_proj`` across as it is.  An ``is_encdec`` config also carries
+``img_proj`` across as it is.  A MoE layer's ``moe/router`` (d, E; fp32 in
+every model), ``moe/w_gate`` and ``moe/w_up`` (E, d, f), ``moe/w_down`` (E,
+f, d) and ``moe/shared/*`` arrive by path as ``layers.<i>.moe.*``, each
+leaf in its own dtype.  An ``is_encdec`` config also carries
 ``dec_pos_embed`` and the encoder: ``enc/pos_embed``, ``enc/final_norm``
 and its layers, stacked as one segment of ``n_enc_layers`` bidirectional
 layers (``enc/segments/seg0/pos0``), into ``enc.layers.<i>``.  Leaves arrive as numpy arrays (the
@@ -28,12 +31,19 @@ from repro_torch.models.transformer import check_ported
 
 
 def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """(pattern, reps) of each segment, in layer order.  (The reference's
-    MoE interleave, ``moe_every``, is not ported: MoE configs raise.)"""
+    """(pattern, reps) of each segment, in layer order: the pattern is the
+    block pattern, llama4's ``global_every`` layers, or else a MoE
+    interleave of ``moe_every`` layers (a multiple of ``moe_every`` in
+    every case, so that a pattern position says whether a layer is MoE)."""
     kinds = list(cfg.layer_kinds())
     plen = 1
     if cfg.block_pattern or (cfg.attn_chunk and cfg.global_every):
         plen = len(cfg.block_pattern) or cfg.global_every
+    elif cfg.n_experts and cfg.moe_every > 1:
+        plen = cfg.moe_every
+    if cfg.n_experts and plen % cfg.moe_every:
+        raise ValueError(f"{cfg.name}: pattern length {plen} is not a "
+                         f"multiple of moe_every={cfg.moe_every}")
     if plen > 1:
         reps = len(kinds) // plen
         segs = []

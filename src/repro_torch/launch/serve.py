@@ -6,7 +6,8 @@ the caches (counterpart: ``examples/serve_decode.py``).
 
 with ARCH one of ``SERVED_ARCHS`` (chatglm3-6b, recurrentgemma-2b,
 falcon-mamba-7b, phi-3-vision-4.2b, qwen2-7b, stablelm-1.6b, starcoder2-3b,
-whisper-small); it runs the configuration at its published widths with
+whisper-small, dbrx-132b, llama4-maverick-400b-a17b); it runs the
+configuration at its published widths with
 random weights from ``--seed`` on the CUDA card and prints one JSON line of
 timings, taken after a short untimed warm-up (which also builds the
 kernels).  For phi-3-vision-4.2b each prompt of ``--prompt-len`` text tokens
@@ -15,6 +16,10 @@ from the same seeded generator (the vision frontend is a stub, as in the
 reference).  For whisper-small the encoder takes the config's 1500 frame
 embeddings, drawn the same way (the conv frontend is a stub), and the
 prompts are decoder tokens (448 positions is the published context).
+The two MoE models outgrow one 80 GB card at full depth (about 264 and 800
+GB of bf16 weights): ``--layers 8`` serves dbrx-132b and ``--layers 4``
+llama4-maverick-400b-a17b (one period of its pattern: three chunked layers
+and a global one, two of them MoE) at about 55 and 70 GB.
 ``--reduced --device cpu`` runs the test-size configuration on the CPU.
 """
 from __future__ import annotations

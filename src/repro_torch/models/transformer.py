@@ -6,9 +6,13 @@ Counterpart: ``repro/models/transformer.py`` (``_attn_apply``,
 layers of each segment on a leading axis and scans them; here every layer
 is its own module and a Python loop runs them (``repro_torch.convert``
 unstacks reference params).  Layer kinds: full causal attention
-(``attn``), sliding-window attention with a rolling cache
-(``attn_local``), the RG-LRU block (``rglru``) and the Mamba-1 block
-(``mamba``); an ``ssm``-family layer has no MLP.  A ``vlm`` config (``img_tokens``) takes precomputed image-patch
+(``attn``, and llama4's ``attn_global``), sliding-window attention with a
+rolling cache (``attn_local``), chunked attention with a rolling chunk
+buffer (``attn_chunk``: a query sees the earlier keys of its own chunk of
+``attn_chunk`` positions), the RG-LRU block (``rglru``) and the Mamba-1
+block (``mamba``); an ``ssm``-family layer has no MLP.  An ``n_experts``
+config puts the MoE FFN (``models/moe.py``) in place of the MLP on every
+``moe_every``-th layer.  A ``vlm`` config (``img_tokens``) takes precomputed image-patch
 embeddings (B, N, d), projected by ``img_proj`` and put before the token
 embeddings: positions and the causal mask run over the N image tokens, then
 the text, and decoding goes on at position N + S (the vision frontend is a
@@ -48,10 +52,12 @@ from repro_torch.models.common import (act_fn, apply_rope, dense_init,
                                        dtype_of, embed_init, layernorm, param,
                                        rmsnorm)
 from repro_torch.models.mamba import Mamba
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 
 _LATER = "a later slice of the port (ROADMAP.md, queue A)"
-PORTED_KINDS = ("attn", "attn_local", "rglru", "mamba")
+PORTED_KINDS = ("attn", "attn_local", "attn_chunk", "attn_global",
+                "rglru", "mamba")
 PORTED_MLPS = ("swiglu", "geglu", "gelu")
 #: rows of the decoder's learned positions (the reference's table)
 DEC_POSITIONS = 32_768
@@ -64,7 +70,6 @@ def check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: layer kind {kind!r} is not ported yet; it comes "
             f"with {_LATER}")
     unported = (
-        ("n_experts (MoE)", cfg.n_experts, "the MoE slice"),
         (f"mlp={cfg.mlp!r}", cfg.mlp not in PORTED_MLPS, _LATER),
         ("attn_logit_softcap", cfg.attn_logit_softcap, _LATER),
     )
@@ -85,8 +90,9 @@ class Cache:
     - attention: ``k``, ``v`` (B, L, Hkv, D) in the model's dtype.  A full
       causal layer has L = max_len and slot i holds position i.  A
       sliding-window layer has a rolling buffer of L = min(2 * window,
-      max_len) slots, position p in slot p % L, and ``kpos`` (L,) int32, the
-      position in each slot (-1: unwritten).
+      max_len) slots, a chunked layer one of L = min(attn_chunk, max_len),
+      position p in slot p % L, and ``kpos`` (L,) int32, the position in
+      each slot (-1: unwritten).
     - RG-LRU: ``h`` (B, W) fp32 and ``conv`` (B, K-1, W).
     - Mamba: ``ssm`` (B, Di, N) fp32 and ``conv`` (B, K-1, Di).
     - an ``is_encdec`` decoder layer also holds ``cross_k``, ``cross_v``
@@ -121,12 +127,21 @@ def make_norm(cfg: ModelConfig, dtype, device) -> nn.Module:
         cfg.d_model, dtype, device)
 
 
+def uses_moe(cfg: ModelConfig, i: int) -> bool:
+    """Layer i has the MoE FFN: the reference's ``_use_moe`` by pattern
+    position, which equals the layer index here because the pattern length
+    is a multiple of ``moe_every``."""
+    return bool(cfg.n_experts) and (i + 1) % cfg.moe_every == 0
+
+
 class Attention(nn.Module):
-    """Self-attention of a layer kind: ``attn`` (causal), ``attn_local``
-    (causal, sliding window) or ``attn_bidir`` (the encoder's, no mask); or
-    an ``attn_cross`` layer's cross attention (``kv_from``, ``attend``).
-    RoPE rotates Q and K of causal self-attention outside an ``is_encdec``
-    model only."""
+    """Self-attention of a layer kind: ``attn`` and ``attn_global``
+    (causal), ``attn_local`` (causal, sliding window), ``attn_chunk``
+    (causal within chunks of ``attn_chunk`` positions) or ``attn_bidir``
+    (the encoder's, no mask); or an ``attn_cross`` layer's cross attention
+    (``kv_from``, ``attend``).  RoPE rotates Q and K of causal
+    self-attention outside an ``is_encdec`` model only (every layer of
+    llama4, its global ones too, as the reference)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
                  generator):
@@ -134,6 +149,7 @@ class Attention(nn.Module):
         d, hd = cfg.d_model, cfg.resolved_head_dim
         self.cfg = cfg
         self.window = cfg.attn_window if kind == "attn_local" else 0
+        self.chunk = cfg.attn_chunk if kind == "attn_chunk" else 0
         self.causal = kind not in ("attn_bidir", "attn_cross")
         self.rope = self.causal and not cfg.is_encdec
         self.wq = param(dense_init(d, cfg.n_heads * hd, dtype, device, generator))
@@ -171,7 +187,8 @@ class Attention(nn.Module):
         if cache is None or S > 1:
             if pos:
                 raise ValueError("a multi-token call starts at position 0")
-            out = attention(q, k, v, causal=self.causal, window=self.window)
+            out = attention(q, k, v, causal=self.causal, window=self.window,
+                            chunk=self.chunk)
         if cache is not None:
             ck, cv, kpos = cache["k"], cache["v"], cache.get("kpos")
             L = ck.shape[1]
@@ -192,7 +209,7 @@ class Attention(nn.Module):
             if S == 1:
                 out = attention(q, ck, cv, q_offset=pos,
                                 kv_len=min(pos + 1, L), k_pos=kpos,
-                                window=self.window)
+                                window=self.window, chunk=self.chunk)
         return out.reshape(B, S, hq * hd) @ self.wo
 
     def kv_from(self, src: torch.Tensor):
@@ -234,10 +251,11 @@ class MLP(nn.Module):
 class Layer(nn.Module):
     """Pre-norm residual layer: a token mixer of its kind, then in a decoder
     layer of an ``is_encdec`` model cross attention to the encoder, then
-    (outside the ``ssm`` family) an MLP.  Norms by ``cfg.norm``."""
+    (outside the ``ssm`` family) an MLP, or with ``moe`` the MoE FFN, whose
+    load-balance loss serving drops.  Norms by ``cfg.norm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
-                 generator, with_cross: bool = False):
+                 generator, with_cross: bool = False, moe: bool = False):
         super().__init__()
         self.norm1 = make_norm(cfg, dtype, device)
         # the mixer under the reference's name of its params
@@ -254,7 +272,10 @@ class Layer(nn.Module):
                                    generator)
         if cfg.family != "ssm":
             self.norm2 = make_norm(cfg, dtype, device)
-            self.mlp = MLP(cfg, dtype, device, generator)
+            if moe:
+                self.moe = MoE(cfg, dtype, device, generator)
+            else:
+                self.mlp = MLP(cfg, dtype, device, generator)
 
     def forward(self, x, pos: int = 0, cache: Optional[LayerCache] = None,
                 enc: Optional[torch.Tensor] = None):
@@ -272,6 +293,8 @@ class Layer(nn.Module):
             x = x + self.cross.attend(self.norm_cross(x), *kv)
         if hasattr(self, "mlp"):
             x = x + self.mlp(self.norm2(x))
+        elif hasattr(self, "moe"):
+            x = x + self.moe(self.norm2(x))[0]
         return x
 
 
@@ -326,8 +349,8 @@ class Transformer(nn.Module):
                                             device, generator))
         self.layers = nn.ModuleList(
             Layer(cfg, kind, dtype, device, generator,
-                  with_cross=cfg.is_encdec)
-            for kind in cfg.layer_kinds())
+                  with_cross=cfg.is_encdec, moe=uses_moe(cfg, i))
+            for i, kind in enumerate(cfg.layer_kinds()))
         if cfg.img_tokens:
             self.img_proj = param(dense_init(cfg.d_model, cfg.d_model, dtype,
                                              device, generator))
@@ -409,12 +432,13 @@ class Transformer(nn.Module):
         layers: List[LayerCache] = []
         for kind in cfg.layer_kinds():
             if kind.startswith("attn"):
-                L = (min(2 * cfg.attn_window, max_len) if kind == "attn_local"
-                     else max_len)
+                rolling = {"attn_local": 2 * cfg.attn_window,
+                           "attn_chunk": cfg.attn_chunk}.get(kind)
+                L = min(rolling, max_len) if rolling else max_len
                 shape = (batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
                 c = {"k": torch.zeros(shape, dtype=dt, device=dev),
                      "v": torch.zeros(shape, dtype=dt, device=dev)}
-                if kind == "attn_local":
+                if rolling:
                     c["kpos"] = torch.full((L,), -1, dtype=torch.int32,
                                            device=dev)
             else:

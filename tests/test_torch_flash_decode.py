@@ -182,9 +182,11 @@ def test_expected_flash_impls_follow_the_plan(arch, batch, prompt, new):
     cross) decode launches on the warp kernel, chatglm3-6b's,
     recurrentgemma-2b's and starcoder2-3b's on the split kernel,
     falcon-mamba-7b none; whisper's prefill runs its 12 encoder layers, 12
-    self and 12 cross attentions on the tensor cores."""
+    self and 12 cross attentions on the tensor cores; the MoE models at
+    their served depth (``chip_smoke.serve_config``): dbrx-132b's 8 layers
+    at G 6 and llama4's 4 at G 5 on the warp kernel."""
     cs = _chip_smoke()
-    cfg = get_config(arch)
+    cfg = cs.serve_config(arch)[0]
     got = cs.expected_flash_impls(cfg, new)
     attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
     calls = 2 * attn if cfg.is_encdec else attn    # a position's calls
@@ -199,7 +201,9 @@ def test_expected_flash_impls_follow_the_plan(arch, batch, prompt, new):
             "qwen2-7b": ("warp_decode", 868, 28),
             "stablelm-1.6b": ("warp_decode", 744, 24),
             "starcoder2-3b": ("split_decode", 930, 30),
-            "whisper-small": ("warp_decode", 744, 36)}[arch]
+            "whisper-small": ("warp_decode", 744, 36),
+            "dbrx-132b": ("warp_decode", 248, 8),
+            "llama4-maverick-400b-a17b": ("warp_decode", 124, 4)}[arch]
     assert (impl, calls * (new - 1), enc + calls) == want
     assert sum(got.values()) == enc + calls * new
     assert got["tc_prefill"] == want[2]
@@ -311,3 +315,49 @@ def test_warp_decode_with_k_pos_matches_model_attention(B, Hq, Hkv, pos, L,
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
                                rtol=TOL)
 
+
+
+@pytest.mark.parametrize("Hq,Hkv,pos,L", [
+    (10, 2, 700, 256),     # G 5 (llama4's), wrapped twice
+    (12, 2, 300, 256),     # G 6 (dbrx's), wrapped once
+    (10, 2, 200, 256),     # partly written: slots 201.. at -1
+])
+def test_warp_decode_over_a_wrapped_chunk_buffer(Hq, Hkv, pos, L):
+    """llama4's chunked decode in small: a rolling buffer of L = chunk
+    slots with key positions, the chunk mask, at G 5 and 6 and D 128,
+    against the reference's dense attention with the same positions."""
+    rng = np.random.default_rng(33)
+    kpos = _rolling_kpos(pos, L)
+    qj, qt = _pair(rng.normal(size=(2, 1, Hq, 128)))
+    kj, kt = _pair(rng.normal(size=(2, L, Hkv, 128)))
+    vj, vt = _pair(rng.normal(size=(2, L, Hkv, 128)))
+    how = plan(2, 1, Hq, Hkv, 128, torch.float32, L, True)
+    assert how.impl == "warp_decode"
+    out = _warp_ref(qt, kt, vt, how, q_offset=pos, chunk=L, k_pos=kpos)
+    ref = dense_attention(qj, kj, vj, jnp.asarray([pos]),
+                          jnp.asarray(kpos.numpy()), chunk=L)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("arch,B,kv_lens,k_pos,want", [
+    # 8 sequences x 8 kv heads of 6 query heads: 64 blocks, 17 tiles in
+    # 4 splits of 5
+    ("dbrx-132b", 8, range(1025, 1056), False,
+     Plan("warp_decode", splits=4, tiles_per_split=5, blocks=256)),
+    # 2 sequences x 8 kv heads of 5: 16 blocks; the 8192-slot chunk buffer
+    # read whole (its key positions mask), 16 splits of 8 tiles
+    ("llama4-maverick-400b-a17b", 2, (8192,), True,
+     Plan("warp_decode", splits=16, tiles_per_split=8, blocks=256)),
+    # the global layer's full cache over 8201-8231 keys
+    ("llama4-maverick-400b-a17b", 2, (8201, 8216, 8231), False,
+     Plan("warp_decode", splits=15, tiles_per_split=9, blocks=240)),
+])
+def test_moe_models_decode_plans_are_pinned(arch, B, kv_lens, k_pos, want):
+    """The decode plans of phase 4's MoE models in bf16 and fp32."""
+    cfg = get_config(arch)
+    for kv_len in kv_lens:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert plan(B, 1, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, dtype, kv_len,
+                        k_pos) == want, kv_len

@@ -200,8 +200,10 @@ def test_config_matches_reference():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(n_experts=4), "MoE"),
-    (dict(attn_chunk=8, global_every=4), "attn_chunk"),
+    # MoE and chunked attention are ported: with an unported field they
+    # still raise, naming it
+    (dict(n_experts=4, top_k=2, attn_logit_softcap=30.0), "softcap"),
+    (dict(attn_chunk=8, global_every=4, mlp="relu"), "mlp='relu'"),
     (dict(attn_logit_softcap=30.0), "softcap"),
     (dict(mlp="relu"), "mlp='relu'"),
 ])

@@ -119,6 +119,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.models.transformer" in out["modules"]
     assert "repro_torch.launch.serve" in out["modules"]
     assert "repro_torch.models.mamba" in out["modules"]
+    assert "repro_torch.models.moe" in out["modules"]
     assert "repro_torch.kernels.rglru_scan.ops" in out["modules"]
     assert "repro_torch.search" in out["modules"]
     assert "repro_torch.core.population" in out["modules"]

@@ -117,24 +117,27 @@ def test_registry_schema_and_cells_are_the_references():
 
 
 def test_only_the_ported_families_are_served():
-    """The serve path builds only SERVED_ARCHS; the rest are data the
-    model refuses (MoE, chunked attention)."""
+    """The serve path builds only SERVED_ARCHS: all ten configs, in the
+    order they were ported; a config with a feature none of them sets (the
+    logit softcap) is still refused."""
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Transformer, check_ported
     assert SERVED_ARCHS == ["chatglm3-6b", "recurrentgemma-2b",
                             "falcon-mamba-7b", "phi-3-vision-4.2b",
                             "qwen2-7b", "stablelm-1.6b", "starcoder2-3b",
-                            "whisper-small"]
+                            "whisper-small", "dbrx-132b",
+                            "llama4-maverick-400b-a17b"]
+    assert sorted(SERVED_ARCHS) == sorted(ARCH_IDS)
     for arch in ARCH_IDS:
-        if arch in SERVED_ARCHS:
-            check_ported(get_config(arch))
-            continue
+        check_ported(get_config(arch))
+        capped = dataclasses.replace(get_reduced(arch),
+                                     attn_logit_softcap=30.0)
         with pytest.raises(NotImplementedError):
-            check_ported(get_config(arch))
+            check_ported(capped)
         with pytest.raises(NotImplementedError):
-            Transformer(get_reduced(arch), "cpu")
-        with pytest.raises(SystemExit):
-            serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+            Transformer(capped, "cpu")
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "no-such-arch", "--reduced", "--device", "cpu"])
 
 
 # ---- the roofline ----------------------------------------------------------------
