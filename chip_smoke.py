@@ -7,7 +7,7 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero (no phase's failure is caught):
 
 1. device: the card's name and power limit;
-2. build: every ``src/repro_torch/csrc/*.cu`` (seven sources) compiled with
+2. build: every ``src/repro_torch/csrc/*.cu`` (eight sources) compiled with
    nvcc for sm_90a, all at once; the tensor-core flash prefill's SASS must
    show both products as wgmma (HGMMA) at each head_dim and its loads as
    TMA;
@@ -149,6 +149,30 @@ non-zero (no phase's failure is caught):
    ``tests/test_torch_spacemap.py``, ``tests/test_torch_ir_passes.py`` and
    ``tests/test_torch_trace.py``.
 
+9. training: the backward kernels against their plain versions on the
+   card, in bf16 and fp32 within TOL: flash attention's (dq, dk, dv, and
+   the log-sum-exp its forward kernels now write) at qwen2-7b's 8 x 1024
+   (GQA 28:4, D 128, causal), stablelm-1.6b's D 64 MHA, phi-3-vision's D 96
+   at 2048 positions, whisper-small's 1500 x 1500 unmasked and 448 x 1500
+   cross, a chunk mask, ragged lengths, D 16 and 32 and G 1, 4, 7 and 12;
+   RMSNorm's (dx, dw) at 8192 x 3584 and 8192 x 2048 and two small shapes;
+   both timed at qwen2-7b's shape beside their plain version and a library
+   call the port never calls (SDPA's backward, ``F.rms_norm``'s autograd
+   backward).  Then the slice's main path: ``make_train_step`` trains
+   qwen2-7b at its published widths and 8 of its 28 layers (bf16, 8 x 1024
+   tokens, AdamW with fp32 moments, lr 1e-3) for 4 steps from seeded random
+   weights, each step's launches exact (RMSNorm 17 forward and 17
+   backward, flash attention 8 ``tc_prefill`` forwards with the
+   log-sum-exp and 8 backward), every parameter's gradient finite and
+   non-zero, the loss finite and falling or flat; step ms, tokens/s, peak
+   memory and the share of the step's FLOP bound.  Then the gradient check
+   (2 layers at the same widths: the bf16 kernel path's gradients against
+   fp32 ones, leaf by leaf, within FLOOR_MULT times the bf16 plain path's
+   distance), the reference's four training tests
+   (``tests/test_system.py:54-99``) through ``train_loop`` on the card, and
+   recurrentgemma-2b and falcon-mamba-7b refusing to train there (their
+   scans have no backward kernel yet).
+
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
 contract line.  ``--label-sweep`` runs phases 1-2 and then only phase 3's
@@ -160,6 +184,7 @@ at head_dim 96 and 128 over a 2049-key cache, to place the plan's R_MAX and
 its split rule; no contract line.  ``--scan-sweep`` runs phases 1-2 and then
 only both RG-LRU entries at recurrentgemma-2b's prefill shape over the
 ring's tiles (SCAN_SWEEP_*), bf16 and fp32, to place the plan's TILES; no
+contract line.  ``--train-only`` runs phases 1-2 and then only phase 9; no
 contract line.
 
 Before the last line: one JSON line ``{"kernels": [...]}`` and the
@@ -195,7 +220,10 @@ from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import DECODE_IMPLS  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import _forward as flash_forward  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import plan as flash_plan  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ga_labels.ops import ga_labels  # noqa: E402
 from repro_torch.kernels.ga_labels.ops import card as ga_card  # noqa: E402
@@ -211,14 +239,19 @@ from repro_torch.kernels.rglru_scan.ops import rglru_gated, rglru_scan  # noqa: 
 from repro_torch.kernels.rglru_scan.ref import rglru_gated_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_gates_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
-from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import plan as rms_plan  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import variants as rms_variants  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticTokenPipeline  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import TrainRunConfig, train_loop  # noqa: E402
 from repro_torch.models.moe import MoE, moe_slots_ref  # noqa: E402
 from repro_torch.models.moe import dispatch as moe_dispatch  # noqa: E402
-from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.models.transformer import Transformer, loss_fn  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
+from repro_torch.runtime import FaultInjector  # noqa: E402
 from repro_torch.search import SearchSession, SearchSpec  # noqa: E402
 from repro_torch.search import build_workload  # noqa: E402
 
@@ -288,9 +321,12 @@ SERVE_REL_TOL_FP32 = 1e-4
 # the kernels' launch counters; the residual RMSNorm form is counted apart
 COUNTERS = {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
             "rglru_scan": rglru_scan, "rglru_gated": rglru_gated,
-            "mamba_scan": mamba_scan, "ga_labels": ga_labels}
+            "mamba_scan": mamba_scan, "ga_labels": ga_labels,
+            "flash_attention_bwd": flash_attention_bwd,
+            "rmsnorm_bwd": rmsnorm_bwd}
 KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rglru_scan",
-           "rglru_gated", "mamba_scan", "ga_labels")
+           "rglru_gated", "mamba_scan", "ga_labels", "flash_attention_bwd",
+           "rmsnorm_bwd")
 # phase 6: the search runs and the reference's results for them (the JAX
 # package's ``repro.search.search`` with the same arguments; pinned equal
 # to it by tests/test_torch_ga_search.py)
@@ -1379,6 +1415,7 @@ def reset_counts() -> None:
         fused_rmsnorm.variant_launches, 0)
     flash_attention.impl_launches = dict.fromkeys(
         flash_attention.impl_launches, 0)
+    flash_attention.lse_launches = 0
     ga_labels.variant_launches = dict.fromkeys(ga_labels.variant_launches, 0)
     rglru_scan.variant_launches = dict.fromkeys(rglru_scan.variant_launches,
                                                 0)
@@ -1417,7 +1454,8 @@ def expected_launches(cfg, new: int) -> dict:
     return {"rmsnorm": norms * new, "rmsnorm_residual": 0,
             "flash_attention": sum(flash_calls(cfg, new)),
             "rglru_scan": 0, "rglru_gated": kinds.count("rglru") * new,
-            "mamba_scan": kinds.count("mamba"), "ga_labels": 0}
+            "mamba_scan": kinds.count("mamba"), "ga_labels": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 def expected_flash_impls(cfg, new: int) -> dict:
@@ -1461,7 +1499,12 @@ def kernel_kind(name: str) -> str:
     """A device kernel's short name: the port's kernels by their entry,
     cuBLAS's products as ``gemm``, PyTorch's by their function name."""
     low = name.lower()
-    for key, kind in (("gated<", "rglru_gated"), ("direct<", "rglru_scan"),
+    for key, kind in (("dkdv_kernel<", "flash_attention_bwd"),
+                      ("dq_kernel<", "flash_attention_bwd"),
+                      ("delta_kernel<", "flash_attention_bwd"),
+                      ("rmsnorm_bwd", "rmsnorm_bwd"),
+                      ("rmsnorm_dw", "rmsnorm_bwd"),
+                      ("gated<", "rglru_gated"), ("direct<", "rglru_scan"),
                       ("rglru_scan_kernel", "rglru_scan"),
                       ("flash", "flash_attention"), ("rmsnorm", "rmsnorm"),
                       ("mamba", "mamba_scan"), ("gemm", "gemm"),
@@ -2835,6 +2878,470 @@ def scan_sweep() -> None:
         torch.cuda.empty_cache()
 
 
+# ---- phase 9: training ------------------------------------------------------
+
+# the slice's run: qwen2-7b at its published widths and 8 of its 28 layers
+# (AdamW's state at full depth, 12 bytes a parameter, is 91 GB: more than
+# the card), bf16, 8 x 1024 tokens, AdamW with fp32 moments
+TRAIN_ARCH, TRAIN_LAYERS = "qwen2-7b", 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 4, 1e-3
+# the gradient check: the same widths at 2 layers, 2 x 1024 tokens
+GRAD_CHECK_LAYERS, GRAD_CHECK_BATCH = 2, 2
+# scratch checkpoints of the reference's restart test
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+def flash_bwd_cases() -> list:
+    """(name, (B, Sq, Skv, Hq, Hkv, D), causal, chunk): the training path's
+    masks (causal, chunk, none with Sq != Skv) at the eight attention
+    configs' head dims, ragged lengths, D 16 and 32 (the reduced configs),
+    and G (query heads a kv head) 1, 4, 7 and 12.  The first is qwen2-7b's
+    training shape, the timed one."""
+    return [
+        ("qwen2-7b 8x1024 G7", (8, 1024, 1024, 28, 4, 128), True, 0),
+        ("stablelm-1.6b 8x1024 MHA", (8, 1024, 1024, 32, 32, 64), True, 0),
+        ("phi-3-vision 2x2048 D96", (2, 2048, 2048, 32, 32, 96), True, 0),
+        ("whisper encoder 1500x1500", (8, 1500, 1500, 12, 12, 64), False, 0),
+        ("whisper cross 448x1500", (8, 448, 1500, 12, 12, 64), False, 0),
+        ("chunk 64", (2, 300, 300, 8, 2, 64), True, 64),
+        ("ragged causal G4", (2, 77, 77, 4, 1, 128), True, 0),
+        ("ragged unmasked G12", (2, 100, 150, 12, 1, 32), False, 0),
+        ("D16 causal", (2, 70, 70, 4, 2, 16), True, 0),
+        ("D32 G12 chunk", (2, 130, 130, 24, 2, 32), True, 48),
+    ]
+
+
+def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk) -> dict:
+    """q, k, v, o, dO and lse read once, dq, dk, dv written once; 2.5x the
+    forward's 4*D flops a visible (query, key) pair (the usual count of
+    the five products, S recomputed once)."""
+    fwd = flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=causal, chunk=chunk)
+    nbytes = (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D) * esize(dt) \
+        + 4 * B * Hq * Sq
+    return bound(nbytes, int(2.5 * fwd["flops"]), dt)
+
+
+def kernels_flash_bwd(timer: Timer, rn) -> list:
+    """Each ``flash_bwd_cases`` case in bf16 and fp32: the forward kernel
+    with its log-sum-exp (the plan's prefill kernel) against the plain
+    version's output and ``logsumexp`` of its scaled, masked scores, then
+    the backward kernel's dq, dk and dv against ``attention_bwd_ref`` on the
+    same q, k, v, o, lse and dO; all within TOL.  Timed at qwen2-7b's shape
+    in bf16: the kernel, the plain version and SDPA's backward (forward and
+    backward minus forward), which the port never calls."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for i, (name, (B, Sq, Skv, Hq, Hkv, D), causal, chunk) in \
+                enumerate(flash_bwd_cases()):
+            q, k, v = rn(B, Sq, Hq, D, dt=dt), rn(B, Skv, Hkv, D, dt=dt), \
+                rn(B, Skv, Hkv, D, dt=dt)
+            do = rn(B, Sq, Hq, D, dt=dt)
+            before = dict(flash_attention.impl_launches)
+            o, lse = flash_forward(q, k, v, causal=causal, window=0,
+                                   chunk=chunk, q_offset=0, kv_len=None,
+                                   k_pos=None, impl=None, splits=None,
+                                   with_lse=True)
+            impl = next(n for n, c in flash_attention.impl_launches.items()
+                        if c > before[n])
+            ref_o, ref_lse = attention_ref(q, k, v, causal=causal,
+                                           chunk=chunk, return_lse=True)
+            err_o, _ = flash_check(name, o, ref_o, dt)
+            err_lse = close(lse, ref_lse, TOL[dt])
+            before = flash_attention_bwd.launches
+            grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                        chunk=chunk)
+            if flash_attention_bwd.launches != before + 1:
+                raise AssertionError("flash_attention_bwd: not counted")
+            refs = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                     chunk=chunk)
+            errs = {n: close(g, r, TOL[dt])
+                    for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+            case = {"case": name, "shape": [B, Sq, Skv, Hq, Hkv, D],
+                    "causal": causal, "chunk": chunk, "dtype": str(dt)[6:],
+                    "forward_impl": impl, "tol": TOL[dt],
+                    "max_abs_err": max(errs.values()), "err": errs,
+                    "forward_err": err_o, "lse_err": err_lse}
+            if dt == torch.bfloat16 and i == 0:
+                qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                              for t in (q, k, v))
+                dot = do.transpose(1, 2)
+
+                def sdpa_fwd():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+                def sdpa_fwd_bwd():
+                    return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+                t = in_turns(timer, {"fwd": sdpa_fwd, "both": sdpa_fwd_bwd})
+                case.update(
+                    ms=timer.ms(lambda: flash_attention_bwd(
+                        q, k, v, o, lse, do, causal=causal, chunk=chunk)),
+                    plain_ms=timer.ms(lambda: attention_bwd_ref(
+                        q, k, v, o, lse, do, causal=causal, chunk=chunk),
+                        reps=5),
+                    library_ms=t["both"] - t["fwd"],
+                    library_fwd_ms=t["fwd"], library_fwd_bwd_ms=t["both"],
+                    **flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal,
+                                     chunk))
+                del qt, kt, vt, dot
+            log(f"[train] flash_attention_bwd {case}")
+            cases.append(case)
+            del q, k, v, do, o, lse, grads, refs, ref_o, ref_lse
+            torch.cuda.empty_cache()
+    return cases
+
+
+def kernels_rmsnorm_bwd(timer: Timer, rn) -> list:
+    """The RMSNorm backward (dx, dw) against ``rmsnorm_bwd_ref`` in bf16
+    and fp32, within TOL: qwen2-7b's training rows (8 x 1024 by 3584), 8192
+    x 2048, a ragged d and fewer rows than the kernel's blocks.  Timed at
+    qwen2-7b's rows in bf16 beside the plain version and ``F.rms_norm``'s
+    autograd backward, which the port never calls."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for i, (n, dd) in enumerate(((8192, 3584), (8192, 2048), (300, 130),
+                                     (7, 4096))):
+            x, dy = rn(n, dd, dt=dt), rn(n, dd, dt=dt)
+            w = (rn(dd, dt=torch.float32) * 0.1 + 1.0).to(dt)
+            dx, dw = rmsnorm_bwd(x, w, dy)
+            rdx, rdw = rmsnorm_bwd_ref(x, w, dy)
+            errs = {"dx": close(dx, rdx, TOL[dt]), "dw": close(dw, rdw, TOL[dt])}
+            case = {"shape": [n, dd], "dtype": str(dt)[6:], "tol": TOL[dt],
+                    "max_abs_err": max(errs.values()), "err": errs}
+            if dt == torch.bfloat16 and i == 0:
+                xl = x.detach().requires_grad_()
+                wl = w.detach().requires_grad_()
+                yl = F.rms_norm(xl, (dd,), wl, eps=1e-6)
+                es = esize(dt)
+                case.update(
+                    ms=timer.ms(lambda: rmsnorm_bwd(x, w, dy)),
+                    plain_ms=timer.ms(lambda: rmsnorm_bwd_ref(x, w, dy)),
+                    library_ms=timer.ms(lambda: torch.autograd.grad(
+                        yl, (xl, wl), dy, retain_graph=True)),
+                    # x and dy read, dx written, w read and dw written;
+                    # ~10 fp32 operations an element
+                    **bound((3 * n * dd + 2 * dd) * es, 10 * n * dd,
+                            torch.float32))
+                del xl, wl, yl
+            log(f"[train] rmsnorm_bwd {case}")
+            cases.append(case)
+    return cases
+
+
+def train_flops(model, batch: int, seq: int) -> float:
+    """A training step's operations: 6 per parameter and token of every
+    matrix the tokens go through (the layers' and the unembedding; the
+    embedding is a lookup), plus attention's products, 4 * D a visible
+    (query, key) pair forward and 2.5x that backward."""
+    cfg = model.cfg
+    per_layer = sum(p.numel() for p in model.layers[0].parameters())
+    unembed = cfg.d_model * cfg.vocab
+    pairs = batch * cfg.n_heads * seq * (seq + 1) // 2
+    attn = 3.5 * 4 * cfg.resolved_head_dim * pairs * cfg.n_layers
+    return 6.0 * batch * seq * (per_layer * cfg.n_layers + unembed) + attn
+
+
+def expected_train_launches(cfg) -> dict:
+    """One training step of an attention-only RMSNorm model: every norm
+    (two a layer and the final one) and every attention once forward and
+    once backward; the forward's attention on the tensor cores with its
+    log-sum-exp (bf16 at head_dim 64-128)."""
+    norms = 2 * cfg.n_layers + 1
+    counts = dict.fromkeys(KERNELS, 0)
+    counts.update(rmsnorm=norms, rmsnorm_bwd=norms,
+                  flash_attention=cfg.n_layers,
+                  flash_attention_bwd=cfg.n_layers)
+    return counts
+
+
+def grads_finite_nonzero(model) -> dict:
+    """Per parameter: a gradient, all finite, not all zero."""
+    bad = {n: "none" if p.grad is None else
+           "non-finite" if not bool(torch.isfinite(p.grad).all()) else
+           "zero" if not bool(p.grad.any()) else None
+           for n, p in model.named_parameters()}
+    return {n: why for n, why in bad.items() if why}
+
+
+def train_batch(cfg, batch: int, seq: int, step: int, seed: int = 1) -> dict:
+    data = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
+    return {k: torch.from_numpy(v).to(DEV)
+            for k, v in data.global_batch_at(step).items()}
+
+
+def train_run() -> dict:
+    """The slice's main path: ``make_train_step`` on qwen2-7b (TRAIN_LAYERS
+    layers, published widths, bf16, seeded random weights) for TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ tokens.  The counts are set to 0 just
+    before the steps and read just after; each step's launches must be
+    exactly ``expected_train_launches`` (all RMSNorms ``vector``, all
+    attention forwards ``tc_prefill`` with the log-sum-exp), every
+    parameter's gradient finite and non-zero after each step, and the loss
+    finite and falling or flat.  Then one more step under the profiler
+    (device ms by kernel, the idle share) and AdamW's update alone, timed
+    on that step's gradients."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    model = Transformer(cfg, DEV, seed=0, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    step, opt_init = make_train_step(
+        model, AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype))
+    opt = opt_init()
+    batches = [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s)
+               for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expect = expected_train_launches(cfg)
+    reset_counts()
+    metrics, step_ms, per_step, missing = [], [], [], []
+    for s in range(TRAIN_STEPS):
+        before = read_counts()
+        impls = dict(flash_attention.impl_launches)
+        lse0, var0 = flash_attention.lse_launches, dict(
+            fused_rmsnorm.variant_launches)
+        t0 = time.perf_counter()
+        opt, m = step(opt, batches[s])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        now = read_counts()
+        got = {k: now[k] - before[k] for k in KERNELS}
+        per_step.append(got)
+        if got != expect:
+            raise AssertionError(f"train step {s}: launches {got} != {expect}")
+        tc = flash_attention.impl_launches["tc_prefill"] - impls["tc_prefill"]
+        vec = fused_rmsnorm.variant_launches["vector"] - var0["vector"]
+        if tc != cfg.n_layers or flash_attention.lse_launches - lse0 != \
+                cfg.n_layers or vec != expect["rmsnorm"]:
+            raise AssertionError(f"train step {s}: {tc} tc_prefill, "
+                                 f"{flash_attention.lse_launches - lse0} "
+                                 f"with lse, {vec} vector norms")
+        missing.append(grads_finite_nonzero(model))
+    launches = read_counts()
+    flash_impls = dict(flash_attention.impl_launches)
+    lse_launches = flash_attention.lse_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # after the counted steps: one more step under the profiler, then
+    # AdamW alone on that step's gradients (it moves the weights again)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, _ = step(opt, batches[0])
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    breakdown = device_breakdown(prof.events(), host_ms)
+    del prof
+    params = dict(model.named_parameters())
+    grads = {n: p.grad for n, p in params.items()}
+    adam_cfg = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
+    adamw_ms = Timer().ms(lambda: adamw_update(params, grads, opt["adam"],
+                                               adam_cfg), reps=3)
+    del grads
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    flops = train_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    steady = statistics.mean(step_ms[1:])
+    bound_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "loss": losses,
+           "grad_norm": gnorms, "first_step_ms": step_ms[0],
+           "step_ms": step_ms[1:], "steady_step_ms": steady,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+           "step_flops": flops, "step_bound_ms": bound_ms,
+           "share_of_bound": bound_ms / steady, "peak_mem_gb": peak_gb,
+           "launches": launches, "launches_per_step": per_step[0],
+           "flash_impls": flash_impls,
+           "lse_launches": lse_launches,
+           "params_without_finite_nonzero_grad": missing,
+           "profiled_step": {k: breakdown[k] for k in (
+               "device_ms", "idle_share", "by_kernel_ms")},
+           "profiled_step_host_ms": host_ms, "adamw_update_ms": adamw_ms}
+    log(f"[train] {TRAIN_ARCH} {json.dumps(res)}")
+    if any(missing):
+        raise AssertionError(f"train: parameters without a finite non-zero "
+                             f"gradient: {missing}")
+    if not all(np.isfinite(losses)) or not losses[-1] <= losses[0]:
+        raise AssertionError(f"train: loss {losses} not finite and falling "
+                             f"or flat")
+    del model, opt, step, batches, metrics
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside: the model path's RMSNorm and attention take their plain
+    versions on the card (autograd differentiates them), for the rounding
+    floor of the gradient check only."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common as common_mod
+    saved = attn_mod.flash_attention, common_mod.fused_rmsnorm
+    attn_mod.flash_attention = attention_ref
+    common_mod.fused_rmsnorm = rmsnorm_ref
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention, common_mod.fused_rmsnorm = saved
+
+
+def loss_grads(model, batch) -> tuple:
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_fn(model, batch)[0]
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in
+                         model.named_parameters()}
+
+
+def grad_check() -> dict:
+    """One step's gradients of qwen2-7b at its widths and GRAD_CHECK_LAYERS
+    layers: the bf16 kernel path against the fp32 gradients of the same
+    weights and batch (the fp32 kernel path), leaf by leaf, by the rule
+    ``serve_check`` applies to logits: relative RMS error within FLOOR_MULT
+    times the bf16 rounding floor, the same distance of the bf16 plain path
+    (autograd through ``attention_ref`` and ``rmsnorm_ref``, on the
+    card)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=GRAD_CHECK_LAYERS)
+    batch = train_batch(cfg, GRAD_CHECK_BATCH, TRAIN_SEQ, 0)
+    model = Transformer(cfg, DEV, seed=5, trainable=True)
+    reset_counts()
+    loss_k, g_k = loss_grads(model, batch)
+    counts = read_counts()
+    if counts["flash_attention_bwd"] != cfg.n_layers or \
+            counts["rmsnorm_bwd"] != 2 * cfg.n_layers + 1:
+        raise AssertionError(f"grad check: launches {counts}")
+    with plain_kernels():
+        reset_counts()
+        loss_p, g_p = loss_grads(model, batch)
+        if any(read_counts().values()):
+            raise AssertionError("grad check: the plain path launched a "
+                                 "kernel")
+    model32 = Transformer(dataclasses.replace(cfg, param_dtype="float32"),
+                          DEV, seed=5, trainable=True)
+    model32.load_state_dict({n: t.float()
+                             for n, t in model.state_dict().items()})
+    del model
+    loss_32, g_32 = loss_grads(model32, batch)
+    del model32
+    leaves, worst = {}, 0.0
+    for n in g_32:
+        err, floor = rel_rms(g_k[n], g_32[n]), rel_rms(g_p[n], g_32[n])
+        leaves[n] = {"kernel_vs_fp32": err, "plain_bf16_vs_fp32": floor,
+                     "ratio": err / floor if floor else float("inf")}
+        worst = max(worst, leaves[n]["ratio"])
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "tokens": [GRAD_CHECK_BATCH, TRAIN_SEQ],
+           "loss": {"bf16_kernels": loss_k, "bf16_plain": loss_p,
+                    "fp32": loss_32},
+           "limit_ratio": FLOOR_MULT, "worst_ratio": worst, "leaves": leaves}
+    log(f"[train] grad check {json.dumps(res)}")
+    bad = {n: v for n, v in leaves.items() if not v["ratio"] <= FLOOR_MULT}
+    if bad:
+        raise AssertionError(f"grad check: leaves beyond {FLOOR_MULT} x the "
+                             f"bf16 floor: {bad}")
+    del g_k, g_p, g_32
+    torch.cuda.empty_cache()
+    return res
+
+
+def tiny_run(name: str, **kw) -> TrainRunConfig:
+    """tests/test_system.py's ``_tiny_run`` on the card: reduced
+    stablelm-1.6b in fp32."""
+    cfg = dataclasses.replace(get_reduced("stablelm-1.6b"),
+                              param_dtype="float32")
+    defaults = dict(cfg=cfg, steps=24, global_batch=4, seq_len=32, lr=2e-3,
+                    save_every=8, log_every=100,
+                    ckpt_dir=str(TRAIN_DIR / name), device=DEV)
+    defaults.update(kw)
+    return TrainRunConfig(**defaults)
+
+
+def reference_training_tests() -> dict:
+    """tests/test_system.py's four training tests through the port's
+    ``train_loop`` on the card (its kernels: fp32 flash on ``simt`` with
+    the log-sum-exp and its backward; qwen2-7b's RMSNorms), then
+    recurrentgemma-2b and falcon-mamba-7b refusing to train on the card."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    quiet = lambda *a: None   # noqa: E731
+    res = {}
+    t0 = time.perf_counter()
+    h = train_loop(tiny_run("learn", steps=60, global_batch=8, seq_len=64,
+                            lr=3e-3, ckpt_dir=None, log_every=20),
+                   log=quiet)["history"]["loss"]
+    res["learns"] = {"loss": h, "drop": h[0] - h[-1], "need": 0.7}
+    if not h[-1] < h[0] - 0.7:
+        raise AssertionError(f"training_learns: {h}")
+    out_a = train_loop(tiny_run("a"), log=quiet)
+    inj = FaultInjector(fail_at_steps=[13])
+    out_b = train_loop(tiny_run("b"), injector=inj, log=quiet)
+    if out_b["restarts"] != 1 or inj.fired != [13]:
+        raise AssertionError(f"restart: {out_b['restarts']} restarts, fired "
+                             f"{inj.fired}")
+    pa = out_a["state"]["model"].state_dict()
+    pb = out_b["state"]["model"].state_dict()
+    diff = max(close(pb[n], pa[n], 1e-5) for n in pa)
+    res["restart"] = {"restarts": out_b["restarts"], "fired": inj.fired,
+                      "max_abs_param_diff": diff, "tol": 1e-5}
+    h = train_loop(tiny_run("gc", steps=60, global_batch=8, seq_len=64,
+                            lr=3e-3, grad_compression=True, ckpt_dir=None),
+                   log=quiet)["history"]["loss"]
+    res["grad_compression_learns"] = {"loss": h, "drop": h[0] - h[-1],
+                                      "need": 0.6}
+    if not h[-1] < h[0] - 0.6:
+        raise AssertionError(f"grad compression: {h}")
+    cfg = dataclasses.replace(get_reduced("qwen2-7b"), param_dtype="float32")
+    base = TrainRunConfig(cfg=cfg, steps=6, global_batch=8, seq_len=32,
+                          lr=1e-3, log_every=1, device=DEV)
+    l1 = train_loop(base, log=quiet)["history"]["loss"]
+    l4 = train_loop(dataclasses.replace(base, microbatches=4),
+                    log=quiet)["history"]["loss"]
+    gap = max(abs(a - b) for a, b in zip(l1, l4))
+    res["microbatches"] = {"loss_1": l1, "loss_4": l4, "max_diff": gap,
+                           "tol": "2e-4 abs + rel"}
+    if not np.allclose(l4, l1, rtol=2e-4, atol=2e-4):
+        raise AssertionError(f"microbatches: {l1} vs {l4}")
+    refused = {}
+    for arch in ("recurrentgemma-2b", "falcon-mamba-7b"):
+        model = Transformer(get_reduced(arch), DEV, trainable=True)
+        toks = torch.zeros(2, 8, dtype=torch.long, device=DEV)
+        try:
+            loss_fn(model, {"tokens": toks, "labels": toks})[0].backward()
+        except NotImplementedError as e:
+            refused[arch] = str(e)
+        else:
+            raise AssertionError(f"{arch} trained on the card without a "
+                                 f"scan backward")
+    res["recurrent_refused"] = refused
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[train] reference tests {json.dumps(res)}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return res
+
+
+def phase_train() -> tuple:
+    """Phase 9: (kernel rows, runs).  The kernels first (the backward ones
+    and the forward's log-sum-exp), then the main path's run, the gradient
+    check and the reference's training tests."""
+    timer = Timer()
+    g = torch.Generator(device=DEV).manual_seed(4321)
+
+    def rn(*shape, dt):
+        return torch.randn(*shape, generator=g, device=DEV).to(dt)
+
+    rows = {"flash_attention_bwd": kernels_flash_bwd(timer, rn),
+            "rmsnorm_bwd": kernels_rmsnorm_bwd(timer, rn)}
+    del timer
+    torch.cuda.empty_cache()
+    run = train_run()
+    grad_check()
+    reference_training_tests()
+    return rows, {f"train {TRAIN_ARCH} {TRAIN_LAYERS} layers": run}
+
+
 def kernel_line(rows: dict, runs: dict) -> dict:
     """One entry per kernel; its top-level numbers are those of its first
     timed case (a serve shape in bf16, the scans in fp32 as the models run
@@ -2873,6 +3380,17 @@ def kernel_line(rows: dict, runs: dict) -> dict:
         "ga_labels": ("src/repro_torch/csrc/ga_labels.cu",
                       "src/repro/core/population.py:598 (_build_jax_labels, "
                       "jitted JAX, no pallas_call; body :619-646)"),
+        "flash_attention_bwd": (
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "backward of " + flash + ": no TPU counterpart, the reference "
+            "differentiates its plain attention "
+            "(src/repro/models/attention.py:149-176) through XLA"),
+        "rmsnorm_bwd": (
+            "src/repro_torch/csrc/rmsnorm.cu (rmsnorm_bwd)",
+            "backward of src/repro/kernels/rmsnorm/kernel.py:34 "
+            "(rmsnorm_kernel): no TPU counterpart, the reference "
+            "differentiates its plain rmsnorm "
+            "(src/repro/models/common.py:177-181) through XLA"),
     }
     # (entry, cases, launches by run)
     entries = []
@@ -2888,7 +3406,8 @@ def kernel_line(rows: dict, runs: dict) -> dict:
                              for r, res in runs.items()}))
     out = []
     for name, cases, by_run in entries:
-        source, replaces = meta[name.removeprefix("flash_attention_")]
+        source, replaces = meta.get(name) or \
+            meta[name.removeprefix("flash_attention_")]
         main = next(c for c in cases if "ms" in c)
         # phase 7's spawned islands launch in their own processes: counted
         # from their engine stats, apart from this process's counters
@@ -2923,6 +3442,9 @@ def main(argv=None) -> int:
                     help="build, then only both RG-LRU entries over the "
                          "ring's tiles at recurrentgemma-2b's prefill shape "
                          "(no contract line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then only phase 9, training (no contract "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2945,6 +3467,10 @@ def main(argv=None) -> int:
     if args.scan_sweep:
         scan_sweep()
         return 0
+    if args.train_only:
+        phase_train()
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     timer = Timer()
     rows = phase_kernels(timer)
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
@@ -2960,6 +3486,10 @@ def main(argv=None) -> int:
     runs.update(phase_service())
     log(f"[time] service done at {time.perf_counter() - t0:.1f} s")
     runs.update(phase_daemon())
+    log(f"[time] daemon done at {time.perf_counter() - t0:.1f} s")
+    train_rows, train_runs = phase_train()
+    rows.update(train_rows)
+    runs.update(train_runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rows, runs)))
     print(smi)

@@ -1,4 +1,4 @@
-"""Reference params -> the port's ``Transformer`` state dict.
+"""Reference params <-> the port's ``Transformer`` state dict.
 
 The reference groups a model's layers into *segments*, maximal runs of a
 repeated pattern of layer kinds (``segments`` below, a copy of
@@ -16,12 +16,18 @@ leaf in its own dtype.  An ``is_encdec`` config also carries
 ``dec_pos_embed`` and the encoder: ``enc/pos_embed``, ``enc/final_norm``
 and its layers, stacked as one segment of ``n_enc_layers`` bidirectional
 layers (``enc/segments/seg0/pos0``), into ``enc.layers.<i>``.  Leaves arrive as numpy arrays (the
-tests convert the JAX pytree with ``np.asarray``), so this module needs no
-JAX.
+tests convert the JAX pytree with ``np.asarray``) or as tensors (a
+checkpoint read by ``repro_torch.checkpoint``), so this module needs no
+JAX.  ``params_to_jax`` is the inverse: it restacks a state dict (or
+anything keyed like one: AdamW's moments, the error-feedback residuals)
+into the reference's tree, so a checkpoint of the port's training state has
+the reference's leaf names.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Tuple
+
+import re
 
 import numpy as np
 import torch
@@ -56,6 +62,8 @@ def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16, bit-cast
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -111,7 +119,8 @@ def _unstack(state: Dict[str, torch.Tensor], prefix: str, segs: Mapping,
                              f"pattern {pattern}")
         for pi in range(len(pattern)):
             for path, stacked in _flatten(seg[f"pos{pi}"]).items():
-                stacked = np.asarray(stacked)
+                if not isinstance(stacked, torch.Tensor):
+                    stacked = np.asarray(stacked)
                 if stacked.shape[0] != reps:
                     raise ValueError(
                         f"seg{si}/pos{pi}/{path}: {stacked.shape[0]} layers "
@@ -120,3 +129,72 @@ def _unstack(state: Dict[str, torch.Tensor], prefix: str, segs: Mapping,
                     i = offset + r * len(pattern) + pi
                     state[f"{prefix}{i}.{path}"] = _tensor(stacked[r])
         offset += reps * len(pattern)
+
+
+_LAYER = re.compile(r"^(enc\.)?layers\.(\d+)\.(.+)$")
+
+
+def _layouts(cfg: ModelConfig) -> Dict[str, List[Tuple[Tuple[str, ...], int]]]:
+    """The segment layout of the decoder's (``layers.``) and the encoder's
+    (``enc.layers.``) stacks."""
+    out = {"": segments(cfg)}
+    if cfg.is_encdec:
+        out["enc."] = [(("attn_bidir",), cfg.n_enc_layers)]
+    return out
+
+
+def _slot(layout, i: int) -> Tuple[int, int, int]:
+    """(segment, pattern position, repeat) of layer i."""
+    offset = 0
+    for si, (pattern, reps) in enumerate(layout):
+        n = reps * len(pattern)
+        if i < offset + n:
+            r, pi = divmod(i - offset, len(pattern))
+            return si, pi, r
+        offset += n
+    raise ValueError(f"layer {i} beyond the config's {offset} layers")
+
+
+def _nest(tree: Dict, path: List[str], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict:
+    """The reference's params tree (nested dicts of tensors on the state's
+    device: the stacked leaves new, the others the state's own tensors,
+    detached) from a state dict of ``Transformer(cfg)``, or from any dict
+    keyed like one: each layer's leaf ``[enc.]layers.<i>.<path>`` is
+    stacked with the other repeats of its segment position into
+    ``[enc/]segments/seg{s}/pos{p}/<path>``, the other leaves nested by
+    their dotted names.  The inverse of ``params_from_jax``."""
+    check_ported(cfg)
+    layouts = _layouts(cfg)
+    tree: Dict = {}
+    stacks: Dict[Tuple[str, int, int, str], Dict[int, torch.Tensor]] = {}
+    for name, t in state.items():
+        m = _LAYER.match(name)
+        if m is None:
+            _nest(tree, name.split("."), t.detach())
+            continue
+        prefix, i, path = m.group(1) or "", int(m.group(2)), m.group(3)
+        si, pi, r = _slot(layouts[prefix], i)
+        stacks.setdefault((prefix, si, pi, path), {})[r] = t.detach()
+    for (prefix, si, pi, path), reps in stacks.items():
+        want = layouts[prefix][si][1]
+        if sorted(reps) != list(range(want)):
+            raise ValueError(f"{prefix}seg{si}/pos{pi}/{path}: repeats "
+                             f"{sorted(reps)}, the config has {want}")
+        keys = (["enc"] if prefix else []) + [
+            "segments", f"seg{si}", f"pos{pi}"] + path.split(".")
+        _nest(tree, keys, torch.stack([reps[r] for r in range(want)]))
+    return tree
+
+
+def decayed(state: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
+    """Whether the reference's AdamW decays each tensor: ``ndim >= 2`` of
+    its own leaf, where a layer's tensor has one more (leading) dim, its
+    segment's repeat axis."""
+    return {name: t.ndim + (_LAYER.match(name) is not None) >= 2
+            for name, t in state.items()}

@@ -16,6 +16,11 @@
 // (Skv,) is given (a rolling cache buffer); a key at a negative position is
 // masked, as the reference masks unwritten cache slots.
 //
+// Optionally (a training forward, for csrc/flash_attention_bwd.cu) it also
+// writes each query row's log-sum-exp of its scaled scores, lse = m +
+// log(l), fp32 (B, Hq, Sq); a row that saw no key (l = 0) writes -inf.
+// Serving passes no lse pointer.
+//
 // Layout: model layout, all contiguous: q, o (B, Sq, Hq, D); k, v
 // (B, Skv, Hkv, D), k and v 16-byte aligned.  Key slots >= kv_len are never
 // read.
@@ -52,6 +57,7 @@ struct Params {
   int Sq, Skv, Hq, Hkv;
   int causal, window, chunk, q_offset, kv_len;
   float scale;
+  float* lse;        // (B, Hq, Sq) log-sum-exp of each row, or nullptr
 };
 
 template <int D, int RPT>
@@ -213,6 +219,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int r = tr + 8 * i;
     if (r >= nq) continue;
+    if (p.lse && tc == 0)
+      p.lse[((size_t)b * p.Hq + h) * p.Sq + q0 + r] =
+          l[i] > 0.f ? m[i] + logf(l[i])
+                     : __int_as_float(0xff800000);
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = o + ((size_t)(b * p.Sq + q0 + r) * p.Hq + h) * D;
 #pragma unroll
@@ -263,17 +273,19 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// kpos: (Skv,) int32 key positions, or nullptr.
+// kpos: (Skv,) int32 key positions, or nullptr; lse: fp32 (B, Hq, Sq),
+// written when not null.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, const void* kpos,
                                    int dtype, int B, int Sq, int Skv, int Hq,
                                    int Hkv, int D, int causal, int window,
                                    int chunk, int q_offset, int kv_len,
-                                   float scale, void* stream) {
+                                   float scale, void* lse, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const Params p{static_cast<const int*>(kpos), Sq, Skv, Hq, Hkv, causal,
-                 window, chunk, q_offset, kv_len, scale};
+                 window, chunk, q_offset, kv_len, scale,
+                 static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return dispatch_d<float>(q, k, v, o, B, D, p, s);
   if (dtype == kBFloat16)

@@ -10,7 +10,12 @@
 // in bf16.  One numerical change: the probabilities P go into the second
 // product as bf16 (the reference keeps them fp32); l sums them in fp32.
 // Key positions (a rolling cache) are not taken here: the wrapper's plan
-// sends such calls to the SIMT kernel.
+// sends such calls to the SIMT kernel.  Optionally (a training forward, for
+// csrc/flash_attention_bwd.cu) it also writes each query row's log-sum-exp
+// of its scaled scores, lse = m + log(l) in fp32 (B, Hq, Sq): the running
+// max is kept in log2 units of the scaled score, so lse = (m2 + log2(l)) *
+// ln 2; a row that saw no key (l = 0) writes -inf.  Serving passes no lse
+// pointer, and the kernel then writes none.
 //
 // Bound: operations.  At chatglm3-6b's prefill (B 8, S 1024, D 128, causal)
 // each (query, key) pair costs 4*D flops against ~0.5 byte, far above the
@@ -93,6 +98,7 @@ struct Params {
   int Sq, Hq, Hkv;
   int causal, window, chunk, q_offset, kv_len;
   float scale_log2;                         // 1/sqrt(D) * log2(e)
+  float* lse;                               // (B, Hq, Sq) or nullptr
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -586,6 +592,11 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    const int row = row0 + 8 * i;
+    if (p.lse && lane % 4 == 0 && row < p.Sq)
+      p.lse[((size_t)b * p.Hq + h) * p.Sq + row] =
+          l_r[i] > 0.f ? (m_r[i] + log2f(l_r[i])) * 0.6931471805599453f
+                       : __int_as_float(0xff800000);
     l_r[i] = 1.f / fmaxf(l_r[i], 1e-30f);
   }
 #pragma unroll
@@ -661,7 +672,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // q, o (B, Sq, Hq, D), k, v (B, Skv, Hkv, D): bf16, contiguous, 16-byte
 // aligned; D in {64, 96, 128, 256}; Sq > 8 (fewer rows take the split decode
-// kernel).  Returns the CUDA error of the launch (0 on
+// kernel); lse: fp32 (B, Hq, Sq) written when not null.  Returns the CUDA error of the launch (0 on
 // success; cudaErrorInvalidValue for another D or a tensor map the driver
 // refuses).
 extern "C" int flash_prefill_tc_fwd(const void* q, const void* k,
@@ -669,14 +680,14 @@ extern "C" int flash_prefill_tc_fwd(const void* q, const void* k,
                                     int Skv, int Hq, int Hkv, int D,
                                     int causal, int window, int chunk,
                                     int q_offset, int kv_len, float scale,
-                                    void* stream) {
+                                    void* lse, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, Hq, D) || !make_map(&tk, k, B, Skv, Hkv, D) ||
       !make_map(&tv, v, B, Skv, Hkv, D))
     return cudaErrorInvalidValue;
   const Params p{Sq, Hq, Hkv, causal, window, chunk, q_offset, kv_len,
-                 scale * 1.4426950408889634f};
+                 scale * 1.4426950408889634f, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

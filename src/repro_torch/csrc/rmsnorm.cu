@@ -27,6 +27,25 @@
 //   not a multiple of a vector, pointers not aligned).
 //
 // Launch overhead bounds the decode shape (8 rows) in both.
+//
+// Backward of the plain form (rmsnorm_bwd; no TPU counterpart: the
+// reference differentiates its plain rmsnorm, src/repro/models/common.py:
+// 177-181, through XLA): from x, w and dy, with rstd = rsqrt(mean(x^2) +
+// eps) recomputed per row, xhat = x * rstd and g = dy * w in fp32,
+//   dx = rstd * (g - xhat * mean(g * xhat))     (cast to x's type)
+//   dw = sum over rows of dy * xhat              (cast to w's type)
+// Bound: bytes (x and dy read, dx written once: ~176 MB at qwen2-7b's 8192
+// x 3584 bf16 rows).  rmsnorm_bwd_kernel: a block of 256 threads a row, the
+// blocks walking rows blockIdx.x, + gridDim.x, ...; thread t holds columns
+// t, t + 256, ... of the row (C of them, a template argument) in registers,
+// both row sums (x^2 and g * x) in one block reduction, and its columns'
+// dw sums in registers across the block's rows, written at the end as the
+// block's partial row; rmsnorm_dw_kernel then sums the partials of each
+// column in block order.  dw's terms are fp32 and its sums fp64: in fp32
+// a sum of 8192 rows rounds at ~1e-6 of its running magnitude, which a
+// component that cancels shows as an error far beyond fp32's 2e-5 (8192
+// x 3584 rows, ~30 M fp64 additions: no cost that shows).  No atomics: two
+// runs give the same bits.
 #include "common.cuh"
 
 namespace {
@@ -284,6 +303,114 @@ cudaError_t vector_form(const void* x, const void* r, const void* w, void* y,
            : dispatch_vector<T, false>(x, r, w, y, res, n, d, G, V, eps, s);
 }
 
+
+// ---- backward ----------------------------------------------------------------
+
+// the sums of a and b over the block (256 threads), both at once
+__device__ __forceinline__ float2 block_sum2(float a, float b,
+                                             float2* warp_sums) {
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();               // the previous row's sums are read
+  if (lane == 0) warp_sums[warp] = make_float2(a, b);
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < kThreads / 32; ++i) {
+    t.x += warp_sums[i].x;
+    t.y += warp_sums[i].y;
+  }
+  return t;
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   double* __restrict__ partial, long long n, int d,
+                   float eps) {
+  __shared__ float2 warp_sums[kThreads / 32];
+  const int t = threadIdx.x;
+  float wv[C];
+  double dw[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = t + c * kThreads;
+    wv[c] = j < d ? to_f32(w[j]) : 0.f;
+    dw[c] = 0.0;
+  }
+  for (long long row = blockIdx.x; row < n; row += gridDim.x) {
+    const size_t base = (size_t)row * d;
+    float xv[C], gv[C], ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = t + c * kThreads;
+      xv[c] = j < d ? to_f32(x[base + j]) : 0.f;
+      gv[c] = j < d ? to_f32(dy[base + j]) : 0.f;
+      ss += xv[c] * xv[c];
+      gx += gv[c] * wv[c] * xv[c];
+    }
+    const float2 sums = block_sum2(ss, gx, warp_sums);
+    const float rstd = 1.f / sqrtf(sums.x / d + eps);
+    const float c_mean = sums.y * rstd / d;     // mean(g * xhat)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = t + c * kThreads;
+      if (j >= d) continue;
+      const float xhat = xv[c] * rstd;
+      dx[base + j] = from_f32<T>(rstd * (gv[c] * wv[c] - xhat * c_mean));
+      dw[c] += (double)(gv[c] * xhat);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = t + c * kThreads;
+    if (j < d) partial[(size_t)blockIdx.x * d + j] = dw[c];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_dw_kernel(const double* __restrict__ partial, T* __restrict__ dw,
+                  int blocks, int d) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= d) return;
+  double acc = 0.0;
+  for (int b = 0; b < blocks; ++b) acc += partial[(size_t)b * d + j];
+  dw[j] = from_f32<T>((float)acc);
+}
+
+template <typename T, int C>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                       void* dw, double* partial, long long n, int d,
+                       int blocks, float eps, cudaStream_t s) {
+  rmsnorm_bwd_kernel<T, C><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), static_cast<T*>(dx), partial, n, d, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_dw_kernel<T><<<(d + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      partial, static_cast<T*>(dw), blocks, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_form(const void* x, const void* w, const void* dy, void* dx,
+                     void* dw, double* partial, long long n, int d, int blocks,
+                     float eps, cudaStream_t s) {
+  const int cols = (d + kThreads - 1) / kThreads;   // columns a thread
+#define RMS_C(cc)                                                          \
+  if (cols <= cc)                                                          \
+    return launch_bwd<T, cc>(x, w, dy, dx, dw, partial, n, d, blocks, eps, \
+                             s);
+  RMS_C(1) RMS_C(2) RMS_C(4) RMS_C(8) RMS_C(12) RMS_C(16) RMS_C(24) RMS_C(32)
+#undef RMS_C
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x, r, w, y, res in `dtype`: x, r, y, res (n, d) row-major, w (d,).
@@ -317,5 +444,24 @@ extern "C" int rmsnorm_vector_fwd(const void* x, const void* r,
     return vector_form<float>(x, r, w, y, res, n, d, G, V, eps, s);
   if (dtype == kBFloat16)
     return vector_form<__nv_bfloat16>(x, r, w, y, res, n, d, G, V, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward of the plain form: x, dy, dx (n, d) and w, dw (d,) in
+// `dtype`, d <= 8192; partial: fp64 scratch (blocks, d), blocks <= n the
+// first kernel's grid.  Returns the first CUDA error of the two launches.
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, void* partial, long long n,
+                           int d, float eps, int dtype, int blocks,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0 || d == 0) return 0;
+  if (blocks < 1 || blocks > n) return cudaErrorInvalidValue;
+  double* part = static_cast<double*>(partial);
+  if (dtype == kFloat32)
+    return bwd_form<float>(x, w, dy, dx, dw, part, n, d, blocks, eps, s);
+  if (dtype == kBFloat16)
+    return bwd_form<__nv_bfloat16>(x, w, dy, dx, dw, part, n, d, blocks, eps,
+                                   s);
   return cudaErrorInvalidValue;
 }

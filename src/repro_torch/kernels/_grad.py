@@ -1,0 +1,18 @@
+"""Refusing autograd where a kernel has no backward."""
+from __future__ import annotations
+
+import torch
+
+SCAN_BACKWARD = ("ROADMAP.md A, training: the backward of the RG-LRU and "
+                 "Mamba scans")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` for a CUDA launch under grad mode with
+    an input that requires grad: the kernel has no backward, and its output
+    would silently carry no gradient back."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: no backward kernel on CUDA yet ({SCAN_BACKWARD}); the "
+            f"inputs require grad and would be detached")

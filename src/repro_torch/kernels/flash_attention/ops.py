@@ -18,6 +18,19 @@ launches the kernel that :func:`plan` names, and every call adds one to
   128 or 256 without key positions, on the tensor cores (wgmma, TMA);
 - ``simt`` (``csrc/flash_attention.cu``): the rest of prefill (fp32, bf16 at
   head_dim 16 or 32, key positions), on the fp32 cores.
+
+Training: on CUDA tensors, a call under grad mode where q, k or v requires
+grad goes through ``FlashAttentionFn``.  Its forward is the prefill kernel
+of the plan (``tc_prefill`` or ``simt``; a call of at most 8 query rows
+goes to ``simt``: the decode kernels write no log-sum-exp and never run
+under autograd), which also writes each row's log-sum-exp (counted in
+``flash_attention.lse_launches``); its backward is ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``, counted in its ``launches``).  The
+backward takes the training path's masks only (causal, chunk or none, from
+position 0, every key written) at head_dim 16-128: a window, key positions,
+``q_offset``/``kv_len``, head_dim 256 or a forced decode kernel raise under
+grad, and nothing falls back to the plain version.  A CPU tensor's plain
+version is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -31,9 +44,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # any other head_dim raises
+BWD_HEAD_DIMS = (16, 32, 64, 96, 128)     # the backward kernel's
+_BWD_LATER = ("is not in the backward kernel yet (ROADMAP.md A, training: "
+              "flash backward at head_dim 256 and with a window)")
 TC_HEAD_DIMS = (64, 96, 128, 256)
 KV_TILE = 64            # keys of a tile in every kernel
 DECODE_MAX_SQ = 8       # query rows the decode kernels take
@@ -69,7 +86,7 @@ def _cdiv(a: int, b: int) -> int:
 
 def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
          kv_len: int, k_pos: bool = False, impl: Optional[str] = None,
-         splits: Optional[int] = None) -> Plan:
+         splits: Optional[int] = None, lse: bool = False) -> Plan:
     """The kernel for a call of these shapes (pure Python, no device);
     raises for a head_dim no kernel takes (not in ``HEAD_DIMS``).
 
@@ -81,7 +98,10 @@ def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
     MIN_BLOCKS blocks of the split kernel (one tile each unless the cache
     is long enough for more) or WARP_MIN_BLOCKS of the warp kernel (the
     tiles dealt evenly, and one split where the grid is already that
-    large: then no merge kernel runs)."""
+    large: then no merge kernel runs).  ``lse``: the forward of a training
+    call, which also writes each row's log-sum-exp: a prefill kernel, so a
+    call of at most 8 query rows goes to ``simt`` (no decode kernel may be
+    forced)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} must be one of "
                          f"{HEAD_DIMS}")
@@ -89,6 +109,11 @@ def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
         raise ValueError(f"flash_attention: impl {impl!r} can be forced only "
                          f"as one of {DECODE_IMPLS}, at most "
                          f"{DECODE_MAX_SQ} query rows")
+    if lse and (impl or splits):
+        raise ValueError("flash_attention: a decode kernel writes no "
+                         "log-sum-exp and cannot run under autograd")
+    if Sq <= DECODE_MAX_SQ and lse:
+        return Plan("simt")
     if Sq <= DECODE_MAX_SQ:
         rows = Hq // Hkv * Sq
         if impl is None:
@@ -138,7 +163,7 @@ def _simt_fn():
     """The C entry points, their libraries built and loaded at first use."""
     return _load("flash_attention", "flash_attention_fwd",
                  [ctypes.c_void_p] * 5 + [_i] * 12
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 @functools.cache
@@ -159,7 +184,35 @@ def _warp_fn():
 def _tc_fn():
     return _load("flash_prefill_tc", "flash_prefill_tc_fwd",
                  [ctypes.c_void_p] * 4 + [_i] * 11
+                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+
+
+@functools.cache
+def _bwd_fn():
+    return _load("flash_attention_bwd", "flash_attention_bwd",
+                 [ctypes.c_void_p] * 10 + [_i] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention on the card under autograd: the prefill kernel with the
+    log-sum-exp, then the backward kernel from the saved q, k, v, o, lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk):
+        o, lse = _forward(q, k, v, causal=causal, window=0, chunk=chunk,
+                          q_offset=0, kv_len=None, k_pos=None, impl=None,
+                          splits=None, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.chunk = causal, chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal, chunk=ctx.chunk)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -177,7 +230,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     all) are read; the rest are masked, as the reference masks unwritten
     cache slots.  ``impl`` and ``splits`` force a decode kernel and its key
     splits on a CUDA tensor (see :func:`plan`; chip_smoke.py compares and
-    times the kernels with them).
+    times the kernels with them).  Under grad mode with an input requiring
+    grad, a CUDA call goes through ``FlashAttentionFn`` (see the module's
+    note) or raises.
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -185,6 +240,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              k_pos=k_pos)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        D, Skv = q.shape[-1], k.shape[1]
+        if window or k_pos is not None or q_offset or kv_len not in (
+                None, Skv) or impl or splits or D not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention under autograd: window {window}, key "
+                f"positions {k_pos is not None}, q_offset {q_offset}, kv_len "
+                f"{kv_len}, forced kernel {impl}/{splits} or head_dim {D} "
+                f"{_BWD_LATER}")
+        return FlashAttentionFn.apply(q, k, v, causal, chunk)
+    return _forward(q, k, v, causal=causal, window=window, chunk=chunk,
+                    q_offset=q_offset, kv_len=kv_len, k_pos=k_pos, impl=impl,
+                    splits=splits, with_lse=False)[0]
+
+
+def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
+             impl, splits, with_lse):
+    """(o, lse (B, Hq, Sq) fp32 or None): the forward kernel's launch on CUDA
+    tensors (checks included)."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     kv_len = Skv if kv_len is None else int(kv_len)
@@ -212,8 +286,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"({Skv},) tensor on {q.device}")
     dtype = code(q, "flash_attention q")
     how = plan(B, Sq, Hq, Hkv, D, q.dtype, kv_len, k_pos is not None,
-               impl, splits)
+               impl, splits, with_lse)
     o = torch.empty_like(q)
+    lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     kpos = None if k_pos is None else k_pos.data_ptr()
     masks = (int(causal), window, chunk, int(q_offset), kv_len)
     scale = 1.0 / math.sqrt(D)
@@ -235,17 +312,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(err, name)
     elif how.impl == "tc_prefill":
         err = _tc_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       B, Sq, Skv, Hq, Hkv, D, *masks, scale, stream)
+                       B, Sq, Skv, Hq, Hkv, D, *masks, scale, lse_ptr,
+                       stream)
         _build.check(err, "flash_prefill_tc_fwd")
     else:
         err = _simt_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), kpos, dtype, B, Sq, Skv, Hq, Hkv, D,
-                         *masks, scale, stream)
+                         *masks, scale, lse_ptr, stream)
         _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
     flash_attention.impl_launches[how.impl] += 1
-    return o
+    flash_attention.lse_launches += with_lse
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        chunk: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
+    chunk=chunk)`` whose output was o and log-sum-exp lse (B, Hq, Sq), for
+    the output gradient do.  A CPU tensor takes ``attention_bwd_ref``; a
+    CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (delta, dK/dV and
+    dQ kernels), adding one to ``flash_attention_bwd.launches``."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {D} {_BWD_LATER}")
+    if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or \
+            o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (B, Hq, Sq) or Hkv == 0 or Hq % Hkv:
+        raise ValueError("flash_attention_bwd: shapes do not match")
+    if any(t.dtype != q.dtype for t in (k, v, o, do)) or \
+            lse.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: q, k, v, o, do share a dtype; "
+                        "lse is fp32")
+    tensors = (q, k, v, o, lse, do)
+    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention_bwd: inputs must be contiguous and "
+                         "on one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd: inputs must be 16-byte "
+                         "aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    err = _bwd_fn()(*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
+                    code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
+                    int(causal), chunk, 1.0 / math.sqrt(D),
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.impl_launches = dict.fromkeys(IMPLS, 0)
+flash_attention.lse_launches = 0   # forwards of training calls
+flash_attention_bwd.launches = 0

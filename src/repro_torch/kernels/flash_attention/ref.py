@@ -1,6 +1,7 @@
 """Plain PyTorch attention: the CPU path and the oracle of the CUDA kernels
 (counterpart: ``repro/kernels/flash_attention/ref.py``, in model layout and
-with the kernels' ``kv_len``); and, for the tests only, the decode kernels'
+with the kernels' ``kv_len``), with each row's log-sum-exp on request; the
+oracle of the backward kernel (``attention_bwd_ref``); and, for the tests only, the decode kernels'
 tile skipping and their arithmetic in plain PyTorch: the split kernel's
 split-then-merge and the warp kernel's per-warp online softmax, merged in
 the block, then over the splits."""
@@ -34,13 +35,15 @@ def _mask(Sq, Skv, device, *, causal, window, chunk, q_offset, kv_len,
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   chunk: int = 0, q_offset: int = 0,
                   kv_len: Optional[int] = None,
-                  k_pos: Optional[torch.Tensor] = None):
+                  k_pos: Optional[torch.Tensor] = None,
+                  return_lse: bool = False):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     Query i sits at position ``q_offset + i``, key slot j at position j or
     ``k_pos[j]``; slots ``j >= kv_len`` and keys at negative positions are
     masked.  Scores, softmax and the product with V are fp32; the result is
-    cast to q's dtype.
+    cast to q's dtype.  With ``return_lse``: (out, lse (B, Hq, Sq) fp32,
+    the log-sum-exp of each row's scaled, masked scores).
     """
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -54,8 +57,42 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
                  chunk=chunk, q_offset=q_offset, kv_len=kv_len, k_pos=k_pos)
     s.masked_fill_(~mask, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1) if return_lse else None
     out = torch.matmul(torch.softmax(s, dim=-1), vf)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      chunk: int = 0):
+    """(dq, dk, dv) of the attention the training path runs (queries from
+    position 0, every key slot written), by the explicit formulas the
+    backward kernel computes, in fp32: P = exp(scale * q.k - lse) over the
+    visible keys (0 elsewhere), delta = rowsum(dO * O) over the O the
+    forward returned (rounded to its dtype), dV = P^T dO, dS = P (dO V^T -
+    delta), dQ = scale * dS K, dK = scale * dS^T Q, dK and dV summed over
+    the G query heads of a kv head.  q, o, do (B, Sq, Hq, D); k, v (B, Skv,
+    Hkv, D); lse (B, Hq, Sq) fp32.  Outputs in the inputs' dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))  # B,Hq,Sq,D
+    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)     # B,Hq,Skv,D
+    vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    mask = _mask(Sq, Skv, q.device, causal=causal, window=0, chunk=chunk,
+                 q_offset=0, kv_len=Skv, k_pos=None)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * of).sum(-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = (torch.matmul(ds.transpose(-1, -2), qf) * scale).view(
+        B, Hkv, G, Skv, D).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).view(B, Hkv, G, Skv, D).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def decode_tiles(t0: int, t1: int, *, Sq: int, q_offset: int, kv_len: int,

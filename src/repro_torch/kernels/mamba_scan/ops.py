@@ -5,7 +5,8 @@ kernel ``mamba_scan_kernel`` (inputs already discretised); any S and Di, no
 padding, N in {4, 8, 16}.  Also returns the final state, which the Pallas
 kernel drops.  A CPU tensor takes the plain version (``ref.py``); a CUDA
 tensor launches the kernel, and every launch adds one to
-``mamba_scan.launches``.
+``mamba_scan.launches``.  The kernel has no backward yet: a CUDA call under
+grad mode whose inputs require grad raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
 STATE_SIZES = (4, 8, 16)
@@ -41,6 +43,7 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor,
         return mamba_scan_ref(da, dbx, c)
     if da.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {da.device}")
+    refuse_grad("mamba_scan", da, dbx, c)
     if da.dim() != 4 or dbx.shape != da.shape:
         raise ValueError(f"mamba_scan: da {tuple(da.shape)} and dbx "
                          f"{tuple(dbx.shape)} must both be (B, S, Di, N)")

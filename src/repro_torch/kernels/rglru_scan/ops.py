@@ -9,6 +9,8 @@
 
 Any S and W, no padding.  A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches a kernel, and never the plain version.
+Neither kernel has a backward yet: a CUDA call under grad mode whose inputs
+require grad raises ``NotImplementedError``.
 Each launch adds one to the wrapper's ``launches``; ``rglru_scan`` also
 counts by variant in ``rglru_scan.variant_launches``:
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.rglru_scan.ref import rglru_gated_ref, rglru_scan_ref
 
 _i = ctypes.c_int
@@ -202,6 +205,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
     how = plan(B, S, W, a.dtype, variant, align=_align((a, b)), tile=tile)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
+    refuse_grad("rglru_scan", a, b)
     h = torch.empty_like(a)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     ptrs = (a.data_ptr(), b.data_ptr(), h.data_ptr())
@@ -244,6 +248,7 @@ def rglru_gated(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
                tile=tile)
     if xc.device.type == "cpu":
         return rglru_gated_ref(xa, xi, xc, b_a, b_i, lam, h0)
+    refuse_grad("rglru_gated", xa, xi, xc, b_a, b_i, lam, h0)
     h = torch.empty_like(xc)
     h_last = torch.empty(B, W, dtype=torch.float32, device=xc.device)
     err = _fns().rglru_gated_fwd(

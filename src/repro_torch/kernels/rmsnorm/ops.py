@@ -13,6 +13,12 @@ variant that :func:`plan` names, and every launch adds one to
   a d that 16-byte vectors divide and 16-byte aligned tensors;
 - ``generic``: one block per row, scalar accesses, the row in shared
   memory; any d (the port's first design).
+
+Training: on a CUDA tensor, a call under grad mode whose x or w requires
+grad goes through ``RMSNormFn``, whose forward is the same launch and whose
+backward is ``rmsnorm_bwd`` (``csrc/rmsnorm.cu``'s backward entry, counted
+in ``rmsnorm_bwd.launches``); the residual form has no backward kernel and
+raises there.  A CPU tensor's plain version is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _vp = ctypes.c_void_p
 VARIANTS = ("vector", "generic")
@@ -38,6 +44,9 @@ GROUPS = (32, 64, 128, 256)   # threads a row may take (the block's warps)
 REG_BUDGET = 128
 VMAX = REG_BUDGET // 20  # vectors a thread holds (a template argument, 1-6)
 VTARGET = 4             # preferred vectors a thread, among equal fits
+BWD_BLOCKS = 264        # backward: blocks walking the rows (2 an H100 SM);
+                        # each writes a partial dw row the second kernel sums
+BWD_MAX_D = 8192        # backward: 256 threads x 32 columns of a row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,9 +123,29 @@ def _fns():
             ctypes.c_float, ctypes.c_int]
     lib.rmsnorm_fwd.argtypes = head + [_vp]
     lib.rmsnorm_vector_fwd.argtypes = head + [ctypes.c_int, ctypes.c_int, _vp]
-    for f in (lib.rmsnorm_fwd, lib.rmsnorm_vector_fwd):
+    lib.rmsnorm_bwd.argtypes = [_vp] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_int, _vp]
+    for f in (lib.rmsnorm_fwd, lib.rmsnorm_vector_fwd, lib.rmsnorm_bwd):
         f.restype = ctypes.c_int
-    return lib.rmsnorm_fwd, lib.rmsnorm_vector_fwd
+    return lib.rmsnorm_fwd, lib.rmsnorm_vector_fwd, lib.rmsnorm_bwd
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The plain form on the card: the forward kernel, then the backward
+    kernel from the saved x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, variant):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _launch(x, w, None, eps, variant)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy.contiguous(), eps=ctx.eps)
+        return dx, dw, None, None
 
 
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -125,12 +154,26 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
     """x: (..., D), w: (D,); residual: optional, like x, added in fp32 before
     the norm.  Returns y, or (y, x + residual) when a residual is given.
     ``variant`` forces a kernel (``vector`` or ``generic``) instead of the
-    plan's choice; the models never pass it."""
+    plan's choice; the models never pass it.  Under grad mode with x or w
+    requiring grad, the plain form goes through ``RMSNormFn`` (the residual
+    form raises)."""
     _check(variant)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, residual, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rmsnorm: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, residual)):
+        if residual is not None:
+            raise NotImplementedError(
+                "fused_rmsnorm: the residual form has no backward kernel (it "
+                "is on no model path: ROADMAP.md B7)")
+        return RMSNormFn.apply(x, w, eps, variant)
+    return _launch(x, w, residual, eps, variant)
+
+
+def _launch(x, w, residual, eps, variant):
+    """The forward kernel's launch on CUDA tensors (checks included)."""
     D = x.shape[-1]
     if w.shape != (D,):
         raise ValueError(f"fused_rmsnorm: w {tuple(w.shape)} != ({D},)")
@@ -154,7 +197,7 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
             w.data_ptr(), y.data_ptr(),
             None if res is None else res.data_ptr(), n, D, eps, dt)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    generic, vector = _fns()
+    generic, vector, _ = _fns()
     if how.variant == "vector":
         err = vector(*args, how.threads, how.vectors, stream)
         _build.check(err, "rmsnorm_vector_fwd")
@@ -169,6 +212,45 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
     return y, res
 
 
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6):
+    """The plain form's backward: x, dy (..., D), w (D,) -> (dx like x, dw
+    like w).  A CPU tensor takes ``rmsnorm_bwd_ref``; a CUDA tensor launches
+    ``rmsnorm_bwd`` (two kernels: dx with per-block fp64 partial dw rows,
+    then their sum in block order), adding one to
+    ``rmsnorm_bwd.launches``."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, w, dy, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd: unsupported device {x.device}")
+    D = x.shape[-1]
+    if w.shape != (D,) or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: w {tuple(w.shape)}, dy "
+                         f"{tuple(dy.shape)} do not match x {tuple(x.shape)}")
+    if not 0 < D <= BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: d {D} must be in 1..{BWD_MAX_D}")
+    dt = code(x, "rmsnorm_bwd x")
+    if w.dtype != x.dtype or dy.dtype != x.dtype:
+        raise TypeError("rmsnorm_bwd: w and dy must have x's dtype")
+    if any(t.device != x.device or not t.is_contiguous() for t in (x, w, dy)):
+        raise ValueError("rmsnorm_bwd: tensors must be contiguous and on one "
+                         "device")
+    n = x.numel() // D
+    dx = torch.empty_like(x)
+    if n == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    blocks = min(n, BWD_BLOCKS)
+    partial = torch.empty(blocks, D, dtype=torch.float64, device=x.device)
+    err = _fns()[2](x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                    dw.data_ptr(), partial.data_ptr(), n, D, eps, dt, blocks,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+rmsnorm_bwd.launches = 0
 fused_rmsnorm.launches = 0            # every launch
 fused_rmsnorm.residual_launches = 0   # the launches of the residual form
 fused_rmsnorm.variant_launches = dict.fromkeys(VARIANTS, 0)

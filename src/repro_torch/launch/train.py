@@ -1,0 +1,213 @@
+"""Training entry point: the train loop + data pipeline + async checkpointing +
+watchdog + bounded restarts.  Usable as a library (tests, chip_smoke.py)
+and as a CLI:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+        --layers 8 --steps 4 --batch 8 --seq 1024
+
+Counterpart: ``repro/launch/train.py`` (``TrainRunConfig``, ``train_loop``,
+``main``), with the reference's CLI plus ``--layers N`` (the first N layers
+of the published config, as ``launch/serve.py`` takes it) and ``--device``
+(default: the CUDA card, an error without one; ``--device cpu`` runs the
+plain path).  The loop is deterministic-resumable: batch t is a pure
+function of (seed, t), so restarting from step k replays nothing (see
+``repro_torch/data/pipeline.py``).  One card: no mesh.  The state is
+``{"model", "opt", "train_step"}``; a checkpoint holds it in the
+reference's tree (``{"params", "opt": {"adam", "ef"}}``, layers stacked by
+``convert.params_to_jax``), so either package restores the other's.  The
+loss is read on the host on a logging step only; the watchdog synchronises
+the card before it reads its clock.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.data import DataConfig, SyntheticTokenPipeline
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import FaultConfig, run_with_restarts
+
+
+@dataclasses.dataclass
+class TrainRunConfig:
+    cfg: ModelConfig
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    seed: int = 0
+    lr: float = 1e-3
+    microbatches: int = 1
+    grad_compression: bool = False
+    ckpt_dir: Optional[str] = None
+    save_every: int = 50
+    log_every: int = 10
+    device: DeviceLike = None       # None: the CUDA card
+
+
+def reference_tree(state: Dict, cfg: ModelConfig) -> Dict:
+    """The training state in the reference's checkpoint tree."""
+    adam = state["opt"]["adam"]
+    opt = {"adam": {"mu": params_to_jax(adam["mu"], cfg),
+                    "nu": params_to_jax(adam["nu"], cfg),
+                    "step": adam["step"]}}
+    if "ef" in state["opt"]:
+        opt["ef"] = params_to_jax(state["opt"]["ef"], cfg)
+    return {"params": params_to_jax(state["model"].state_dict(), cfg),
+            "opt": opt}
+
+
+@torch.no_grad()
+def load_reference_tree(state: Dict, tree: Dict, cfg: ModelConfig) -> None:
+    """Copy a restored reference tree into ``state`` in place."""
+    state["model"].load_state_dict(params_from_jax(tree["params"], cfg))
+    adam = state["opt"]["adam"]
+    for key in ("mu", "nu"):
+        for name, t in params_from_jax(tree["opt"]["adam"][key], cfg).items():
+            adam[key][name].copy_(t)
+    adam["step"] = tree["opt"]["adam"]["step"]
+    if "ef" in state["opt"]:
+        for name, t in params_from_jax(tree["opt"]["ef"], cfg).items():
+            state["opt"]["ef"][name].copy_(t)
+
+
+def train_loop(run: TrainRunConfig, injector=None,
+               fault: FaultConfig = FaultConfig(max_restarts=3,
+                                                step_deadline_s=300.0),
+               log=print) -> Dict[str, Any]:
+    """Run the supervised training loop; returns final state + history."""
+    cfg = run.cfg
+    device = resolve_device(run.device)
+    data = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=run.seq_len, global_batch=run.global_batch,
+        seed=run.seed + 1))
+    mgr = CheckpointManager(run.ckpt_dir) if run.ckpt_dir else None
+    history: Dict[str, list] = {"loss": [], "step": []}
+    opt_cfg = AdamWConfig(lr=run.lr, moment_dtype=cfg.moment_dtype)
+
+    def init_state():
+        model = Transformer(cfg, device, seed=run.seed, trainable=True)
+        train_step, opt_init = steps_lib.make_train_step(
+            model, opt_cfg, microbatches=run.microbatches,
+            grad_compression=run.grad_compression)
+        return {"model": model, "opt": opt_init(), "train_step": train_step}
+
+    def extra_inputs(batch_np):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in batch_np.items()}
+        B = batch["tokens"].shape[0]
+        if cfg.img_tokens:
+            g = torch.Generator(device=device).manual_seed(0)
+            batch["img_embeds"] = torch.randn(
+                B, cfg.img_tokens, cfg.d_model, generator=g,
+                device=device).to(torch.bfloat16)
+        if cfg.is_encdec:
+            g = torch.Generator(device=device).manual_seed(1)
+            batch["frames"] = torch.randn(
+                B, cfg.enc_seq, cfg.d_model, generator=g,
+                device=device).to(torch.bfloat16)
+        return batch
+
+    def step_fn(state, step):
+        batch = extra_inputs(data.global_batch_at(step))
+        opt, metrics = state["train_step"](state["opt"], batch)
+        if step % run.log_every == 0 or step == run.steps - 1:
+            loss = float(metrics["loss"])
+            history["loss"].append(loss)
+            history["step"].append(step)
+            log(f"step {step:5d}  loss {loss:.4f}  "
+                f"gnorm {float(metrics['grad_norm']):.3f}")
+        return dict(state, opt=opt)
+
+    def save_fn(state, step):
+        if mgr is not None:
+            mgr.save_async(step, reference_tree(state, cfg))
+
+    def restore_fn():
+        if mgr is None or mgr.latest_step() is None:
+            return None
+        mgr.wait()
+        state = init_state()
+        tree, step = mgr.restore(reference_tree(state, cfg))
+        load_reference_tree(state, tree, cfg)
+        return state, step
+
+    out = run_with_restarts(
+        total_steps=run.steps, init_state=init_state, step_fn=step_fn,
+        save_fn=save_fn, restore_fn=restore_fn,
+        save_every=run.save_every, fault=fault, injector=injector,
+        sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    if mgr is not None:
+        mgr.wait()
+    out["history"] = history
+    return out
+
+
+def main(argv=None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-test-sized config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's own)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--ckpt-dir")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises when there is no card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    run = TrainRunConfig(cfg=cfg, steps=args.steps, global_batch=args.batch,
+                         seq_len=args.seq, lr=args.lr, seed=args.seed,
+                         microbatches=args.microbatches,
+                         grad_compression=args.grad_compression,
+                         ckpt_dir=args.ckpt_dir, log_every=args.log_every,
+                         device=args.device)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    out = train_loop(run)
+    secs = time.time() - t0
+    print(f"done: {out['completed_steps']} steps, {out['restarts']} "
+          f"restarts, {secs:.1f}s; final loss {out['history']['loss'][-1]:.4f}")
+    steps_s = out["watchdog"].durations
+    summary = {
+        "arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "batch": args.batch, "seq": args.seq, "steps": out["completed_steps"],
+        "restarts": out["restarts"], "loss": out["history"]["loss"],
+        "step_ms": [t * 1e3 for t in steps_s],
+        # the first step builds the kernels and warms the allocator
+        "tokens_per_s": (args.batch * args.seq * (len(steps_s) - 1)
+                         / sum(steps_s[1:]) if len(steps_s) > 1 else None),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if device.type == "cuda" else None),
+    }
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

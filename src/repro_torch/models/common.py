@@ -25,7 +25,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:
-    """A frozen parameter (the port serves only)."""
+    """A parameter, frozen: serving builds no autograd graph.  Training
+    unfreezes a whole model (``Transformer(..., trainable=True)``)."""
     return torch.nn.Parameter(t, requires_grad=False)
 
 

@@ -34,7 +34,16 @@ the dtype, then cast to fp32.  Attention keeps its probabilities in fp32
 (the flash kernel's numerics), where the reference's dense path rounds them
 to the dtype before P.V; the two agree tightly in fp32 only.
 
-Other model features raise ``NotImplementedError`` naming their slice.
+Training: ``Transformer(..., trainable=True)`` unfreezes every parameter,
+``forward(..., return_aux=True)`` also returns the MoE load-balance loss
+summed over the layers (the reference's ``_run_segments`` sum), and
+``loss_fn`` is the reference's next-token cross entropy plus
+``aux_weight`` times that sum.  On the card, autograd runs through the
+kernels' own backward kernels (RMSNorm, flash attention); a kernel without
+one (the RG-LRU and Mamba scans) raises ``NotImplementedError`` when its
+inputs require grad on CUDA, so recurrentgemma-2b and falcon-mamba-7b
+train on the CPU only, through the plain versions.  Other model features
+raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
@@ -282,6 +291,13 @@ class Layer(nn.Module):
         """``enc``: the encoder's output (B, T, d), which a cross-attention
         layer projects to K/V (and keeps in ``cache``); without it such a
         layer reads them from ``cache`` (a decode step)."""
+        return self.run(x, pos, cache, enc)[0]
+
+    def run(self, x, pos: int = 0, cache: Optional[LayerCache] = None,
+            enc: Optional[torch.Tensor] = None):
+        """``forward``, returning (x, the MoE FFN's aux loss: an fp32 0-d
+        tensor, or None without one)."""
+        aux = None
         x = x + getattr(self, self.mixer)(self.norm1(x), pos, cache)
         if hasattr(self, "cross"):
             if enc is None:
@@ -294,8 +310,9 @@ class Layer(nn.Module):
         if hasattr(self, "mlp"):
             x = x + self.mlp(self.norm2(x))
         elif hasattr(self, "moe"):
-            x = x + self.moe(self.norm2(x))[0]
-        return x
+            y, aux = self.moe(self.norm2(x))
+            x = x + y
+        return x, aux
 
 
 class Encoder(nn.Module):
@@ -330,10 +347,12 @@ class Transformer(nn.Module):
     generator seeded with ``seed``.  Load reference weights with
     ``load_state_dict(params_from_jax(...))``.  An ``is_encdec`` model
     holds an ``Encoder`` (``enc``) and ``dec_pos_embed``, and each of its
-    layers cross attention."""
+    layers cross attention.  The parameters are frozen unless
+    ``trainable``."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
-                 seed: int = 0, generator: Optional[torch.Generator] = None):
+                 seed: int = 0, generator: Optional[torch.Generator] = None,
+                 trainable: bool = False):
         super().__init__()
         check_ported(cfg)
         device = resolve_device(device)
@@ -358,6 +377,7 @@ class Transformer(nn.Module):
             self.enc = Encoder(cfg, dtype, device, generator)
             self.dec_pos_embed = param(embed_init(
                 DEC_POSITIONS, cfg.d_model, dtype, device, generator))
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -414,18 +434,25 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, last: Optional[int] = None,
                 img_embeds: Optional[torch.Tensor] = None,
-                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frames: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         """tokens (B, S) -> logits (B, S, vocab) fp32, no cache; with
         ``last``, the logits of the last ``last`` positions only.  With
         image embeddings (B, N, d) the logits cover all N + S positions, the
         image ones first, as the reference's.  An ``is_encdec`` config
-        takes the frames (B, T, d) its decoder attends to."""
+        takes the frames (B, T, d) its decoder attends to.  With
+        ``return_aux``: (logits, the MoE aux loss summed over the layers,
+        fp32 0-d), as the reference's ``forward``."""
         x, enc = self._inputs(tokens, img_embeds, frames)
+        aux = torch.zeros((), device=x.device) if return_aux else None
         for layer in self.layers:
-            x = layer(x, enc=enc)
+            x, a = layer.run(x, enc=enc)
+            if return_aux and a is not None:
+                aux = aux + a
         if last is not None:
             x = x[:, -last:].contiguous()
-        return self._unembed(x)
+        logits = self._unembed(x)
+        return (logits, aux) if return_aux else logits
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         cfg, dt, dev = self.cfg, self.dtype, self.device
@@ -485,3 +512,28 @@ class Transformer(nn.Module):
             x = layer(x, pos, c)
         cache.length = pos + 1
         return self._unembed(x), cache
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """Next-token cross entropy (+ ``aux_weight`` times the MoE aux loss),
+    the reference's ``loss_fn``: fp32 log-softmax of the logits, an
+    ``img_tokens`` config's image positions dropped, ``loss_mask`` (B, S)
+    honoured.  batch keys: ``tokens``, ``labels`` (B, S_text) aligned with
+    the tokens, and ``img_embeds`` / ``frames`` / ``loss_mask`` where the
+    config takes them.  Returns (loss, {"ce", "aux"}), 0-d fp32 tensors."""
+    logits, aux = model(batch["tokens"], img_embeds=batch.get("img_embeds"),
+                        frames=batch.get("frames"), return_aux=True)
+    labels = batch["labels"].long()
+    if model.cfg.img_tokens:                  # drop image positions
+        logits = logits[:, model.cfg.img_tokens:]
+    mask = batch.get("loss_mask")
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    if mask is not None:
+        ll = ll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = float(ll.shape[0] * ll.shape[1])
+    loss = -(ll.sum() / denom)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

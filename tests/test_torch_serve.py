@@ -147,4 +147,14 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.configs.starcoder2_3b",
                  "repro_torch.configs.whisper_small"):
         assert name in out["modules"], name
+    # training: the optimizer, data, fault runtime, checkpoints, the train
+    # loop and the backward kernels' wrappers
+    for name in ("repro_torch.optim.adamw", "repro_torch.optim.schedules",
+                 "repro_torch.optim.grad_compress",
+                 "repro_torch.data.pipeline", "repro_torch.runtime.fault",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+                 "repro_torch.launch.steps", "repro_torch.kernels._grad",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.rmsnorm.ops"):
+        assert name in out["modules"], name
     assert out["bad"] == []
