@@ -7,10 +7,10 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero (no phase's failure is caught):
 
 1. device: the card's name and power limit;
-2. build: every ``src/repro_torch/csrc/*.cu`` (eight sources) compiled with
-   nvcc for sm_90a, all at once; the tensor-core flash prefill's SASS must
-   show both products as wgmma (HGMMA) at each head_dim and its loads as
-   TMA;
+2. build: every ``src/repro_torch/csrc/*.cu`` (nine sources) compiled with
+   nvcc for sm_90a, all at once; the SASS of the tensor-core flash prefill
+   and backward must show every product as wgmma (HGMMA) at each head_dim
+   and their loads as TMA;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serve paths' shapes and at small ragged/masked ones, in fp32 and
    bf16, and timed beside its bound and one library call where one exists
@@ -149,29 +149,32 @@ non-zero (no phase's failure is caught):
    ``tests/test_torch_spacemap.py``, ``tests/test_torch_ir_passes.py`` and
    ``tests/test_torch_trace.py``.
 
-9. training: the backward kernels against their plain versions on the
-   card, in bf16 and fp32 within TOL: flash attention's (dq, dk, dv, and
-   the log-sum-exp its forward kernels now write) at qwen2-7b's 8 x 1024
-   (GQA 28:4, D 128, causal), stablelm-1.6b's D 64 MHA, phi-3-vision's D 96
-   at 2048 positions, whisper-small's 1500 x 1500 unmasked and 448 x 1500
-   cross, a chunk mask, ragged lengths, D 16 and 32 and G 1, 4, 7 and 12;
-   RMSNorm's (dx, dw) at 8192 x 3584 and 8192 x 2048 and two small shapes;
-   both timed at qwen2-7b's shape beside their plain version and a library
-   call the port never calls (SDPA's backward, ``F.rms_norm``'s autograd
-   backward).  Then the slice's main path: ``make_train_step`` trains
-   qwen2-7b at its published widths and 8 of its 28 layers (bf16, 8 x 1024
-   tokens, AdamW with fp32 moments, lr 1e-3) for 4 steps from seeded random
-   weights, each step's launches exact (RMSNorm 17 forward and 17
-   backward, flash attention 8 ``tc_prefill`` forwards with the
-   log-sum-exp and 8 backward), every parameter's gradient finite and
-   non-zero, the loss finite and falling or flat; step ms, tokens/s, peak
-   memory and the share of the step's FLOP bound.  Then the gradient check
-   (2 layers at the same widths: the bf16 kernel path's gradients against
-   fp32 ones, leaf by leaf, within FLOOR_MULT times the bf16 plain path's
-   distance), the reference's four training tests
-   (``tests/test_system.py:54-99``) through ``train_loop`` on the card, and
-   recurrentgemma-2b and falcon-mamba-7b refusing to train there (their
-   scans have no backward kernel yet).
+9. training: the backward kernels against their plain versions on the card,
+   in bf16 and fp32 within TOL: flash attention's (dq, dk, dv, and the
+   log-sum-exp its forward kernels now write) at qwen2-7b's 8 x 1024 (GQA
+   28:4, D 128, causal), stablelm-1.6b's D 64 MHA, phi-3-vision's D 96 at
+   2048 positions, whisper-small's 1500 x 1500 unmasked and 448 x 1500
+   cross, chunk masks, ragged lengths, D 16 and 32 and G 1, 4, 7 and 12,
+   each case on the plan's kernel (``tc``, the tensor cores, for bf16 at D
+   64-128; else ``simt``) and on the other one forced where it takes the
+   case, in bf16 each gradient also held row by row to FLASH_ROW_TOL; the
+   first three shapes timed on each; RMSNorm's (dx, dw) at 8192 x 3584 and
+   8192 x 2048 and two small shapes, timed at qwen2-7b's rows; both beside
+   their plain version and a library call the port never calls (SDPA's
+   backward, ``F.rms_norm``'s autograd backward).  Then the slice's main
+   path: ``make_train_step`` trains qwen2-7b at its published widths and 8
+   of its 28 layers (bf16, 8 x 1024 tokens, AdamW with fp32 moments, lr
+   1e-3) for 4 steps from seeded random weights, each step's launches exact
+   (RMSNorm 17 forward and 17 backward, flash attention 8 ``tc_prefill``
+   forwards with the log-sum-exp and 8 backward, all ``tc``), every
+   parameter's gradient finite and non-zero, the loss finite and falling or
+   flat; step ms, tokens/s, peak memory and the share of the step's FLOP
+   bound.  Then the gradient check (2 layers at the same widths: the bf16
+   kernel path's gradients against fp32 ones, leaf by leaf, within
+   FLOOR_MULT times the bf16 plain path's distance), the reference's four
+   training tests (``tests/test_system.py:54-99``) through ``train_loop`` on
+   the card, and recurrentgemma-2b and falcon-mamba-7b refusing to train
+   there (their scans have no backward kernel yet).
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
@@ -218,11 +221,13 @@ from torch import nn  # noqa: E402
 
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import DECODE_IMPLS  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import _forward as flash_forward  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import plan as flash_plan  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import plan_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ga_labels.ops import ga_labels  # noqa: E402
@@ -546,25 +551,38 @@ def phase_build() -> None:
     log(f"[build] {', '.join(_build.sources())} built in {secs:.1f} s")
 
 
-def phase_sass() -> None:
-    """The tensor-core prefill's two products are wgmma in the built code
-    (``cuobjdump -sass``): Q.K^T as HGMMA 64x64x16 from shared memory, P.V
-    as HGMMA 64xDx16 with P in registers and V transposed (``tnspB``) at
-    each head_dim, fed by TMA loads (UTMALDG)."""
+def sass_of(lib: str) -> tuple:
+    """The HGMMA lines of a built library's SASS (``cuobjdump -sass``), its
+    count of HMMA (``mma.sync``) instructions and of TMA loads (UTMALDG)."""
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build._lib_path("flash_prefill_tc"))],
+        [str(cuobjdump), "-sass", str(_build._lib_path(lib))],
         capture_output=True, text=True, check=True).stdout
-    hgmma = [line for line in sass.splitlines() if "HGMMA." in line]
-    qk = sum("HGMMA.64x64x16" in x and "tnspB" not in x for x in hgmma)
-    pv = {d: sum(f"HGMMA.64x{d}x16" in x and "tnspB" in x for x in hgmma)
-          for d in (64, 96, 128, 256)}
-    tma = sass.count("UTMALDG")
-    log(f"[sass] flash_prefill_tc: Q.K^T {qk} HGMMA 64x64x16; P.V by "
-        f"head_dim {pv} HGMMA 64xDx16 (tnspB); {tma} UTMALDG")
-    if not qk or not all(pv.values()) or not tma:
-        raise AssertionError("flash_prefill_tc: a product is not wgmma or "
-                             "the loads are not TMA")
+    return [line for line in sass.splitlines() if "HGMMA." in line], \
+        sass.count(" HMMA."), sass.count("UTMALDG")
+
+
+def phase_sass() -> None:
+    """The tensor-core kernels' products are wgmma in the built code: the
+    prefill's Q.K^T as HGMMA 64x64x16 from shared memory, its P.V as HGMMA
+    64xDx16 with P in registers and V transposed (``tnspB``) at each
+    head_dim; the backward's S^T, dP^T (and S, dP) as HGMMA 64x64x16 from
+    shared memory, its dV, dK and dQ products as HGMMA 64xDx16 with the A
+    operand in registers and dO, Q, K transposed, at head_dim 64, 96 and
+    128; both fed by TMA loads (UTMALDG), and no product on the older
+    tensor-core path (HMMA, ``mma.sync``)."""
+    for lib, dims in (("flash_prefill_tc", (64, 96, 128, 256)),
+                      ("flash_bwd_tc", (64, 96, 128))):
+        hgmma, hmma, tma = sass_of(lib)
+        ss = sum("HGMMA.64x64x16" in x and "tnspB" not in x for x in hgmma)
+        rs = {d: sum(f"HGMMA.64x{d}x16" in x and "tnspB" in x
+                     for x in hgmma) for d in dims}
+        log(f"[sass] {lib}: {ss} HGMMA 64x64x16 from shared memory; by "
+            f"head_dim {rs} HGMMA 64xDx16 (tnspB); {tma} UTMALDG; {hmma} "
+            f"HMMA")
+        if not ss or not all(rs.values()) or not tma or hmma:
+            raise AssertionError(f"{lib}: a product is not wgmma or the "
+                                 f"loads are not TMA")
 
 
 def ran_variant(fn, before: dict) -> str:
@@ -1416,6 +1434,8 @@ def reset_counts() -> None:
     flash_attention.impl_launches = dict.fromkeys(
         flash_attention.impl_launches, 0)
     flash_attention.lse_launches = 0
+    flash_attention_bwd.impl_launches = dict.fromkeys(
+        flash_attention_bwd.impl_launches, 0)
     ga_labels.variant_launches = dict.fromkeys(ga_labels.variant_launches, 0)
     rglru_scan.variant_launches = dict.fromkeys(rglru_scan.variant_launches,
                                                 0)
@@ -1501,6 +1521,8 @@ def kernel_kind(name: str) -> str:
     low = name.lower()
     for key, kind in (("dkdv_kernel<", "flash_attention_bwd"),
                       ("dq_kernel<", "flash_attention_bwd"),
+                      ("dkdv_tc_kernel<", "flash_attention_bwd"),
+                      ("dq_tc_kernel<", "flash_attention_bwd"),
                       ("delta_kernel<", "flash_attention_bwd"),
                       ("rmsnorm_bwd", "rmsnorm_bwd"),
                       ("rmsnorm_dw", "rmsnorm_bwd"),
@@ -2895,8 +2917,9 @@ def flash_bwd_cases() -> list:
     """(name, (B, Sq, Skv, Hq, Hkv, D), causal, chunk): the training path's
     masks (causal, chunk, none with Sq != Skv) at the eight attention
     configs' head dims, ragged lengths, D 16 and 32 (the reduced configs),
-    and G (query heads a kv head) 1, 4, 7 and 12.  The first is qwen2-7b's
-    training shape, the timed one."""
+    and G (query heads a kv head) 1, 4, 7 and 12.  The first BWD_TIMED are
+    timed: qwen2-7b's training shape (D 128), stablelm-1.6b's (D 64, MHA)
+    and phi-3-vision's (D 96)."""
     return [
         ("qwen2-7b 8x1024 G7", (8, 1024, 1024, 28, 4, 128), True, 0),
         ("stablelm-1.6b 8x1024 MHA", (8, 1024, 1024, 32, 32, 64), True, 0),
@@ -2908,7 +2931,11 @@ def flash_bwd_cases() -> list:
         ("ragged unmasked G12", (2, 100, 150, 12, 1, 32), False, 0),
         ("D16 causal", (2, 70, 70, 4, 2, 16), True, 0),
         ("D32 G12 chunk", (2, 130, 130, 24, 2, 32), True, 48),
+        ("ragged chunk 40 D96 G7", (1, 203, 203, 7, 1, 96), True, 40),
     ]
+
+
+BWD_TIMED = 3
 
 
 def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk) -> dict:
@@ -2921,14 +2948,104 @@ def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk) -> dict:
     return bound(nbytes, int(2.5 * fwd["flops"]), dt)
 
 
+def bwd_variants(shape, dt) -> list:
+    """(impl, forced) of every backward kernel that takes a case: the
+    plan's first (not forced), then the other kernel where it takes the
+    case."""
+    B, Sq, Skv, Hq, Hkv, D = shape
+    planned = plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt)
+    out = [(planned, False)]
+    for impl in flash_ops.BWD_IMPLS:
+        try:
+            plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, impl)
+        except ValueError:
+            continue
+        if impl != planned:
+            out.append((impl, True))
+    return out
+
+
+def bwd_rows(Sq: int, Skv: int, causal: bool, chunk: int) -> dict:
+    """The rows of dq (queries) and dk (keys) that the row check holds: a
+    query that sees one key has dq = 0 exactly (the softmax of one score
+    has no gradient), and so has a key that only such queries see; there
+    both the kernel and the plain version return rounding noise, which TOL
+    holds and a row's own scale cannot.  Every row of dv."""
+    qp = torch.arange(Sq, device=DEV)[:, None]
+    kp = torch.arange(Skv, device=DEV)[None, :]
+    seen = torch.ones(Sq, Skv, dtype=torch.bool, device=DEV)
+    if causal:
+        seen &= kp <= qp
+    if chunk:
+        seen &= kp // chunk == qp // chunk
+    one = seen.sum(1) == 1
+    return {"dq": ~one, "dk": (seen & ~one[:, None]).any(0),
+            "dv": torch.ones(Skv, dtype=torch.bool, device=DEV)}
+
+
+def bwd_check(name: str, grads, refs, dt, causal: bool, chunk: int) -> dict:
+    """dq, dk and dv against the plain version's: the max abs error of
+    each; raises beyond TOL or, in bf16, row by row (one head's D gradients
+    of a query or a key, ``bwd_rows``) beyond FLASH_ROW_TOL.  TOL's
+    absolute part is 2e-2 in bf16, about the gradient of a late key at
+    1024 positions, so a kernel that dropped the diagonal or the last key
+    tile could pass it; the row check sees that (``bwd_last_key_probe``).
+    In fp32 TOL's 2e-5 already does, and a dq row of a few keys whose terms
+    cancel can sit beyond 2e-5 of its own scale by fp32's rounding alone
+    (tests/test_torch_flash_bwd_tc.py shows one), so fp32 is held to TOL."""
+    errs = {}
+    rows = bwd_rows(grads[0].shape[1], grads[1].shape[1], causal, chunk)
+    for n, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        errs[n] = close(g, r, TOL[dt])
+        if dt != torch.bfloat16:
+            continue
+        row_err = row_scaled_err(g[:, rows[n]], r[:, rows[n]])
+        if not row_err <= FLASH_ROW_TOL[dt]:
+            raise AssertionError(f"flash_attention_bwd {name} {dt} {n}: "
+                                 f"error {row_err:.3e} of the rows' scale "
+                                 f"> {FLASH_ROW_TOL[dt]:g}")
+        errs[n + "_row"] = row_err
+    return errs
+
+
+def bwd_last_key_probe(q, k, v, o, lse, do, refs, causal, chunk) -> dict:
+    """The plain version without the last key (its dk and dv rows zero):
+    what a kernel that dropped it would return.  It must fail FLASH_ROW_TOL
+    on dk and dv, or the check could not see such a kernel; whether it
+    also fails TOL is recorded."""
+    dropped = attention_bwd_ref(q, k[:, :-1].contiguous(),
+                                v[:, :-1].contiguous(), o, lse, do,
+                                causal=causal, chunk=chunk)
+    rows = bwd_rows(q.shape[1], k.shape[1], causal, chunk)
+    out = {}
+    for n, g, r in zip(("dk", "dv"), dropped[1:], refs[1:]):
+        g = torch.cat([g, torch.zeros_like(r[:, -1:])], 1)
+        row_err = row_scaled_err(g[:, rows[n]], r[:, rows[n]])
+        if not row_err > FLASH_ROW_TOL[q.dtype]:
+            raise AssertionError(f"flash_attention_bwd: without the last "
+                                 f"key {n} is within FLASH_ROW_TOL "
+                                 f"({row_err:.3e})")
+        try:
+            close(g, r, TOL[q.dtype])
+            passes_tol = True
+        except AssertionError:
+            passes_tol = False
+        out[n] = {"row_err": row_err, "passes_tol": passes_tol}
+    return out
+
+
 def kernels_flash_bwd(timer: Timer, rn) -> list:
     """Each ``flash_bwd_cases`` case in bf16 and fp32: the forward kernel
     with its log-sum-exp (the plan's prefill kernel) against the plain
     version's output and ``logsumexp`` of its scaled, masked scores, then
-    the backward kernel's dq, dk and dv against ``attention_bwd_ref`` on the
-    same q, k, v, o, lse and dO; all within TOL.  Timed at qwen2-7b's shape
-    in bf16: the kernel, the plain version and SDPA's backward (forward and
-    backward minus forward), which the port never calls."""
+    every backward variant that takes the case (``bwd_variants``: the
+    plan's kernel, the other kernel forced), each one's dq, dk and dv
+    against ``attention_bwd_ref`` on the same q, k, v, o, lse and dO, within
+    TOL and FLASH_ROW_TOL (``bwd_check``).  The first BWD_TIMED cases are
+    timed in bf16: every variant, the plain version and SDPA's backward
+    (forward and backward minus forward), which the port never calls; at
+    each of them ``bwd_last_key_probe`` shows that the row check sees a
+    kernel that drops the last key."""
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         for i, (name, (B, Sq, Skv, Hq, Hkv, D), causal, chunk) in \
@@ -2941,27 +3058,18 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                                    chunk=chunk, q_offset=0, kv_len=None,
                                    k_pos=None, impl=None, splits=None,
                                    with_lse=True)
-            impl = next(n for n, c in flash_attention.impl_launches.items()
-                        if c > before[n])
+            fwd_impl = next(n for n, c in flash_attention.impl_launches.items()
+                            if c > before[n])
             ref_o, ref_lse = attention_ref(q, k, v, causal=causal,
                                            chunk=chunk, return_lse=True)
             err_o, _ = flash_check(name, o, ref_o, dt)
             err_lse = close(lse, ref_lse, TOL[dt])
-            before = flash_attention_bwd.launches
-            grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                        chunk=chunk)
-            if flash_attention_bwd.launches != before + 1:
-                raise AssertionError("flash_attention_bwd: not counted")
             refs = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                      chunk=chunk)
-            errs = {n: close(g, r, TOL[dt])
-                    for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
-            case = {"case": name, "shape": [B, Sq, Skv, Hq, Hkv, D],
-                    "causal": causal, "chunk": chunk, "dtype": str(dt)[6:],
-                    "forward_impl": impl, "tol": TOL[dt],
-                    "max_abs_err": max(errs.values()), "err": errs,
-                    "forward_err": err_o, "lse_err": err_lse}
-            if dt == torch.bfloat16 and i == 0:
+            timed = {}
+            if dt == torch.bfloat16 and i < BWD_TIMED:
+                probe = bwd_last_key_probe(q, k, v, o, lse, do, refs,
+                                           causal, chunk)
                 qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                               for t in (q, k, v))
                 dot = do.transpose(1, 2)
@@ -2974,20 +3082,44 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                     return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
                 t = in_turns(timer, {"fwd": sdpa_fwd, "both": sdpa_fwd_bwd})
-                case.update(
-                    ms=timer.ms(lambda: flash_attention_bwd(
-                        q, k, v, o, lse, do, causal=causal, chunk=chunk)),
+                timed = dict(
                     plain_ms=timer.ms(lambda: attention_bwd_ref(
                         q, k, v, o, lse, do, causal=causal, chunk=chunk),
                         reps=5),
                     library_ms=t["both"] - t["fwd"],
                     library_fwd_ms=t["fwd"], library_fwd_bwd_ms=t["both"],
+                    last_key_probe=probe,
                     **flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal,
                                      chunk))
                 del qt, kt, vt, dot
-            log(f"[train] flash_attention_bwd {case}")
-            cases.append(case)
-            del q, k, v, do, o, lse, grads, refs, ref_o, ref_lse
+            for impl, forced in bwd_variants((B, Sq, Skv, Hq, Hkv, D), dt):
+                kw = dict(causal=causal, chunk=chunk,
+                          impl=impl if forced else None)
+                before = dict(flash_attention_bwd.impl_launches)
+                grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                moved = {n: c - before[n] for n, c in
+                         flash_attention_bwd.impl_launches.items()}
+                if moved != {n: int(n == impl) for n in moved}:
+                    raise AssertionError(f"flash_attention_bwd {name}: "
+                                         f"{moved}, not one {impl} launch")
+                errs = bwd_check(name, grads, refs, dt, causal, chunk)
+                case = {"case": name, "shape": [B, Sq, Skv, Hq, Hkv, D],
+                        "causal": causal, "chunk": chunk,
+                        "dtype": str(dt)[6:], "impl": impl, "forced": forced,
+                        "forward_impl": fwd_impl, "tol": TOL[dt],
+                        "row_tol": FLASH_ROW_TOL[dt] if dt ==
+                        torch.bfloat16 else None,
+                        "max_abs_err": max(errs[n] for n in ("dq", "dk",
+                                                             "dv")),
+                        "err": errs, "forward_err": err_o,
+                        "lse_err": err_lse}
+                if timed:
+                    case.update(ms=timer.ms(lambda: flash_attention_bwd(
+                        q, k, v, o, lse, do, **kw)), **timed)
+                log(f"[train] flash_attention_bwd {case}")
+                cases.append(case)
+                del grads
+            del q, k, v, do, o, lse, refs, ref_o, ref_lse
             torch.cuda.empty_cache()
     return cases
 
@@ -3077,7 +3209,8 @@ def train_run() -> dict:
     steps of TRAIN_BATCH x TRAIN_SEQ tokens.  The counts are set to 0 just
     before the steps and read just after; each step's launches must be
     exactly ``expected_train_launches`` (all RMSNorms ``vector``, all
-    attention forwards ``tc_prefill`` with the log-sum-exp), every
+    attention forwards ``tc_prefill`` with the log-sum-exp, all attention
+    backwards ``tc``), every
     parameter's gradient finite and non-zero after each step, and the loss
     finite and falling or flat.  Then one more step under the profiler
     (device ms by kernel, the idle share) and AdamW's update alone, timed
@@ -3098,6 +3231,7 @@ def train_run() -> dict:
     for s in range(TRAIN_STEPS):
         before = read_counts()
         impls = dict(flash_attention.impl_launches)
+        bwd0 = flash_attention_bwd.impl_launches["tc"]
         lse0, var0 = flash_attention.lse_launches, dict(
             fused_rmsnorm.variant_launches)
         t0 = time.perf_counter()
@@ -3111,15 +3245,19 @@ def train_run() -> dict:
         if got != expect:
             raise AssertionError(f"train step {s}: launches {got} != {expect}")
         tc = flash_attention.impl_launches["tc_prefill"] - impls["tc_prefill"]
+        tc_bwd = flash_attention_bwd.impl_launches["tc"] - bwd0
         vec = fused_rmsnorm.variant_launches["vector"] - var0["vector"]
         if tc != cfg.n_layers or flash_attention.lse_launches - lse0 != \
-                cfg.n_layers or vec != expect["rmsnorm"]:
+                cfg.n_layers or vec != expect["rmsnorm"] or \
+                tc_bwd != cfg.n_layers:
             raise AssertionError(f"train step {s}: {tc} tc_prefill, "
                                  f"{flash_attention.lse_launches - lse0} "
-                                 f"with lse, {vec} vector norms")
+                                 f"with lse, {vec} vector norms, {tc_bwd} "
+                                 f"tc backwards")
         missing.append(grads_finite_nonzero(model))
     launches = read_counts()
     flash_impls = dict(flash_attention.impl_launches)
+    bwd_impls = dict(flash_attention_bwd.impl_launches)
     lse_launches = flash_attention.lse_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # after the counted steps: one more step under the profiler, then
@@ -3153,7 +3291,7 @@ def train_run() -> dict:
            "step_flops": flops, "step_bound_ms": bound_ms,
            "share_of_bound": bound_ms / steady, "peak_mem_gb": peak_gb,
            "launches": launches, "launches_per_step": per_step[0],
-           "flash_impls": flash_impls,
+           "flash_impls": flash_impls, "bwd_impls": bwd_impls,
            "lse_launches": lse_launches,
            "params_without_finite_nonzero_grad": missing,
            "profiled_step": {k: breakdown[k] for k in (
@@ -3198,12 +3336,12 @@ def loss_grads(model, batch) -> tuple:
 
 def grad_check() -> dict:
     """One step's gradients of qwen2-7b at its widths and GRAD_CHECK_LAYERS
-    layers: the bf16 kernel path against the fp32 gradients of the same
-    weights and batch (the fp32 kernel path), leaf by leaf, by the rule
-    ``serve_check`` applies to logits: relative RMS error within FLOOR_MULT
-    times the bf16 rounding floor, the same distance of the bf16 plain path
-    (autograd through ``attention_ref`` and ``rmsnorm_ref``, on the
-    card)."""
+    layers: the bf16 kernel path (its backward ``tc``) against the fp32
+    gradients of the same weights and batch (the fp32 kernel path), leaf by
+    leaf, by the rule ``serve_check`` applies to logits: relative RMS error
+    within FLOOR_MULT times the bf16 rounding floor, the same distance of
+    the bf16 plain path (autograd through ``attention_ref`` and
+    ``rmsnorm_ref``, on the card)."""
     cfg = dataclasses.replace(get_config(TRAIN_ARCH),
                               n_layers=GRAD_CHECK_LAYERS)
     batch = train_batch(cfg, GRAD_CHECK_BATCH, TRAIN_SEQ, 0)
@@ -3212,8 +3350,10 @@ def grad_check() -> dict:
     loss_k, g_k = loss_grads(model, batch)
     counts = read_counts()
     if counts["flash_attention_bwd"] != cfg.n_layers or \
+            flash_attention_bwd.impl_launches["tc"] != cfg.n_layers or \
             counts["rmsnorm_bwd"] != 2 * cfg.n_layers + 1:
-        raise AssertionError(f"grad check: launches {counts}")
+        raise AssertionError(f"grad check: launches {counts}, backward "
+                             f"{flash_attention_bwd.impl_launches}")
     with plain_kernels():
         reset_counts()
         loss_p, g_p = loss_grads(model, batch)
@@ -3227,17 +3367,18 @@ def grad_check() -> dict:
     del model
     loss_32, g_32 = loss_grads(model32, batch)
     del model32
-    leaves, worst = {}, 0.0
+    leaves = {}
     for n in g_32:
         err, floor = rel_rms(g_k[n], g_32[n]), rel_rms(g_p[n], g_32[n])
         leaves[n] = {"kernel_vs_fp32": err, "plain_bf16_vs_fp32": floor,
                      "ratio": err / floor if floor else float("inf")}
-        worst = max(worst, leaves[n]["ratio"])
+    worst = max(leaves, key=lambda n: leaves[n]["ratio"])
     res = {"arch": cfg.name, "layers": cfg.n_layers,
            "tokens": [GRAD_CHECK_BATCH, TRAIN_SEQ],
            "loss": {"bf16_kernels": loss_k, "bf16_plain": loss_p,
                     "fp32": loss_32},
-           "limit_ratio": FLOOR_MULT, "worst_ratio": worst, "leaves": leaves}
+           "limit_ratio": FLOOR_MULT, "worst_leaf": worst,
+           "worst_ratio": leaves[worst]["ratio"], "leaves": leaves}
     log(f"[train] grad check {json.dumps(res)}")
     bad = {n: v for n, v in leaves.items() if not v["ratio"] <= FLOOR_MULT}
     if bad:
@@ -3353,7 +3494,10 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     the group labels launched by phases 7 and 8's spawned island processes
     are under ``launches_in_island_processes`` (phase 8's restarted
     daemon runs in its own process and is not counted).  Flash attention has one entry per kernel
-    that ran (each case's ``impl``, each run's ``flash_impls``)."""
+    that ran (each case's ``impl``, each run's ``flash_impls``); its
+    backward's entry is the plan's kernel at qwen2-7b's shape (``tc``), with
+    both kernels under ``impls`` (each case's ``impl``, each run's
+    ``bwd_impls``; ``simt`` timed forced)."""
     flash = "src/repro/kernels/flash_attention/kernel.py:78 " \
             "(flash_attention_kernel)"
     meta = {
@@ -3381,7 +3525,7 @@ def kernel_line(rows: dict, runs: dict) -> dict:
                       "src/repro/core/population.py:598 (_build_jax_labels, "
                       "jitted JAX, no pallas_call; body :619-646)"),
         "flash_attention_bwd": (
-            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "src/repro_torch/csrc/flash_bwd_tc.cu",
             "backward of " + flash + ": no TPU counterpart, the reference "
             "differentiates its plain attention "
             "(src/repro/models/attention.py:149-176) through XLA"),
@@ -3423,7 +3567,25 @@ def kernel_line(rows: dict, runs: dict) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "cases": cases})
+        if name == "flash_attention_bwd":
+            out[-1]["impls"] = {impl: bwd_impl_entry(impl, cases, runs)
+                                for impl in flash_attention_bwd.impl_launches}
     return {"kernels": out}
+
+
+def bwd_impl_entry(impl: str, cases: list, runs: dict) -> dict:
+    """One backward kernel's numbers for the kernels line: its first timed
+    case, its launches over the runs."""
+    mine = [c for c in cases if c["impl"] == impl]
+    main = next(c for c in mine if "ms" in c)
+    return {"route": "cuda", "source": {
+                "tc": "src/repro_torch/csrc/flash_bwd_tc.cu",
+                "simt": "src/repro_torch/csrc/flash_attention_bwd.cu"}[impl],
+            "launches": sum(res.get("bwd_impls", {}).get(impl, 0)
+                            for res in runs.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "forced")}}
 
 
 def main(argv=None) -> int:

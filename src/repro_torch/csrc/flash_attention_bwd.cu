@@ -39,30 +39,19 @@
 // the backward does 7 such products, 2.5x the forward's FLOPs by the
 // usual count; it reads q, k, v, o, dO once and writes dq, dk, dv).  This
 // first design runs on the fp32 cores, not the tensor cores, so it sits far
-// from the bf16 bound: a wgmma design is later work (ROADMAP.md B).  Shared
+// from the bf16 bound; the wrapper's plan sends bf16 at D 64, 96 and 128 to
+// the tensor-core design (csrc/flash_bwd_tc.cu) and keeps this kernel, the
+// ``simt`` variant, for fp32 and for D 16 and 32.  Both run the delta pass
+// of flash_bwd_common.cuh.  Shared
 // memory: dK/dV 4 x 64 x (D + 1) + 2 x 64 x 65 floats (166 KB at D 128),
 // dQ 4 x 64 x (D + 1) + 64 x 65 (149 KB): one block an SM.
-#include "common.cuh"
+#include "flash_bwd_common.cuh"   // Params, visible, the delta pass
 
 namespace {
 
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kTile = 64;       // query rows and keys of a tile
 constexpr int kPS = kTile + 1;  // padded stride of a score tile
-
-struct Params {
-  const float* lse;     // (B, Hq, Sq)
-  const float* delta;   // (B, Hq, Sq)
-  int Sq, Skv, Hq, Hkv, causal, chunk;
-  float scale;
-};
-
-__device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
-  bool ok = qp < p.Sq && kp < p.Skv;
-  if (p.causal) ok = ok && kp <= qp;
-  if (p.chunk) ok = ok && kp / p.chunk == qp / p.chunk;
-  return ok;
-}
 
 // rows [r0, r0 + 64) of head hh of x (B, S, H, D) into dst [64][D + 1] as
 // fp32, zeros past S; 16-byte loads
@@ -143,29 +132,6 @@ __device__ __forceinline__ void probs(const Params& p, int q0, int k0,
       if (Ps) Ps[r * kPS + c] = pij;
       dSs[r * kPS + c] = pij * (dp[i][j] - ds[r]);
     }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ delta, long long rows, int Sq, int Hq,
-             int D) {
-  const long long r = (long long)blockIdx.x * (kThreads / 32) +
-                      threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_f32(o[r * D + d]), to_f32(dout[r * D + d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {   // row r of the model layout is (b, i, h)
-    const int h = (int)(r % Hq);
-    const long long bi = r / Hq;
-    const int i = (int)(bi % Sq), b = (int)(bi / Sq);
-    delta[((size_t)b * Hq + h) * Sq + i] = acc;
   }
 }
 
@@ -343,11 +309,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, void* dq, void* dk,
                    void* dv, float* delta, int B, const Params& p,
                    cudaStream_t s) {
-  const long long rows = (long long)B * p.Sq * p.Hq;
-  delta_kernel<T><<<(unsigned)((rows + 7) / 8), kThreads, 0, s>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows,
-      p.Sq, p.Hq, D);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_delta<T>(o, dout, delta, B, p.Sq, p.Hq, D, s);
   if (e != cudaSuccess) return e;
   if ((e = allow_smem<dkdv_kernel<T, D>>(dkdv_smem<D>())) != cudaSuccess ||
       (e = allow_smem<dq_kernel<T, D>>(dq_smem<D>())) != cudaSuccess)

@@ -24,13 +24,22 @@ grad goes through ``FlashAttentionFn``.  Its forward is the prefill kernel
 of the plan (``tc_prefill`` or ``simt``; a call of at most 8 query rows
 goes to ``simt``: the decode kernels write no log-sum-exp and never run
 under autograd), which also writes each row's log-sum-exp (counted in
-``flash_attention.lse_launches``); its backward is ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``, counted in its ``launches``).  The
-backward takes the training path's masks only (causal, chunk or none, from
-position 0, every key written) at head_dim 16-128: a window, key positions,
-``q_offset``/``kv_len``, head_dim 256 or a forced decode kernel raise under
-grad, and nothing falls back to the plain version.  A CPU tensor's plain
-version is differentiated by autograd.
+``flash_attention.lse_launches``); its backward is ``flash_attention_bwd``,
+counted in its ``launches`` and by kernel in its ``impl_launches``, which
+launches the kernel :func:`plan_bwd` names:
+
+- ``tc`` (``csrc/flash_bwd_tc.cu``): bf16 at head_dim 64, 96 or 128, on the
+  tensor cores (wgmma, TMA); P enters its product as bf16, dS as two bf16
+  terms (hi + lo), a rounding fixed in the kernel;
+- ``simt`` (``csrc/flash_attention_bwd.cu``): fp32, and bf16 at head_dim 16
+  or 32, on the fp32 cores.
+
+The backward takes the training path's masks only (causal, chunk or none,
+from position 0, every key written) at head_dim 16-128: a window, key
+positions, ``q_offset``/``kv_len``, head_dim 256 or a forced decode kernel
+raise under grad (:func:`check_grad_call`), and nothing falls back to
+another kernel or to the plain version.  A CPU tensor's plain version is
+differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -48,7 +57,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # any other head_dim raises
-BWD_HEAD_DIMS = (16, 32, 64, 96, 128)     # the backward kernel's
+BWD_HEAD_DIMS = (16, 32, 64, 96, 128)     # the backward kernels'
+BWD_TC_HEAD_DIMS = (64, 96, 128)          # the tensor-core backward's (bf16)
+BWD_IMPLS = ("tc", "simt")
 _BWD_LATER = ("is not in the backward kernel yet (ROADMAP.md A, training: "
               "flash backward at head_dim 256 and with a window)")
 TC_HEAD_DIMS = (64, 96, 128, 256)
@@ -134,6 +145,41 @@ def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
     return Plan("simt")
 
 
+def plan_bwd(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
+             dtype: torch.dtype, impl: Optional[str] = None) -> str:
+    """The backward kernel for a call of these shapes (pure Python, no
+    device): ``tc`` for bf16 at a head_dim of ``BWD_TC_HEAD_DIMS``, else
+    ``simt``.  ``impl`` forces one (chip_smoke.py checks both where both
+    take a call) and raises where that kernel does not take the call; a
+    head_dim outside ``BWD_HEAD_DIMS`` raises."""
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {D} {_BWD_LATER}")
+    tc = dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS
+    if impl is None:
+        return "tc" if tc else "simt"
+    if impl not in BWD_IMPLS or (impl == "tc" and not tc):
+        raise ValueError(f"flash_attention_bwd: impl {impl!r} does not take "
+                         f"{dtype} at head_dim {D} (tc: bf16 at "
+                         f"{BWD_TC_HEAD_DIMS}; simt: {BWD_HEAD_DIMS})")
+    return impl
+
+
+def check_grad_call(D: int, Skv: int, *, window: int = 0,
+                    k_pos: bool = False, q_offset: int = 0,
+                    kv_len: Optional[int] = None, impl: Optional[str] = None,
+                    splits: Optional[int] = None) -> None:
+    """Raise ``NotImplementedError`` for a call under autograd that the
+    backward kernels do not take: a window, key positions, ``q_offset`` or
+    ``kv_len`` short of Skv, a forced decode kernel or splits, a head_dim
+    outside ``BWD_HEAD_DIMS``."""
+    if window or k_pos or q_offset or kv_len not in (None, Skv) or impl or \
+            splits or D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention under autograd: window {window}, key "
+            f"positions {k_pos}, q_offset {q_offset}, kv_len {kv_len}, "
+            f"forced kernel {impl}/{splits} or head_dim {D} {_BWD_LATER}")
+
+
 def warp_decode_layout(rows: int, D: int, dtype: torch.dtype) -> tuple:
     """(warps a block, keys a warp takes per online-softmax step) of
     ``warp_decode`` for ``rows`` = G * Sq (``WarpBlock`` and
@@ -194,6 +240,13 @@ def _bwd_fn():
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
+@functools.cache
+def _bwd_tc_fn():
+    return _load("flash_bwd_tc", "flash_bwd_tc",
+                 [ctypes.c_void_p] * 10 + [_i] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention on the card under autograd: the prefill kernel with the
     log-sum-exp, then the backward kernel from the saved q, k, v, o, lse."""
@@ -241,14 +294,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        D, Skv = q.shape[-1], k.shape[1]
-        if window or k_pos is not None or q_offset or kv_len not in (
-                None, Skv) or impl or splits or D not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention under autograd: window {window}, key "
-                f"positions {k_pos is not None}, q_offset {q_offset}, kv_len "
-                f"{kv_len}, forced kernel {impl}/{splits} or head_dim {D} "
-                f"{_BWD_LATER}")
+        check_grad_call(q.shape[-1], k.shape[1], window=window,
+                        k_pos=k_pos is not None, q_offset=q_offset,
+                        kv_len=kv_len, impl=impl, splits=splits)
         return FlashAttentionFn.apply(q, k, v, causal, chunk)
     return _forward(q, k, v, causal=causal, window=window, chunk=chunk,
                     q_offset=q_offset, kv_len=kv_len, k_pos=k_pos, impl=impl,
@@ -327,12 +375,15 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        chunk: int = 0):
+                        chunk: int = 0, impl: Optional[str] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
     chunk=chunk)`` whose output was o and log-sum-exp lse (B, Hq, Sq), for
     the output gradient do.  A CPU tensor takes ``attention_bwd_ref``; a
-    CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (delta, dK/dV and
-    dQ kernels), adding one to ``flash_attention_bwd.launches``."""
+    CUDA tensor launches the kernel :func:`plan_bwd` names (``impl`` forces
+    one), each with its delta, dK/dV and dQ passes, adding one to
+    ``flash_attention_bwd.launches`` and to its kernel's entry of
+    ``flash_attention_bwd.impl_launches``.  A build or launch error raises:
+    no call falls back to the other kernel."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  chunk=chunk)
@@ -340,8 +391,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head_dim {D} {_BWD_LATER}")
+    how = plan_bwd(B, Sq, Skv, Hq, Hkv, D, q.dtype, impl)
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or \
             o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (B, Hq, Sq) or Hkv == 0 or Hq % Hkv:
@@ -359,12 +409,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          "aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
-    err = _bwd_fn()(*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
-                    code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
-                    int(causal), chunk, 1.0 / math.sqrt(D),
-                    torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_bwd")
+    args = (*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
+            code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
+            int(causal), chunk, 1.0 / math.sqrt(D))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if how == "tc":
+        err = _bwd_tc_fn()(*args, stream)
+        _build.check(err, "flash_bwd_tc")
+    else:
+        err = _bwd_fn()(*args, stream)
+        _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.impl_launches[how] += 1
     return dq, dk, dv
 
 
@@ -372,3 +428,4 @@ flash_attention.launches = 0
 flash_attention.impl_launches = dict.fromkeys(IMPLS, 0)
 flash_attention.lse_launches = 0   # forwards of training calls
 flash_attention_bwd.launches = 0
+flash_attention_bwd.impl_launches = dict.fromkeys(BWD_IMPLS, 0)

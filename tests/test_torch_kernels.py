@@ -150,9 +150,9 @@ def test_build_names_one_library_per_source(tmp_path, monkeypatch):
     """Every ``csrc/*.cu`` is a source; its library is keyed by a hash of
     the sources, so an edit (of the file or of a shared header) rebuilds."""
     assert _build.sources() == ["flash_attention", "flash_attention_bwd",
-                                "flash_decode", "flash_prefill_tc",
-                                "ga_labels", "mamba_scan", "rglru_scan",
-                                "rmsnorm"]
+                                "flash_bwd_tc", "flash_decode",
+                                "flash_prefill_tc", "ga_labels",
+                                "mamba_scan", "rglru_scan", "rmsnorm"]
     for name in ("rmsnorm.cu", "common.cuh"):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
