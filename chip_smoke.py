@@ -150,31 +150,43 @@ non-zero (no phase's failure is caught):
    ``tests/test_torch_trace.py``.
 
 9. training: the backward kernels against their plain versions on the card,
-   in bf16 and fp32 within TOL: flash attention's (dq, dk, dv, and the
-   log-sum-exp its forward kernels now write) at qwen2-7b's 8 x 1024 (GQA
-   28:4, D 128, causal), stablelm-1.6b's D 64 MHA, phi-3-vision's D 96 at
-   2048 positions, whisper-small's 1500 x 1500 unmasked and 448 x 1500
-   cross, chunk masks, ragged lengths, D 16 and 32 and G 1, 4, 7 and 12,
-   each case on the plan's kernel (``tc``, the tensor cores, for bf16 at D
-   64-128; else ``simt``) and on the other one forced where it takes the
-   case, in bf16 each gradient also held row by row to FLASH_ROW_TOL; the
-   first three shapes timed on each; RMSNorm's (dx, dw) at 8192 x 3584 and
-   8192 x 2048 and two small shapes, timed at qwen2-7b's rows; both beside
-   their plain version and a library call the port never calls (SDPA's
-   backward, ``F.rms_norm``'s autograd backward).  Then the slice's main
-   path: ``make_train_step`` trains qwen2-7b at its published widths and 8
-   of its 28 layers (bf16, 8 x 1024 tokens, AdamW with fp32 moments, lr
-   1e-3) for 4 steps from seeded random weights, each step's launches exact
-   (RMSNorm 17 forward and 17 backward, flash attention 8 ``tc_prefill``
-   forwards with the log-sum-exp and 8 backward, all ``tc``), every
-   parameter's gradient finite and non-zero, the loss finite and falling or
-   flat; step ms, tokens/s, peak memory and the share of the step's FLOP
-   bound.  Then the gradient check (2 layers at the same widths: the bf16
-   kernel path's gradients against fp32 ones, leaf by leaf, within
-   FLOOR_MULT times the bf16 plain path's distance), the reference's four
-   training tests (``tests/test_system.py:54-99``) through ``train_loop`` on
-   the card, and recurrentgemma-2b and falcon-mamba-7b refusing to train
-   there (their scans have no backward kernel yet).
+   in bf16 and fp32: flash attention's (dq, dk, dv, and the log-sum-exp its
+   forward kernels write; within TOL) at qwen2-7b's 8 x 1024 (GQA 28:4, D
+   128, causal), stablelm-1.6b's D 64 MHA, phi-3-vision's D 96 at 2048
+   positions, recurrentgemma-2b's local attention (MQA 10:1, D 256, window
+   2048 over 2 x 4096), whisper-small's 1500 x 1500 unmasked and 448 x 1500
+   cross, chunk and window masks, ragged lengths, D 16 to 256 and G 1 to
+   12, each case on the plan's kernel (``tc``, the tensor cores, for bf16 at
+   D 64-128 without a window; else ``simt``) and on the other one forced
+   where it takes the case, in bf16 each gradient also held row by row to
+   FLASH_ROW_TOL; the first four shapes timed on each; RMSNorm's (dx, dw) at
+   8192 x 3584 and 8192 x 2048 and two small shapes, timed at qwen2-7b's
+   rows; the gated RG-LRU's (dxa, dxi, dxc, db_a, db_i, dlambda, dh0; within
+   TOL x RGLRU_TOL_MULT) at recurrentgemma-2b's 2 x 4096 by 2560 and ragged
+   shapes with h0 and dh_last; the Mamba scan's (dda, ddbx, dc; within TOL)
+   at falcon-mamba-7b's 8 x 1024 by 8192 x 16 and ragged shapes at N 4, 8
+   and 16; each timed beside its bound, its plain version and a library
+   call the port never calls where one computes the same function (SDPA's
+   backward with the window as a mask, ``F.rms_norm``'s autograd backward;
+   none for the scans).  Then the slice's main paths (TRAIN_RUNS):
+   ``make_train_step`` trains qwen2-7b (8 of 28 layers, 8 x 1024),
+   recurrentgemma-2b (24 of 26 layers, 2 x 4096) and falcon-mamba-7b (5 of
+   64 layers, 8 x 1024) at their published widths (bf16, AdamW with fp32
+   moments; lr 1e-3 for 4 steps, falcon-mamba-7b lr 3e-4 for 12) from
+   seeded random weights, each step's launches exact
+   (``expected_train_launches``, by layer kind; the attention forwards on
+   ``tc_prefill`` with the log-sum-exp, the backwards on ``tc`` for
+   qwen2-7b and ``simt`` for recurrentgemma-2b's window), every
+   parameter's gradient finite and non-zero, the loss finite and falling
+   or flat; step ms, tokens/s, peak memory, the share of the step's
+   FLOP bound and one profiled step.  Then falcon-mamba-7b's peak memory
+   with ``DiscretiseBx`` and with the eager product it replaced, the
+   gradient checks (GRAD_CHECKS: the bf16 kernel path's gradients against
+   fp32 ones, leaf by leaf, within FLOOR_MULT times the bf16 plain path's
+   distance), the reference's four training tests
+   (``tests/test_system.py:54-99``) through ``train_loop`` on the card, and
+   the reduced recurrentgemma-2b and falcon-mamba-7b in fp32 on the card
+   against the CPU's plain path and trained by ``train_loop``.
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
@@ -236,11 +248,14 @@ from repro_torch.kernels.ga_labels.ops import plan as ga_plan  # noqa: E402
 from repro_torch.kernels.ga_labels.ops import variants as ga_variants  # noqa: E402
 from repro_torch.kernels.ga_labels.ref import ga_labels_ref  # noqa: E402
 from repro_torch.kernels.ga_labels.ref import label_tables  # noqa: E402
-from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_bwd  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import VARIANTS as RGLRU_VARIANTS  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import plan as rglru_plan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_gated, rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import rglru_gated_bwd  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_gated_bwd_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_gated_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_gates_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
@@ -328,10 +343,11 @@ COUNTERS = {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
             "rglru_scan": rglru_scan, "rglru_gated": rglru_gated,
             "mamba_scan": mamba_scan, "ga_labels": ga_labels,
             "flash_attention_bwd": flash_attention_bwd,
-            "rmsnorm_bwd": rmsnorm_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd, "rglru_gated_bwd": rglru_gated_bwd,
+            "mamba_scan_bwd": mamba_scan_bwd}
 KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rglru_scan",
            "rglru_gated", "mamba_scan", "ga_labels", "flash_attention_bwd",
-           "rmsnorm_bwd")
+           "rmsnorm_bwd", "rglru_gated_bwd", "mamba_scan_bwd")
 # phase 6: the search runs and the reference's results for them (the JAX
 # package's ``repro.search.search`` with the same arguments; pinned equal
 # to it by tests/test_torch_ga_search.py)
@@ -1475,7 +1491,8 @@ def expected_launches(cfg, new: int) -> dict:
             "flash_attention": sum(flash_calls(cfg, new)),
             "rglru_scan": 0, "rglru_gated": kinds.count("rglru") * new,
             "mamba_scan": kinds.count("mamba"), "ga_labels": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "rglru_gated_bwd": 0, "mamba_scan_bwd": 0}
 
 
 def expected_flash_impls(cfg, new: int) -> dict:
@@ -1526,6 +1543,14 @@ def kernel_kind(name: str) -> str:
                       ("delta_kernel<", "flash_attention_bwd"),
                       ("rmsnorm_bwd", "rmsnorm_bwd"),
                       ("rmsnorm_dw", "rmsnorm_bwd"),
+                      ("bwd_fold<", "rglru_gated_bwd"),
+                      ("bwd_carry", "rglru_gated_bwd"),
+                      ("bwd_grads<", "rglru_gated_bwd"),
+                      ("bwd_params", "rglru_gated_bwd"),
+                      ("mb_fold<", "mamba_scan_bwd"),
+                      ("mb_carry", "mamba_scan_bwd"),
+                      ("mb_grads<", "mamba_scan_bwd"),
+                      ("mb_dc", "mamba_scan_bwd"),
                       ("gated<", "rglru_gated"), ("direct<", "rglru_scan"),
                       ("rglru_scan_kernel", "rglru_scan"),
                       ("flash", "flash_attention"), ("rmsnorm", "rmsnorm"),
@@ -2902,62 +2927,118 @@ def scan_sweep() -> None:
 
 # ---- phase 9: training ------------------------------------------------------
 
-# the slice's run: qwen2-7b at its published widths and 8 of its 28 layers
-# (AdamW's state at full depth, 12 bytes a parameter, is 91 GB: more than
-# the card), bf16, 8 x 1024 tokens, AdamW with fp32 moments
-TRAIN_ARCH, TRAIN_LAYERS = "qwen2-7b", 8
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 4, 1e-3
-# the gradient check: the same widths at 2 layers, 2 x 1024 tokens
-GRAD_CHECK_LAYERS, GRAD_CHECK_BATCH = 2, 2
+# phase 9's training runs, the slice's main paths, at the published widths,
+# bf16, AdamW with fp32 moments.  Depth (and rows) cut only as the card's
+# 80 GB forces (peaks measured on an H100 80GB HBM3 at 700 W):
+# - qwen2-7b: 8 of 28 layers (AdamW's state at full depth, 12 bytes a
+#   parameter, is 91 GB), 8 x 1024 tokens;
+# - recurrentgemma-2b: 24 of its 26 layers, the most whole (rglru, rglru,
+#   attn_local) patterns that fit (2.89 B parameters, 35 GB of state at
+#   full depth, and 8.4 GB of fp32 logits at 2 x 4096, with their
+#   log-softmax and its gradient; 74.9 GB at 24 layers), 2 x 4096 tokens so
+#   that the 2048-key window skips tiles;
+# - falcon-mamba-7b: 5 of its 64 layers at 8 x 1024 tokens (autograd keeps
+#   da and dbx, (B, S, Di, N) fp32, 4.3 GB each a layer: 70.6 GB at 5
+#   layers, and a sixth does not fit).
+# (arch, layers, batch, seq, lr, steps); each step takes the pipeline's
+# next batch.  falcon-mamba-7b runs at AdamW's default lr, 3e-4, for 12
+# steps: at 1e-3 its loss rose over 12 steps (11.88 -> 13.10), and over 4
+# steps, at each lr tried from 1e-4 to 1e-2, the batches' spread (~0.03)
+# outweighed what it learned or the loss rose.
+TRAIN_RUNS = (("qwen2-7b", 8, 8, 1024, 1e-3, 4),
+              ("recurrentgemma-2b", 24, 2, 4096, 1e-3, 4),
+              ("falcon-mamba-7b", 5, 8, 1024, 3e-4, 12))
+# the gradient checks: the same widths at 2 layers (recurrentgemma-2b: one
+# whole pattern, 3 layers) and the runs' sequence lengths
+GRAD_CHECKS = (("qwen2-7b", 2, 2, 1024),
+               ("recurrentgemma-2b", 3, 2, 4096),
+               ("falcon-mamba-7b", 2, 2, 1024))
 # scratch checkpoints of the reference's restart test
 TRAIN_DIR = ROOT / "build" / "train"
+# the reduced recurrent configs on the card in fp32 against the CPU's plain
+# path: relative RMS error of each gradient leaf (tests/test_torch_train.py's
+# GRAD_RTOL: fp32 sums in another order)
+REDUCED_GRAD_RTOL = 1e-4
 
 
 def flash_bwd_cases() -> list:
-    """(name, (B, Sq, Skv, Hq, Hkv, D), causal, chunk): the training path's
-    masks (causal, chunk, none with Sq != Skv) at the eight attention
-    configs' head dims, ragged lengths, D 16 and 32 (the reduced configs),
-    and G (query heads a kv head) 1, 4, 7 and 12.  The first BWD_TIMED are
-    timed: qwen2-7b's training shape (D 128), stablelm-1.6b's (D 64, MHA)
-    and phi-3-vision's (D 96)."""
+    """(name, (B, Sq, Skv, Hq, Hkv, D), causal, window, chunk): the
+    training path's masks (causal, window, chunk, none with Sq != Skv) at
+    the attention configs' head dims, ragged lengths, D 16 and 32 (the
+    reduced configs), and G (query heads a kv head) 1, 4, 7, 10 and 12.
+    The first BWD_TIMED are timed: qwen2-7b's training shape (D 128),
+    stablelm-1.6b's (D 64, MHA), phi-3-vision's (D 96) and
+    recurrentgemma-2b's local attention (MQA 10:1, D 256, window 2048 over
+    4096 positions)."""
     return [
-        ("qwen2-7b 8x1024 G7", (8, 1024, 1024, 28, 4, 128), True, 0),
-        ("stablelm-1.6b 8x1024 MHA", (8, 1024, 1024, 32, 32, 64), True, 0),
-        ("phi-3-vision 2x2048 D96", (2, 2048, 2048, 32, 32, 96), True, 0),
-        ("whisper encoder 1500x1500", (8, 1500, 1500, 12, 12, 64), False, 0),
-        ("whisper cross 448x1500", (8, 448, 1500, 12, 12, 64), False, 0),
-        ("chunk 64", (2, 300, 300, 8, 2, 64), True, 64),
-        ("ragged causal G4", (2, 77, 77, 4, 1, 128), True, 0),
-        ("ragged unmasked G12", (2, 100, 150, 12, 1, 32), False, 0),
-        ("D16 causal", (2, 70, 70, 4, 2, 16), True, 0),
-        ("D32 G12 chunk", (2, 130, 130, 24, 2, 32), True, 48),
-        ("ragged chunk 40 D96 G7", (1, 203, 203, 7, 1, 96), True, 40),
+        ("qwen2-7b 8x1024 G7", (8, 1024, 1024, 28, 4, 128), True, 0, 0),
+        ("stablelm-1.6b 8x1024 MHA", (8, 1024, 1024, 32, 32, 64), True, 0,
+         0),
+        ("phi-3-vision 2x2048 D96", (2, 2048, 2048, 32, 32, 96), True, 0, 0),
+        ("recurrentgemma-2b 2x4096 window 2048 D256 G10",
+         (2, 4096, 4096, 10, 1, 256), True, 2048, 0),
+        ("whisper encoder 1500x1500", (8, 1500, 1500, 12, 12, 64), False, 0,
+         0),
+        ("whisper cross 448x1500", (8, 448, 1500, 12, 12, 64), False, 0, 0),
+        ("chunk 64", (2, 300, 300, 8, 2, 64), True, 0, 64),
+        ("ragged causal G4", (2, 77, 77, 4, 1, 128), True, 0, 0),
+        ("ragged unmasked G12", (2, 100, 150, 12, 1, 32), False, 0, 0),
+        ("D16 causal", (2, 70, 70, 4, 2, 16), True, 0, 0),
+        ("D32 G12 chunk", (2, 130, 130, 24, 2, 32), True, 0, 48),
+        ("ragged chunk 40 D96 G7", (1, 203, 203, 7, 1, 96), True, 0, 40),
+        ("reduced recurrentgemma-2b window 8 D16", (2, 70, 70, 4, 1, 16),
+         True, 8, 0),
+        ("ragged window 100 D64", (2, 300, 300, 8, 2, 64), True, 100, 0),
+        ("ragged window 50 D128 G7", (1, 203, 203, 7, 1, 128), True, 50, 0),
+        ("window 33 unmasked D96 Sq!=Skv", (1, 90, 150, 4, 2, 96), False, 33,
+         0),
+        ("ragged D256 causal G10", (1, 100, 100, 10, 1, 256), True, 0, 0),
+        ("ragged window 40 D256 G10", (1, 137, 137, 10, 1, 256), True, 40,
+         0),
     ]
 
 
-BWD_TIMED = 3
+BWD_TIMED = 4
 
 
-def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk) -> dict:
+def window_mask(Sq: int, Skv: int, causal: bool, window: int,
+                chunk: int) -> torch.Tensor:
+    """(Sq, Skv) bool on the card: which keys each query sees (queries
+    from position 0, every key written)."""
+    qp = torch.arange(Sq, device=DEV)[:, None]
+    kp = torch.arange(Skv, device=DEV)[None, :]
+    seen = torch.ones(Sq, Skv, dtype=torch.bool, device=DEV)
+    if causal:
+        seen &= kp <= qp
+    if window:
+        seen &= kp > qp - window
+    if chunk:
+        seen &= kp // chunk == qp // chunk
+    return seen
+
+
+def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk,
+                   window=0) -> dict:
     """q, k, v, o, dO and lse read once, dq, dk, dv written once; 2.5x the
     forward's 4*D flops a visible (query, key) pair (the usual count of
     the five products, S recomputed once)."""
-    fwd = flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=causal, chunk=chunk)
+    fwd = flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=causal,
+                     window=window, chunk=chunk)
     nbytes = (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D) * esize(dt) \
         + 4 * B * Hq * Sq
     return bound(nbytes, int(2.5 * fwd["flops"]), dt)
 
 
-def bwd_variants(shape, dt) -> list:
+def bwd_variants(shape, dt, window=0) -> list:
     """(impl, forced) of every backward kernel that takes a case: the
     plan's first (not forced), then the other kernel where it takes the
     case."""
     B, Sq, Skv, Hq, Hkv, D = shape
-    planned = plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt)
+    planned = plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, window=window)
     out = [(planned, False)]
     for impl in flash_ops.BWD_IMPLS:
         try:
-            plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, impl)
+            plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, impl, window=window)
         except ValueError:
             continue
         if impl != planned:
@@ -2965,25 +3046,21 @@ def bwd_variants(shape, dt) -> list:
     return out
 
 
-def bwd_rows(Sq: int, Skv: int, causal: bool, chunk: int) -> dict:
+def bwd_rows(Sq: int, Skv: int, causal: bool, chunk: int,
+             window: int = 0) -> dict:
     """The rows of dq (queries) and dk (keys) that the row check holds: a
     query that sees one key has dq = 0 exactly (the softmax of one score
     has no gradient), and so has a key that only such queries see; there
     both the kernel and the plain version return rounding noise, which TOL
     holds and a row's own scale cannot.  Every row of dv."""
-    qp = torch.arange(Sq, device=DEV)[:, None]
-    kp = torch.arange(Skv, device=DEV)[None, :]
-    seen = torch.ones(Sq, Skv, dtype=torch.bool, device=DEV)
-    if causal:
-        seen &= kp <= qp
-    if chunk:
-        seen &= kp // chunk == qp // chunk
+    seen = window_mask(Sq, Skv, causal, window, chunk)
     one = seen.sum(1) == 1
     return {"dq": ~one, "dk": (seen & ~one[:, None]).any(0),
             "dv": torch.ones(Skv, dtype=torch.bool, device=DEV)}
 
 
-def bwd_check(name: str, grads, refs, dt, causal: bool, chunk: int) -> dict:
+def bwd_check(name: str, grads, refs, dt, causal: bool, chunk: int,
+              window: int = 0) -> dict:
     """dq, dk and dv against the plain version's: the max abs error of
     each; raises beyond TOL or, in bf16, row by row (one head's D gradients
     of a query or a key, ``bwd_rows``) beyond FLASH_ROW_TOL.  TOL's
@@ -2993,10 +3070,15 @@ def bwd_check(name: str, grads, refs, dt, causal: bool, chunk: int) -> dict:
     In fp32 TOL's 2e-5 already does, and a dq row of a few keys whose terms
     cancel can sit beyond 2e-5 of its own scale by fp32's rounding alone
     (tests/test_torch_flash_bwd_tc.py shows one), so fp32 is held to TOL."""
-    errs = {}
-    rows = bwd_rows(grads[0].shape[1], grads[1].shape[1], causal, chunk)
+    errs, bad = {}, []
+    rows = bwd_rows(grads[0].shape[1], grads[1].shape[1], causal, chunk,
+                    window)
     for n, g, r in zip(("dq", "dk", "dv"), grads, refs):
-        errs[n] = close(g, r, TOL[dt])
+        try:
+            errs[n] = close(g, r, TOL[dt])
+        except AssertionError as e:
+            bad.append(f"{n}: {e}")
+            continue
         if dt != torch.bfloat16:
             continue
         row_err = row_scaled_err(g[:, rows[n]], r[:, rows[n]])
@@ -3005,18 +3087,22 @@ def bwd_check(name: str, grads, refs, dt, causal: bool, chunk: int) -> dict:
                                  f"error {row_err:.3e} of the rows' scale "
                                  f"> {FLASH_ROW_TOL[dt]:g}")
         errs[n + "_row"] = row_err
+    if bad:
+        raise AssertionError(f"flash_attention_bwd {name} {dt}: "
+                             f"{'; '.join(bad)}")
     return errs
 
 
-def bwd_last_key_probe(q, k, v, o, lse, do, refs, causal, chunk) -> dict:
+def bwd_last_key_probe(q, k, v, o, lse, do, refs, causal, chunk,
+                       window=0) -> dict:
     """The plain version without the last key (its dk and dv rows zero):
     what a kernel that dropped it would return.  It must fail FLASH_ROW_TOL
     on dk and dv, or the check could not see such a kernel; whether it
     also fails TOL is recorded."""
     dropped = attention_bwd_ref(q, k[:, :-1].contiguous(),
                                 v[:, :-1].contiguous(), o, lse, do,
-                                causal=causal, chunk=chunk)
-    rows = bwd_rows(q.shape[1], k.shape[1], causal, chunk)
+                                causal=causal, window=window, chunk=chunk)
+    rows = bwd_rows(q.shape[1], k.shape[1], causal, chunk, window)
     out = {}
     for n, g, r in zip(("dk", "dv"), dropped[1:], refs[1:]):
         g = torch.cat([g, torch.zeros_like(r[:, -1:])], 1)
@@ -3043,40 +3129,41 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
     against ``attention_bwd_ref`` on the same q, k, v, o, lse and dO, within
     TOL and FLASH_ROW_TOL (``bwd_check``).  The first BWD_TIMED cases are
     timed in bf16: every variant, the plain version and SDPA's backward
-    (forward and backward minus forward), which the port never calls; at
-    each of them ``bwd_last_key_probe`` shows that the row check sees a
-    kernel that drops the last key."""
+    (forward and backward minus forward; a window as a boolean mask), which
+    the port never calls; at each of them ``bwd_last_key_probe`` shows that
+    the row check sees a kernel that drops the last key."""
     cases = []
     for dt in (torch.bfloat16, torch.float32):
-        for i, (name, (B, Sq, Skv, Hq, Hkv, D), causal, chunk) in \
+        for i, (name, (B, Sq, Skv, Hq, Hkv, D), causal, window, chunk) in \
                 enumerate(flash_bwd_cases()):
             q, k, v = rn(B, Sq, Hq, D, dt=dt), rn(B, Skv, Hkv, D, dt=dt), \
                 rn(B, Skv, Hkv, D, dt=dt)
             do = rn(B, Sq, Hq, D, dt=dt)
+            masks = dict(causal=causal, window=window, chunk=chunk)
             before = dict(flash_attention.impl_launches)
-            o, lse = flash_forward(q, k, v, causal=causal, window=0,
-                                   chunk=chunk, q_offset=0, kv_len=None,
+            o, lse = flash_forward(q, k, v, q_offset=0, kv_len=None,
                                    k_pos=None, impl=None, splits=None,
-                                   with_lse=True)
+                                   with_lse=True, **masks)
             fwd_impl = next(n for n, c in flash_attention.impl_launches.items()
                             if c > before[n])
-            ref_o, ref_lse = attention_ref(q, k, v, causal=causal,
-                                           chunk=chunk, return_lse=True)
+            ref_o, ref_lse = attention_ref(q, k, v, return_lse=True, **masks)
             err_o, _ = flash_check(name, o, ref_o, dt)
             err_lse = close(lse, ref_lse, TOL[dt])
-            refs = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                     chunk=chunk)
+            refs = attention_bwd_ref(q, k, v, o, lse, do, **masks)
             timed = {}
             if dt == torch.bfloat16 and i < BWD_TIMED:
                 probe = bwd_last_key_probe(q, k, v, o, lse, do, refs,
-                                           causal, chunk)
+                                           causal, chunk, window)
                 qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                               for t in (q, k, v))
                 dot = do.transpose(1, 2)
+                mask = (window_mask(Sq, Skv, causal, window, chunk)
+                        if window or chunk else None)
 
                 def sdpa_fwd():
                     return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+                        qt, kt, vt, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=True)
 
                 def sdpa_fwd_bwd():
                     return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
@@ -3084,17 +3171,16 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                 t = in_turns(timer, {"fwd": sdpa_fwd, "both": sdpa_fwd_bwd})
                 timed = dict(
                     plain_ms=timer.ms(lambda: attention_bwd_ref(
-                        q, k, v, o, lse, do, causal=causal, chunk=chunk),
-                        reps=5),
+                        q, k, v, o, lse, do, **masks), reps=5),
                     library_ms=t["both"] - t["fwd"],
                     library_fwd_ms=t["fwd"], library_fwd_bwd_ms=t["both"],
                     last_key_probe=probe,
                     **flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal,
-                                     chunk))
-                del qt, kt, vt, dot
-            for impl, forced in bwd_variants((B, Sq, Skv, Hq, Hkv, D), dt):
-                kw = dict(causal=causal, chunk=chunk,
-                          impl=impl if forced else None)
+                                     chunk, window))
+                del qt, kt, vt, dot, mask
+            for impl, forced in bwd_variants((B, Sq, Skv, Hq, Hkv, D), dt,
+                                             window):
+                kw = dict(masks, impl=impl if forced else None)
                 before = dict(flash_attention_bwd.impl_launches)
                 grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
                 moved = {n: c - before[n] for n, c in
@@ -3102,9 +3188,9 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                 if moved != {n: int(n == impl) for n in moved}:
                     raise AssertionError(f"flash_attention_bwd {name}: "
                                          f"{moved}, not one {impl} launch")
-                errs = bwd_check(name, grads, refs, dt, causal, chunk)
+                errs = bwd_check(name, grads, refs, dt, causal, chunk, window)
                 case = {"case": name, "shape": [B, Sq, Skv, Hq, Hkv, D],
-                        "causal": causal, "chunk": chunk,
+                        "causal": causal, "window": window, "chunk": chunk,
                         "dtype": str(dt)[6:], "impl": impl, "forced": forced,
                         "forward_impl": fwd_impl, "tol": TOL[dt],
                         "row_tol": FLASH_ROW_TOL[dt] if dt ==
@@ -3120,6 +3206,161 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                 cases.append(case)
                 del grads
             del q, k, v, do, o, lse, refs, ref_o, ref_lse
+            torch.cuda.empty_cache()
+    return cases
+
+
+RGLRU_BWD_NAMES = ("dxa", "dxi", "dxc", "db_a", "db_i", "dlam", "dh0")
+
+
+def rglru_bwd_shapes() -> tuple:
+    """(B, S, W, h0, dh_last, timed): recurrentgemma-2b's training shape
+    (2 x 4096 by 2560, from zero and without dh_last, as the model runs it),
+    then ragged ones: S not a multiple of the backward's 32-step chunk, W
+    not a multiple of its 128-channel block, with h0 and dh_last."""
+    rg = get_config("recurrentgemma-2b")
+    return ((2, 4096, rg.rnn_width, False, False, True),
+            (1, 45, 130, True, True, False),
+            (3, 33, 20, True, False, False),
+            (2, 1, 129, True, True, False),
+            (1, 300, 64, False, True, False))
+
+
+def rglru_bwd_work(Bs, S, Wd, dt, h0: bool, dh_last: bool) -> dict:
+    """xa, xi, xc, dh read and dxa, dxi, dxc written once each, the (W,)
+    vectors read and their gradients written, h0, dh_last read and dh0
+    written where given; ~50 fp32 operations an element (the forward's ~30,
+    recomputed, and the reverse step and chain rule)."""
+    n = Bs * S * Wd
+    nbytes = 7 * n * esize(dt) + 6 * Wd * 4 + \
+        (2 * h0 + dh_last) * Bs * Wd * 4
+    return bound(nbytes, 50 * n, torch.float32)
+
+
+def kernels_rglru_bwd(timer: Timer, g) -> list:
+    """The gated RG-LRU's backward against ``rglru_gated_bwd_ref`` on the
+    card at ``rglru_bwd_shapes``, bf16 and fp32, within TOL x
+    RGLRU_TOL_MULT (the RG-LRU's tolerance, as its forward: the kernel's
+    sigmoids are the special-function unit's, and 1 / sqrt(1 - a^2) in the
+    gradient magnifies a's last bit); whether each case is also within TOL
+    is recorded.  A second launch must give the same bits (no atomics).
+    Timed in bf16 at the training shape beside its bound and the plain
+    version; no PyTorch call computes a linear recurrence's backward."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for Bs, S, Wd, with_h0, with_last, timed in rglru_bwd_shapes():
+            args, h0 = rglru_gated_inputs(g, Bs, S, Wd, dt)
+            h0 = h0 if with_h0 else None
+            dh = torch.randn(Bs, S, Wd, generator=g, device=DEV).to(dt)
+            dh_last = (torch.randn(Bs, Wd, generator=g, device=DEV)
+                       if with_last else None)
+            tol = TOL[dt] * RGLRU_TOL_MULT
+            n0 = rglru_gated_bwd.launches
+            got = rglru_gated_bwd(*args, h0, dh, dh_last)
+            again = rglru_gated_bwd(*args, h0, dh, dh_last)
+            if rglru_gated_bwd.launches != n0 + 2:
+                raise AssertionError("rglru_gated_bwd: not one launch a call")
+            want = rglru_gated_bwd_ref(*args, h0, dh, dh_last)
+            errs, within_tol = {}, True
+            for name, a, b, c in zip(RGLRU_BWD_NAMES, got, want, again):
+                if b is None:
+                    continue
+                if not torch.equal(a, c):
+                    raise AssertionError(f"rglru_gated_bwd {name}: two "
+                                         f"launches differ")
+                errs[name] = close(a, b, tol)
+                err = (a.float() - b.float()).abs()
+                within_tol &= bool((err <= TOL[dt] * (1 + b.float().abs()))
+                                   .all())
+            case = {"shape": [Bs, S, Wd], "dtype": str(dt)[6:],
+                    "h0": with_h0, "dh_last": with_last, "tol": tol,
+                    "within_TOL": within_tol,
+                    "max_abs_err": max(errs.values()), "err": errs}
+            del got, again, want
+            if timed and dt == torch.bfloat16:
+                case.update(
+                    ms=timer.ms(lambda: rglru_gated_bwd(*args, h0, dh,
+                                                        dh_last)),
+                    plain_ms=timer.ms(lambda: rglru_gated_bwd_ref(
+                        *args, h0, dh, dh_last), reps=3),
+                    library_ms=None,
+                    **rglru_bwd_work(Bs, S, Wd, dt, with_h0, with_last))
+            log(f"[train] rglru_gated_bwd {case}")
+            cases.append(case)
+            del args, h0, dh, dh_last
+    torch.cuda.empty_cache()
+    return cases
+
+
+def mamba_bwd_shapes() -> tuple:
+    """(B, S, Di, N, dh_last, timed): falcon-mamba-7b's training shape (8 x
+    1024 by 8192 x 16, no dh_last, as the model runs it), then ragged ones,
+    each N of {4, 8, 16}: S not a multiple of the 32-step chunk, Di * N not
+    a multiple of the 256-element block, with and without dh_last."""
+    fm = get_config("falcon-mamba-7b")
+    return ((8, 1024, fm.d_inner, fm.ssm_state, False, True),
+            (1, 45, 130, 4, True, False), (2, 33, 24, 8, False, False),
+            (1, 70, 130, 16, True, False), (2, 1, 16, 4, True, False))
+
+
+def kernels_mamba_bwd(timer: Timer, g) -> list:
+    """The Mamba scan's backward against ``mamba_scan_bwd_ref`` on the card
+    at ``mamba_bwd_shapes``, bf16 and fp32 inputs (fp32 outputs), within
+    TOL of the inputs' dtype; a second launch must give the same bits.
+    Timed in fp32 (the model's da and dbx) at the training shape beside its
+    bound and the plain version; no PyTorch call computes a linear
+    recurrence's backward."""
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for Bs, S, Di, N, with_last, timed in mamba_bwd_shapes():
+            da = (torch.rand(Bs, S, Di, N, generator=g, device=DEV) * 0.49
+                  + 0.5).to(dt)
+            dbx = (torch.randn(Bs, S, Di, N, generator=g, device=DEV)
+                   * 0.1).to(dt)
+            c = torch.randn(Bs, S, N, generator=g, device=DEV).to(dt)
+            dy = torch.randn(Bs, S, Di, generator=g, device=DEV).to(dt)
+            dh_last = (torch.randn(Bs, Di, N, generator=g, device=DEV)
+                       if with_last else None)
+            n0 = mamba_scan_bwd.launches
+            got = mamba_scan_bwd(da, dbx, c, dy, dh_last)
+            again = mamba_scan_bwd(da, dbx, c, dy, dh_last)
+            if mamba_scan_bwd.launches != n0 + 2:
+                raise AssertionError("mamba_scan_bwd: not one launch a call")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("mamba_scan_bwd: two launches differ")
+            del again
+            want = mamba_scan_bwd_ref(da, dbx, c, dy, dh_last)
+            errs, bad = {}, []
+            for n, a, b in zip(("dda", "ddbx", "dc"), got, want):
+                try:
+                    errs[n] = close(a, b, TOL[dt])
+                except AssertionError as e:
+                    bad.append(f"{n}: {e}")
+            if bad:
+                raise AssertionError(f"mamba_scan_bwd {Bs}x{S}x{Di}x{N} "
+                                     f"{dt}: {'; '.join(bad)}")
+            del got, want
+            case = {"shape": [Bs, S, Di, N], "dtype": str(dt)[6:],
+                    "dh_last": with_last, "tol": TOL[dt],
+                    "max_abs_err": max(errs.values()), "err": errs}
+            if timed and dt == torch.float32:
+                es = esize(dt)
+                n = da.numel()
+                # da, dbx, c, dy read; dda, ddbx (fp32) and dc written
+                nbytes = (2 * n + Bs * S * (N + Di)) * es + \
+                    (2 * n + Bs * S * N) * 4
+                case.update(
+                    ms=timer.ms(lambda: mamba_scan_bwd(da, dbx, c, dy,
+                                                       dh_last)),
+                    plain_ms=timer.ms(lambda: mamba_scan_bwd_ref(
+                        da, dbx, c, dy, dh_last), reps=3),
+                    library_ms=None,
+                    # ~8 operations an element: the recomputed state, the
+                    # reverse step, dda, and dc's product and sum
+                    **bound(nbytes, 8 * n, torch.float32))
+            log(f"[train] mamba_scan_bwd {case}")
+            cases.append(case)
+            del da, dbx, c, dy, dh_last
             torch.cuda.empty_cache()
     return cases
 
@@ -3161,30 +3402,59 @@ def kernels_rmsnorm_bwd(timer: Timer, rn) -> list:
     return cases
 
 
+def visible_pairs(seq: int, window: int) -> int:
+    """Causal (query, key) pairs of one head at ``seq`` positions, within
+    the window where there is one."""
+    if not window or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
 def train_flops(model, batch: int, seq: int) -> float:
     """A training step's operations: 6 per parameter and token of every
     matrix the tokens go through (the layers' and the unembedding; the
-    embedding is a lookup), plus attention's products, 4 * D a visible
-    (query, key) pair forward and 2.5x that backward."""
+    embedding is a lookup; the scans' elementwise work is left out), plus
+    each attention layer's products, 4 * D a visible (query, key) pair
+    forward and 2.5x that backward, within its window."""
     cfg = model.cfg
-    per_layer = sum(p.numel() for p in model.layers[0].parameters())
+    layers = sum(p.numel() for p in model.layers.parameters())
     unembed = cfg.d_model * cfg.vocab
-    pairs = batch * cfg.n_heads * seq * (seq + 1) // 2
-    attn = 3.5 * 4 * cfg.resolved_head_dim * pairs * cfg.n_layers
-    return 6.0 * batch * seq * (per_layer * cfg.n_layers + unembed) + attn
+    attn_layers = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    window = cfg.attn_window if "attn_local" in cfg.layer_kinds() else 0
+    pairs = batch * cfg.n_heads * visible_pairs(seq, window)
+    attn = 3.5 * 4 * cfg.resolved_head_dim * pairs * attn_layers
+    return 6.0 * batch * seq * (layers + unembed) + attn
 
 
 def expected_train_launches(cfg) -> dict:
-    """One training step of an attention-only RMSNorm model: every norm
-    (two a layer and the final one) and every attention once forward and
-    once backward; the forward's attention on the tensor cores with its
-    log-sum-exp (bf16 at head_dim 64-128)."""
-    norms = 2 * cfg.n_layers + 1
+    """One training step: every norm (two a layer outside the ssm family,
+    one inside, and the final one), every attention layer, every RG-LRU
+    layer and every Mamba layer, each once forward and once backward."""
+    kinds = cfg.layer_kinds()
+    norms = len(kinds) * (1 if cfg.family == "ssm" else 2) + 1
+    attn = sum(k.startswith("attn") for k in kinds)
     counts = dict.fromkeys(KERNELS, 0)
     counts.update(rmsnorm=norms, rmsnorm_bwd=norms,
-                  flash_attention=cfg.n_layers,
-                  flash_attention_bwd=cfg.n_layers)
+                  flash_attention=attn, flash_attention_bwd=attn,
+                  rglru_gated=kinds.count("rglru"),
+                  rglru_gated_bwd=kinds.count("rglru"),
+                  mamba_scan=kinds.count("mamba"),
+                  mamba_scan_bwd=kinds.count("mamba"))
     return counts
+
+
+def train_impls(cfg, batch: int, seq: int) -> tuple:
+    """(forward, backward) flash kernels of a training step's attention in
+    bf16: the prefill plan with the log-sum-exp and ``plan_bwd`` (None
+    without attention)."""
+    if not any(k.startswith("attn") for k in cfg.layer_kinds()):
+        return None, None
+    D, dt = cfg.resolved_head_dim, torch.bfloat16
+    window = cfg.attn_window if "attn_local" in cfg.layer_kinds() else 0
+    fwd = flash_plan(batch, seq, cfg.n_heads, cfg.n_kv_heads, D, dt, seq,
+                     lse=True).impl
+    return fwd, plan_bwd(batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, D, dt,
+                         window=window)
 
 
 def grads_finite_nonzero(model) -> dict:
@@ -3203,35 +3473,39 @@ def train_batch(cfg, batch: int, seq: int, step: int, seed: int = 1) -> dict:
             for k, v in data.global_batch_at(step).items()}
 
 
-def train_run() -> dict:
-    """The slice's main path: ``make_train_step`` on qwen2-7b (TRAIN_LAYERS
-    layers, published widths, bf16, seeded random weights) for TRAIN_STEPS
-    steps of TRAIN_BATCH x TRAIN_SEQ tokens.  The counts are set to 0 just
+def train_run(arch: str, layers: int, batch: int, seq: int,
+              lr: float = 1e-3, steps: int = 4) -> dict:
+    """One of the slice's main paths: ``make_train_step`` on ``arch`` at
+    ``layers`` layers (published widths, bf16, seeded random weights) for
+    ``steps`` steps of batch x seq tokens at learning rate ``lr``, each on
+    the pipeline's next batch.  The counts are set to 0 just
     before the steps and read just after; each step's launches must be
-    exactly ``expected_train_launches`` (all RMSNorms ``vector``, all
-    attention forwards ``tc_prefill`` with the log-sum-exp, all attention
-    backwards ``tc``), every
-    parameter's gradient finite and non-zero after each step, and the loss
-    finite and falling or flat.  Then one more step under the profiler
-    (device ms by kernel, the idle share) and AdamW's update alone, timed
-    on that step's gradients."""
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    exactly ``expected_train_launches`` (all RMSNorms ``vector``, the
+    attention forwards on the plan's prefill kernel with the log-sum-exp
+    and the backwards on ``plan_bwd``'s: ``tc`` for qwen2-7b, ``simt`` for
+    recurrentgemma-2b's windowed D 256), every parameter's gradient finite
+    and non-zero after each step, and the loss finite and falling or flat
+    (the last step's no higher than the first's).
+    Then one more step under the profiler (device ms by kernel, the idle
+    share) and AdamW's update alone, timed on that step's gradients."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
     model = Transformer(cfg, DEV, seed=0, trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
-    step, opt_init = make_train_step(
-        model, AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype))
+    adam_cfg = AdamWConfig(lr=lr, moment_dtype=cfg.moment_dtype)
+    step, opt_init = make_train_step(model, adam_cfg)
     opt = opt_init()
-    batches = [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s)
-               for s in range(TRAIN_STEPS)]
+    batches = [train_batch(cfg, batch, seq, s) for s in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     expect = expected_train_launches(cfg)
+    fwd_impl, bwd_impl = train_impls(cfg, batch, seq)
     reset_counts()
     metrics, step_ms, per_step, missing = [], [], [], []
-    for s in range(TRAIN_STEPS):
+    for s in range(steps):
         before = read_counts()
         impls = dict(flash_attention.impl_launches)
-        bwd0 = flash_attention_bwd.impl_launches["tc"]
+        bwd0 = dict(flash_attention_bwd.impl_launches)
         lse0, var0 = flash_attention.lse_launches, dict(
             fused_rmsnorm.variant_launches)
         t0 = time.perf_counter()
@@ -3243,17 +3517,23 @@ def train_run() -> dict:
         got = {k: now[k] - before[k] for k in KERNELS}
         per_step.append(got)
         if got != expect:
-            raise AssertionError(f"train step {s}: launches {got} != {expect}")
-        tc = flash_attention.impl_launches["tc_prefill"] - impls["tc_prefill"]
-        tc_bwd = flash_attention_bwd.impl_launches["tc"] - bwd0
+            raise AssertionError(f"{arch} train step {s}: launches {got} != "
+                                 f"{expect}")
+        fwd = {n: c - impls[n]
+               for n, c in flash_attention.impl_launches.items()}
+        bwd = {n: c - bwd0[n]
+               for n, c in flash_attention_bwd.impl_launches.items()}
+        attn = expect["flash_attention"]
         vec = fused_rmsnorm.variant_launches["vector"] - var0["vector"]
-        if tc != cfg.n_layers or flash_attention.lse_launches - lse0 != \
-                cfg.n_layers or vec != expect["rmsnorm"] or \
-                tc_bwd != cfg.n_layers:
-            raise AssertionError(f"train step {s}: {tc} tc_prefill, "
+        if fwd != {n: attn * (n == fwd_impl) for n in fwd} or \
+                bwd != {n: attn * (n == bwd_impl) for n in bwd} or \
+                flash_attention.lse_launches - lse0 != attn or \
+                vec != expect["rmsnorm"]:
+            raise AssertionError(f"{arch} train step {s}: forwards {fwd}, "
+                                 f"backwards {bwd} (want {attn} {fwd_impl} "
+                                 f"/ {bwd_impl}), "
                                  f"{flash_attention.lse_launches - lse0} "
-                                 f"with lse, {vec} vector norms, {tc_bwd} "
-                                 f"tc backwards")
+                                 f"with lse, {vec} vector norms")
         missing.append(grads_finite_nonzero(model))
     launches = read_counts()
     flash_impls = dict(flash_attention.impl_launches)
@@ -3273,21 +3553,23 @@ def train_run() -> dict:
     del prof
     params = dict(model.named_parameters())
     grads = {n: p.grad for n, p in params.items()}
-    adam_cfg = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
     adamw_ms = Timer().ms(lambda: adamw_update(params, grads, opt["adam"],
                                                adam_cfg), reps=3)
     del grads
     losses = [float(m["loss"]) for m in metrics]
     gnorms = [float(m["grad_norm"]) for m in metrics]
-    flops = train_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    flops = train_flops(model, batch, seq)
     steady = statistics.mean(step_ms[1:])
     bound_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
-           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "loss": losses,
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "published_layers": full.n_layers,
+           "cut": f"depth {cfg.n_layers} of {full.n_layers} layers, "
+                  f"{batch} x {seq} tokens: the 80 GB card",
+           "dtype": cfg.param_dtype, "params": n_params, "batch": batch,
+           "seq": seq, "steps": steps, "lr": lr, "loss": losses,
            "grad_norm": gnorms, "first_step_ms": step_ms[0],
            "step_ms": step_ms[1:], "steady_step_ms": steady,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+           "tokens_per_s": batch * seq / steady * 1e3,
            "step_flops": flops, "step_bound_ms": bound_ms,
            "share_of_bound": bound_ms / steady, "peak_mem_gb": peak_gb,
            "launches": launches, "launches_per_step": per_step[0],
@@ -3297,32 +3579,87 @@ def train_run() -> dict:
            "profiled_step": {k: breakdown[k] for k in (
                "device_ms", "idle_share", "by_kernel_ms")},
            "profiled_step_host_ms": host_ms, "adamw_update_ms": adamw_ms}
-    log(f"[train] {TRAIN_ARCH} {json.dumps(res)}")
+    log(f"[train] {arch} {json.dumps(res)}")
     if any(missing):
-        raise AssertionError(f"train: parameters without a finite non-zero "
-                             f"gradient: {missing}")
+        raise AssertionError(f"train {arch}: parameters without a finite "
+                             f"non-zero gradient: {missing}")
     if not all(np.isfinite(losses)) or not losses[-1] <= losses[0]:
-        raise AssertionError(f"train: loss {losses} not finite and falling "
-                             f"or flat")
+        raise AssertionError(f"train {arch}: loss {losses} not finite and "
+                             f"falling or flat")
     del model, opt, step, batches, metrics
     torch.cuda.empty_cache()
     return res
 
 
+def eager_dbx(dt, bmat, xc):
+    """``dt (x) B * xc`` as the Mamba block computed it before
+    ``DiscretiseBx``: autograd of the in-place product keeps a clone of
+    ``dt (x) B``."""
+    return (dt[..., None] * bmat[:, :, None, :].float()).mul_(
+        xc[..., None].float())
+
+
+def dbx_peaks(layers: int = 2, batch: int = 8, seq: int = 1024) -> dict:
+    """falcon-mamba-7b's peak memory over one loss and backward at
+    ``layers`` layers (published widths, bf16) with ``DiscretiseBx`` and
+    with the eager product it replaced (the clone), on the same weights
+    and batch; their losses must be equal."""
+    from repro_torch.models import mamba as mamba_mod
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=layers)
+    model = Transformer(cfg, DEV, seed=0, trainable=True)
+    data = train_batch(cfg, batch, seq, 0)
+    out = {}
+    try:
+        for form in ("DiscretiseBx", "eager"):
+            if form == "eager":     # shadows Function.apply on the class
+                mamba_mod.DiscretiseBx.apply = eager_dbx
+            for p in model.parameters():
+                p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss = loss_fn(model, data)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            out[form] = {"loss": loss.item(),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "peak_over_weights_gb": (
+                             torch.cuda.max_memory_allocated() - base) / 1e9}
+            del loss
+    finally:
+        if "apply" in vars(mamba_mod.DiscretiseBx):
+            del mamba_mod.DiscretiseBx.apply
+    del model, data
+    torch.cuda.empty_cache()
+    res = {"layers": layers, "tokens": [batch, seq], **out,
+           "per_layer_gb": (out["eager"]["peak_gb"]
+                            - out["DiscretiseBx"]["peak_gb"]) / layers}
+    log(f"[train] falcon-mamba-7b dt*B*xc peaks {json.dumps(res)}")
+    if out["eager"]["loss"] != out["DiscretiseBx"]["loss"]:
+        raise AssertionError(f"DiscretiseBx changed the loss: {out}")
+    return res
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside: the model path's RMSNorm and attention take their plain
-    versions on the card (autograd differentiates them), for the rounding
-    floor of the gradient check only."""
+    """Inside: the model path's RMSNorm, attention, RG-LRU and Mamba scan
+    take their plain versions on the card (autograd differentiates them),
+    for the rounding floor of the gradient check only."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import common as common_mod
-    saved = attn_mod.flash_attention, common_mod.fused_rmsnorm
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import rglru as rglru_mod
+    saved = (attn_mod.flash_attention, common_mod.fused_rmsnorm,
+             rglru_mod.rglru_gated, mamba_mod.mamba_scan)
     attn_mod.flash_attention = attention_ref
     common_mod.fused_rmsnorm = rmsnorm_ref
+    rglru_mod.rglru_gated = rglru_gated_ref
+    mamba_mod.mamba_scan = mamba_scan_ref
     try:
         yield
     finally:
-        attn_mod.flash_attention, common_mod.fused_rmsnorm = saved
+        (attn_mod.flash_attention, common_mod.fused_rmsnorm,
+         rglru_mod.rglru_gated, mamba_mod.mamba_scan) = saved
 
 
 def loss_grads(model, batch) -> tuple:
@@ -3334,29 +3671,30 @@ def loss_grads(model, batch) -> tuple:
                          model.named_parameters()}
 
 
-def grad_check() -> dict:
-    """One step's gradients of qwen2-7b at its widths and GRAD_CHECK_LAYERS
-    layers: the bf16 kernel path (its backward ``tc``) against the fp32
-    gradients of the same weights and batch (the fp32 kernel path), leaf by
-    leaf, by the rule ``serve_check`` applies to logits: relative RMS error
-    within FLOOR_MULT times the bf16 rounding floor, the same distance of
-    the bf16 plain path (autograd through ``attention_ref`` and
-    ``rmsnorm_ref``, on the card)."""
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              n_layers=GRAD_CHECK_LAYERS)
-    batch = train_batch(cfg, GRAD_CHECK_BATCH, TRAIN_SEQ, 0)
+def grad_check(arch: str, layers: int, batch: int, seq: int) -> dict:
+    """One step's gradients of ``arch`` at its widths and ``layers`` layers:
+    the bf16 kernel path (exact launches, the plan's backward kernels)
+    against the fp32 gradients of the same weights and batch (the fp32
+    kernel path), leaf by leaf, by the rule ``serve_check`` applies to
+    logits: relative RMS error within FLOOR_MULT times the bf16 rounding
+    floor, the same distance of the bf16 plain path (autograd through
+    ``attention_ref``, ``rmsnorm_ref``, ``rglru_gated_ref`` and
+    ``mamba_scan_ref``, on the card)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    data = train_batch(cfg, batch, seq, 0)
     model = Transformer(cfg, DEV, seed=5, trainable=True)
+    _, bwd_impl = train_impls(cfg, batch, seq)
     reset_counts()
-    loss_k, g_k = loss_grads(model, batch)
+    loss_k, g_k = loss_grads(model, data)
     counts = read_counts()
-    if counts["flash_attention_bwd"] != cfg.n_layers or \
-            flash_attention_bwd.impl_launches["tc"] != cfg.n_layers or \
-            counts["rmsnorm_bwd"] != 2 * cfg.n_layers + 1:
-        raise AssertionError(f"grad check: launches {counts}, backward "
-                             f"{flash_attention_bwd.impl_launches}")
+    attn = expected_train_launches(cfg)["flash_attention_bwd"]
+    if counts != expected_train_launches(cfg) or (
+            attn and flash_attention_bwd.impl_launches[bwd_impl] != attn):
+        raise AssertionError(f"grad check {arch}: launches {counts}, "
+                             f"backward {flash_attention_bwd.impl_launches}")
     with plain_kernels():
         reset_counts()
-        loss_p, g_p = loss_grads(model, batch)
+        loss_p, g_p = loss_grads(model, data)
         if any(read_counts().values()):
             raise AssertionError("grad check: the plain path launched a "
                                  "kernel")
@@ -3365,7 +3703,7 @@ def grad_check() -> dict:
     model32.load_state_dict({n: t.float()
                              for n, t in model.state_dict().items()})
     del model
-    loss_32, g_32 = loss_grads(model32, batch)
+    loss_32, g_32 = loss_grads(model32, data)
     del model32
     leaves = {}
     for n in g_32:
@@ -3373,8 +3711,8 @@ def grad_check() -> dict:
         leaves[n] = {"kernel_vs_fp32": err, "plain_bf16_vs_fp32": floor,
                      "ratio": err / floor if floor else float("inf")}
     worst = max(leaves, key=lambda n: leaves[n]["ratio"])
-    res = {"arch": cfg.name, "layers": cfg.n_layers,
-           "tokens": [GRAD_CHECK_BATCH, TRAIN_SEQ],
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "tokens": [batch, seq],
+           "backward_impl": bwd_impl,
            "loss": {"bf16_kernels": loss_k, "bf16_plain": loss_p,
                     "fp32": loss_32},
            "limit_ratio": FLOOR_MULT, "worst_leaf": worst,
@@ -3382,8 +3720,8 @@ def grad_check() -> dict:
     log(f"[train] grad check {json.dumps(res)}")
     bad = {n: v for n, v in leaves.items() if not v["ratio"] <= FLOOR_MULT}
     if bad:
-        raise AssertionError(f"grad check: leaves beyond {FLOOR_MULT} x the "
-                             f"bf16 floor: {bad}")
+        raise AssertionError(f"grad check {arch}: leaves beyond "
+                             f"{FLOOR_MULT} x the bf16 floor: {bad}")
     del g_k, g_p, g_32
     torch.cuda.empty_cache()
     return res
@@ -3401,11 +3739,49 @@ def tiny_run(name: str, **kw) -> TrainRunConfig:
     return TrainRunConfig(**defaults)
 
 
+def reduced_recurrent_check(arch: str) -> dict:
+    """``arch``'s reduced config in fp32 on the card: one loss and backward
+    through the kernels (exact launches: the scans' backward kernels,
+    recurrentgemma-2b's window on ``simt``) against the CPU's plain path on
+    the same weights and batch, every gradient leaf within
+    REDUCED_GRAD_RTOL; then ``train_loop`` for 30 steps, the loss falling."""
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+    model = Transformer(cfg, DEV, seed=3, trainable=True)
+    cpu = Transformer(cfg, "cpu", seed=3, trainable=True)
+    cpu.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    data = train_batch(cfg, 2, 64, 0)
+    reset_counts()
+    loss_k, g_k = loss_grads(model, data)
+    counts = read_counts()
+    if counts != expected_train_launches(cfg):
+        raise AssertionError(f"{arch} reduced: launches {counts} != "
+                             f"{expected_train_launches(cfg)}")
+    loss_c, g_c = loss_grads(cpu, {k: v.cpu() for k, v in data.items()})
+    errs = {n: rel_rms(g_k[n].cpu(), g_c[n]) for n in g_c
+            if bool(g_c[n].any())}
+    worst = max(errs, key=errs.get)
+    h = train_loop(TrainRunConfig(cfg=cfg, steps=30, global_batch=8,
+                                  seq_len=64, lr=3e-3, log_every=100,
+                                  device=DEV), log=lambda *a: None
+                   )["history"]["loss"]
+    res = {"launches": counts, "loss": {"cuda": loss_k, "cpu": loss_c},
+           "worst_leaf": worst, "worst_rel_rms": errs[worst],
+           "tol": REDUCED_GRAD_RTOL, "train_loss": [h[0], h[-1]]}
+    if not abs(loss_k - loss_c) <= 1e-5 * abs(loss_c) or \
+            not errs[worst] <= REDUCED_GRAD_RTOL:
+        raise AssertionError(f"{arch} reduced on the card vs the CPU: {res}")
+    if not h[-1] < h[0]:
+        raise AssertionError(f"{arch} reduced: loss {h} not falling")
+    del model, cpu
+    return res
+
+
 def reference_training_tests() -> dict:
     """tests/test_system.py's four training tests through the port's
     ``train_loop`` on the card (its kernels: fp32 flash on ``simt`` with
-    the log-sum-exp and its backward; qwen2-7b's RMSNorms), then
-    recurrentgemma-2b and falcon-mamba-7b refusing to train on the card."""
+    the log-sum-exp and its backward; qwen2-7b's RMSNorms), then the
+    reduced recurrentgemma-2b and falcon-mamba-7b trained on the card in
+    fp32 (``reduced_recurrent_check``)."""
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     quiet = lambda *a: None   # noqa: E731
     res = {}
@@ -3445,18 +3821,8 @@ def reference_training_tests() -> dict:
                            "tol": "2e-4 abs + rel"}
     if not np.allclose(l4, l1, rtol=2e-4, atol=2e-4):
         raise AssertionError(f"microbatches: {l1} vs {l4}")
-    refused = {}
     for arch in ("recurrentgemma-2b", "falcon-mamba-7b"):
-        model = Transformer(get_reduced(arch), DEV, trainable=True)
-        toks = torch.zeros(2, 8, dtype=torch.long, device=DEV)
-        try:
-            loss_fn(model, {"tokens": toks, "labels": toks})[0].backward()
-        except NotImplementedError as e:
-            refused[arch] = str(e)
-        else:
-            raise AssertionError(f"{arch} trained on the card without a "
-                                 f"scan backward")
-    res["recurrent_refused"] = refused
+        res[f"{arch} reduced fp32"] = reduced_recurrent_check(arch)
     res["seconds"] = time.perf_counter() - t0
     log(f"[train] reference tests {json.dumps(res)}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -3465,8 +3831,9 @@ def reference_training_tests() -> dict:
 
 def phase_train() -> tuple:
     """Phase 9: (kernel rows, runs).  The kernels first (the backward ones
-    and the forward's log-sum-exp), then the main path's run, the gradient
-    check and the reference's training tests."""
+    and the forward's log-sum-exp), then the main paths' runs (TRAIN_RUNS),
+    falcon-mamba-7b's dt*B*xc peaks, the gradient checks (GRAD_CHECKS) and
+    the reference's training tests."""
     timer = Timer()
     g = torch.Generator(device=DEV).manual_seed(4321)
 
@@ -3474,13 +3841,20 @@ def phase_train() -> tuple:
         return torch.randn(*shape, generator=g, device=DEV).to(dt)
 
     rows = {"flash_attention_bwd": kernels_flash_bwd(timer, rn),
-            "rmsnorm_bwd": kernels_rmsnorm_bwd(timer, rn)}
+            "rmsnorm_bwd": kernels_rmsnorm_bwd(timer, rn),
+            "rglru_gated_bwd": kernels_rglru_bwd(timer, g),
+            "mamba_scan_bwd": kernels_mamba_bwd(timer, g)}
     del timer
     torch.cuda.empty_cache()
-    run = train_run()
-    grad_check()
+    runs = {}
+    for arch, layers, batch, seq, lr, steps in TRAIN_RUNS:
+        runs[f"train {arch} {layers} layers"] = train_run(
+            arch, layers, batch, seq, lr, steps)
+    dbx_peaks()
+    for check in GRAD_CHECKS:
+        grad_check(*check)
     reference_training_tests()
-    return rows, {f"train {TRAIN_ARCH} {TRAIN_LAYERS} layers": run}
+    return rows, runs
 
 
 def kernel_line(rows: dict, runs: dict) -> dict:
@@ -3497,7 +3871,8 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     that ran (each case's ``impl``, each run's ``flash_impls``); its
     backward's entry is the plan's kernel at qwen2-7b's shape (``tc``), with
     both kernels under ``impls`` (each case's ``impl``, each run's
-    ``bwd_impls``; ``simt`` timed forced)."""
+    ``bwd_impls``; ``simt`` timed forced at qwen2-7b's shape, and planned at
+    recurrentgemma-2b's window under ``cases``)."""
     flash = "src/repro/kernels/flash_attention/kernel.py:78 " \
             "(flash_attention_kernel)"
     meta = {
@@ -3535,6 +3910,20 @@ def kernel_line(rows: dict, runs: dict) -> dict:
             "(rmsnorm_kernel): no TPU counterpart, the reference "
             "differentiates its plain rmsnorm "
             "(src/repro/models/common.py:177-181) through XLA"),
+        "rglru_gated_bwd": (
+            "src/repro_torch/csrc/rglru_scan.cu (rglru_gated_bwd)",
+            "backward of src/repro/kernels/rglru_scan/kernel.py:39 "
+            "(rglru_scan_kernel) with the gate arithmetic: no TPU "
+            "counterpart, the reference differentiates rglru_mix "
+            "(src/repro/models/rglru.py:65) and linear_scan_chunked "
+            "(src/repro/models/scan_ops.py:32) through XLA"),
+        "mamba_scan_bwd": (
+            "src/repro_torch/csrc/mamba_scan.cu (mamba_scan_bwd)",
+            "backward of src/repro/kernels/mamba_scan/kernel.py:48 "
+            "(mamba_scan_kernel): no TPU counterpart, the reference "
+            "differentiates mamba_mix (src/repro/models/mamba.py:72) and "
+            "linear_scan_chunked (src/repro/models/scan_ops.py:32) "
+            "through XLA"),
     }
     # (entry, cases, launches by run)
     entries = []

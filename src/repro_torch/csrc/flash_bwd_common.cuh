@@ -15,11 +15,14 @@ struct Params {
   const float* delta;   // (B, Hq, Sq)
   int Sq, Skv, Hq, Hkv, causal, chunk;
   float scale;
+  int window = 0;       // a key sees queries up to window - 1 later; the
+                        // tensor-core kernel takes none (0)
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
   bool ok = qp < p.Sq && kp < p.Skv;
   if (p.causal) ok = ok && kp <= qp;
+  if (p.window) ok = ok && kp > qp - p.window;
   if (p.chunk) ok = ok && kp / p.chunk == qp / p.chunk;
   return ok;
 }

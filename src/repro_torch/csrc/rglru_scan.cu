@@ -24,6 +24,12 @@
 //     b = sqrt(max(1 - a * a, 1e-12)) * i * xc
 //     h[t] = a[t] * h[t-1] + b[t] from h[-1] = h0.
 //   At S = 1 with h0 it is the model's decode step.
+// - rglru_gated_bwd: the gated entry's backward (training): from dh (B, S,
+//   W) and dh_last (B, W) to dxa, dxi, dxc, db_a, db_i, dlambda and dh0,
+//   recomputing a, b and h in fp32 with the forward's arithmetic
+//   (gate_math); see "the gated entry's backward" below.  No TPU
+//   counterpart: the reference differentiates rglru_mix
+//   (src/repro/models/rglru.py:65) through XLA.
 //
 // Bound: bytes (a multiply-add per three elements moved; the gated entry's
 // ~40 operations an element, several on the special-function unit, come
@@ -64,6 +70,8 @@
 // Gated NL 8: 63 (bf16), 57 (fp32); NL 16: 94, 92; Direct NL 8: 50, 57;
 // NL 16: 81, 108; no spills (an NL 32 instance spilled 40-68 bytes and was
 // dropped); the same for C 32 and 64; simple: 168 (bf16), 128 (fp32).
+// The backward (launch bound 128): bwd_fold 80 (bf16, fp32), bwd_grads 69,
+// 72, bwd_carry 64, bwd_params 72; no spills.
 #include "common.cuh"
 
 namespace {
@@ -187,6 +195,34 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return y;
 }
 
+// softplus(lam) as F.softplus (beta 1, threshold 20), times -8: the k of
+// a = exp(k * r)
+__device__ __forceinline__ float gate_k(float lam) {
+  return kC * -(lam > 20.f ? lam : log1pf(expf(lam)));
+}
+
+// The gate arithmetic of one element (see Gated): r, i, a, the clamped
+// y = max(1 - a * a, 1e-12) and s = sqrt(y), from xa, xi and the channel's
+// b_a, b_i and k; b = s * i * xc.  The forward and the backward both call
+// it, so the backward recomputes the forward's a and b bit for bit.
+__device__ __forceinline__ void gate_math(float xa, float xi, float ba,
+                                          float bi, float k, float& r,
+                                          float& i, float& a, float& y,
+                                          float& s) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float xr = fmaxf(xa + ba, -30.f);
+  const float xq = fmaxf(xi + bi, -30.f);
+  const float dr = 1.f + ex2_approx(-xr * kLog2e);
+  const float di = 1.f + ex2_approx(-xq * kLog2e);
+  const float inv = rcp_approx(dr * di);
+  r = di * inv;
+  i = dr * inv;
+  // (8 * r) * log_a_hat in the reference: the same product, rounded once
+  a = expf(k * r);
+  y = fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f);
+  s = y * rsqrtf(y);
+}
+
 // The gated entry: (a, b) from xa, xi, xc and the thread's channel's b_a,
 // b_i and 8 * log_a_hat, held in registers.  The arithmetic is the
 // reference's; where an error cannot compound it uses the special-function
@@ -202,30 +238,19 @@ __device__ __forceinline__ float rcp_approx(float x) {
 template <typename E>
 struct Gated {
   static constexpr int kIn = 3;
-  static constexpr float kLog2e = 1.4426950408889634f;
   float ba = 0.f, bi = 0.f, k = 0.f;
   __device__ Gated(const Args& p, int w, bool live) {
     if (live) {
       ba = p.b_a[w];
       bi = p.b_i[w];
-      const float lam = p.lam[w];
-      // F.softplus (beta 1, threshold 20)
-      const float sp = lam > 20.f ? lam : log1pf(expf(lam));
-      k = kC * -sp;
+      k = gate_k(p.lam[w]);
     }
   }
   __device__ void load(const E* st, int e, int tile, float& a,
                        float& b) const {
-    const float xr = fmaxf(to_f32(st[e]) + ba, -30.f);
-    const float xi = fmaxf(to_f32(st[tile + e]) + bi, -30.f);
-    const float dr = 1.f + ex2_approx(-xr * kLog2e);
-    const float di = 1.f + ex2_approx(-xi * kLog2e);
-    const float inv = rcp_approx(dr * di);
-    const float r = di * inv, i = dr * inv;
-    // (8 * r) * log_a_hat in the reference: the same product, rounded once
-    a = expf(k * r);
-    const float y = fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f);
-    b = y * rsqrtf(y) * i * to_f32(st[2 * tile + e]);
+    float r, i, y, s;
+    gate_math(to_f32(st[e]), to_f32(st[tile + e]), ba, bi, k, r, i, a, y, s);
+    b = s * i * to_f32(st[2 * tile + e]);
   }
 };
 
@@ -395,6 +420,246 @@ cudaError_t launch_ring(const Args& p, int B, int steps,
   return cudaErrorInvalidValue;
 }
 
+// ---- the gated entry's backward ----
+//
+// Bound: bytes (xa, xi, xc and dh read, dxa, dxi and dxc written: 14 bytes
+// an element in bf16; ~50 fp32 operations an element).  This first design
+// reads the four inputs twice (passes 1 and 3) and keeps nothing of the
+// forward; its scratch is 3 fp32 and 3 fp64 values a chunk per (batch,
+// channel), 1/32 of a tensor each.
+// Chunk-parallel, three passes over chunks of kBwdL steps (a thread per
+// (batch, chunk, channel); a warp takes 32 neighbouring channels of one
+// step, so every load and store is coalesced), then a fixed-order sum:
+// 1. bwd_fold: the chunk's (a, b) from xa, xi, xc by gate_math (the
+//    forward's arithmetic), folded forward into (A, H) = (prod a, the state
+//    from zero), and the chunk's dh folded backward into E, the e = a * g
+//    that reaches the step before the chunk from zero after it;
+// 2. bwd_carry: a thread per (batch, channel) walks the chunks: the state
+//    entering each chunk (from h0) in place of H, and the e leaving it
+//    backwards (from dh_last) in place of E; the e before step 0 is dh0;
+// 3. bwd_grads: the chunk again, h from the carried state (h[t-1] and a in
+//    registers), then backwards g[t] = dh[t] + e[t+1], e[t] = a[t] g[t],
+//    da = g h[t-1], db = g and the chain rule to dxa, dxi, dxc; the
+//    thread's sums of db_a, db_i and d(k r) r over its steps (fp64) go to a
+//    partial row of (batch, chunk);
+// 4. bwd_params: a thread per channel sums the partials in (batch, chunk)
+//    order: db_a, db_i, dlam = sum * 8 * -sigmoid(lam).  No atomics: two
+//    runs give the same bits.
+
+constexpr int kBwdThreads = 128;
+constexpr int kBwdL = 32;        // steps a chunk
+constexpr int kCarryAhead = 8;   // loads issued ahead in the serial passes
+
+struct BwdArgs {
+  const void* xa;
+  const void* xi;
+  const void* xc;
+  const void* dh;         // (B, S, W), the inputs' type
+  const float* b_a;       // (W,) each
+  const float* b_i;
+  const float* lam;
+  const float* h0;        // (B, W) or null
+  const float* dh_last;   // (B, W) or null
+  void* dxa;              // (B, S, W), the inputs' type
+  void* dxi;
+  void* dxc;
+  float* db_a;            // (W,) each
+  float* db_i;
+  float* dlam;
+  float* dh0;             // (B, W) or null
+  float* carry;           // (3, B, K, W) fp32 scratch: A, H, E
+  double* part;           // (3, B, K, W) fp64 scratch: partial sums
+  int B, S, W, K;
+};
+
+template <typename E>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_fold(const BwdArgs p) {
+  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (w >= p.W) return;
+  const int k = blockIdx.y, bb = blockIdx.z, t0 = k * kBwdL;
+  const int n = min(kBwdL, p.S - t0);
+  const size_t W = p.W, at = ((size_t)bb * p.S + t0) * W + w;
+  const E* xa = static_cast<const E*>(p.xa) + at;
+  const E* xi = static_cast<const E*>(p.xi) + at;
+  const E* xc = static_cast<const E*>(p.xc) + at;
+  const E* dh = static_cast<const E*>(p.dh) + at;
+  const float ba = p.b_a[w], bi = p.b_i[w], kk = gate_k(p.lam[w]);
+  float av[kBwdL], gv[kBwdL];
+  float A = 1.f, H = 0.f;
+#pragma unroll
+  for (int u = 0; u < kBwdL; ++u) {
+    if (u < n) {
+      float r, i, y, s;
+      gate_math(to_f32(xa[u * W]), to_f32(xi[u * W]), ba, bi, kk, r, i,
+                av[u], y, s);
+      H = fmaf(av[u], H, s * i * to_f32(xc[u * W]));
+      A *= av[u];
+      gv[u] = to_f32(dh[u * W]);
+    }
+  }
+  float e = 0.f;
+#pragma unroll
+  for (int u = kBwdL - 1; u >= 0; --u)
+    if (u < n) e = av[u] * (gv[u] + e);
+  const size_t slot = ((size_t)bb * p.K + k) * W + w;
+  const size_t plane = (size_t)p.B * p.K * W;
+  p.carry[slot] = A;
+  p.carry[plane + slot] = H;
+  p.carry[2 * plane + slot] = e;
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_carry(const BwdArgs p) {
+  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (w >= p.W) return;
+  const int bb = blockIdx.y;
+  const size_t W = p.W, plane = (size_t)p.B * p.K * W;
+  float* A = p.carry + (size_t)bb * p.K * W + w;
+  float* H = A + plane;
+  float* E = A + 2 * plane;
+  // kCarryAhead chunks' values loaded ahead of each run of dependent
+  // multiply-adds
+  float h = p.h0 != nullptr ? p.h0[(size_t)bb * W + w] : 0.f;
+  for (int k0 = 0; k0 < p.K; k0 += kCarryAhead) {
+    float av[kCarryAhead], hv[kCarryAhead];
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u)
+      if (k0 + u < p.K) {
+        av[u] = A[(k0 + u) * W];
+        hv[u] = H[(k0 + u) * W];
+      }
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u)
+      if (k0 + u < p.K) {
+        H[(k0 + u) * W] = h;               // the state entering the chunk
+        h = fmaf(av[u], h, hv[u]);
+      }
+  }
+  float e = p.dh_last != nullptr ? p.dh_last[(size_t)bb * W + w] : 0.f;
+  for (int k1 = p.K - 1; k1 >= 0; k1 -= kCarryAhead) {
+    float av[kCarryAhead], ev[kCarryAhead];
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u)
+      if (k1 - u >= 0) {
+        av[u] = A[(k1 - u) * W];
+        ev[u] = E[(k1 - u) * W];
+      }
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u)
+      if (k1 - u >= 0) {
+        E[(k1 - u) * W] = e;               // the e entering the chunk's end
+        e = fmaf(av[u], e, ev[u]);
+      }
+  }
+  if (p.dh0 != nullptr) p.dh0[(size_t)bb * W + w] = e;
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_grads(const BwdArgs p) {
+  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (w >= p.W) return;
+  const int k = blockIdx.y, bb = blockIdx.z, t0 = k * kBwdL;
+  const int n = min(kBwdL, p.S - t0);
+  const size_t W = p.W, at = ((size_t)bb * p.S + t0) * W + w;
+  const E* xa = static_cast<const E*>(p.xa) + at;
+  const E* xi = static_cast<const E*>(p.xi) + at;
+  const E* xc = static_cast<const E*>(p.xc) + at;
+  const E* dh = static_cast<const E*>(p.dh) + at;
+  E* dxa = static_cast<E*>(p.dxa) + at;
+  E* dxi = static_cast<E*>(p.dxi) + at;
+  E* dxc = static_cast<E*>(p.dxc) + at;
+  const float ba = p.b_a[w], bi = p.b_i[w], kk = gate_k(p.lam[w]);
+  const size_t slot = ((size_t)bb * p.K + k) * W + w;
+  const size_t plane = (size_t)p.B * p.K * W;
+  float h = p.carry[plane + slot];
+  float e = p.carry[2 * plane + slot];
+  float hp[kBwdL];                                    // h[t-1]
+#pragma unroll
+  for (int u = 0; u < kBwdL; ++u) {
+    if (u < n) {
+      float r, i, a, y, s;
+      gate_math(to_f32(xa[u * W]), to_f32(xi[u * W]), ba, bi, kk, r, i, a,
+                y, s);
+      hp[u] = h;
+      h = fmaf(a, h, s * i * to_f32(xc[u * W]));
+    }
+  }
+  double sa = 0.0, si = 0.0, sk = 0.0;
+#pragma unroll
+  for (int u = kBwdL - 1; u >= 0; --u) {
+    if (u < n) {
+      float r, i, a, y, s;
+      const float x = to_f32(xc[u * W]);
+      gate_math(to_f32(xa[u * W]), to_f32(xi[u * W]), ba, bi, kk, r, i, a,
+                y, s);
+      const float g = to_f32(dh[u * W]) + e;
+      e = a * g;
+      float da = g * hp[u];
+      // b = s i xc: through s only where the clamp does not hold
+      if (y > 1e-12f) da -= g * i * x * a / s;
+      const float dkr = da * a;                       // d(k r)
+      const float dra = dkr * kk * r * (1.f - r);     // d(xa + b_a)
+      const float dri = g * s * x * i * (1.f - i);    // d(xi + b_i)
+      dxa[u * W] = from_f32<E>(dra);
+      dxi[u * W] = from_f32<E>(dri);
+      dxc[u * W] = from_f32<E>(g * s * i);
+      sa += dra;
+      si += dri;
+      sk += (double)(dkr * r);
+    }
+  }
+  p.part[slot] = sa;
+  p.part[plane + slot] = si;
+  p.part[2 * plane + slot] = sk;
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_params(const BwdArgs p) {
+  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (w >= p.W) return;
+  const size_t W = p.W, plane = (size_t)p.B * p.K * W, rows = p.B * p.K;
+  double sa = 0.0, si = 0.0, sk = 0.0;
+  for (size_t r0 = 0; r0 < rows; r0 += kCarryAhead) {   // loads ahead
+    double va[kCarryAhead], vi[kCarryAhead], vk[kCarryAhead];
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u)
+      if (r0 + u < rows) {
+        const size_t at = (r0 + u) * W + w;
+        va[u] = p.part[at];
+        vi[u] = p.part[plane + at];
+        vk[u] = p.part[2 * plane + at];
+      }
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u)
+      if (r0 + u < rows) {                 // in row order
+        sa += va[u];
+        si += vi[u];
+        sk += vk[u];
+      }
+  }
+  const float lam = p.lam[w];
+  p.db_a[w] = (float)sa;
+  p.db_i[w] = (float)si;
+  p.dlam[w] = (float)sk * kC * -(1.f / (1.f + expf(-lam)));
+}
+
+template <typename E>
+cudaError_t launch_bwd(const BwdArgs& p, cudaStream_t s) {
+  const int wb = (p.W + kBwdThreads - 1) / kBwdThreads;
+  const dim3 chunks(wb, p.K, p.B), rows(wb, p.B);
+  bwd_fold<E><<<chunks, kBwdThreads, 0, s>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_carry<<<rows, kBwdThreads, 0, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_grads<E><<<chunks, kBwdThreads, 0, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_params<<<wb, kBwdThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Variant `simple`: a, b, h (B, S, W) in `dtype`.  Returns the CUDA error
@@ -442,5 +707,31 @@ extern "C" int rglru_gated_fwd(const void* xa, const void* xi,
   if (dtype == kFloat32) return launch_ring<float, Gated>(p, B, steps, s);
   if (dtype == kBFloat16)
     return launch_ring<__nv_bfloat16, Gated>(p, B, steps, s);
+  return cudaErrorInvalidValue;
+}
+
+// The gated entry's backward: xa, xi, xc, dh, dxa, dxi, dxc (B, S, W) in
+// `dtype`; b_a, b_i, lam, db_a, db_i, dlam (W,), h0, dh_last, dh0 (B, W)
+// in fp32 (h0, dh_last: null for zero; dh0: null when there is no h0);
+// carry: fp32 scratch (3, B, K, W) and part: fp64 scratch (3, B, K, W), K
+// = ceil(S / steps); `steps` must be the kernel's chunk (32).  Returns the
+// first CUDA error of the four launches.
+extern "C" int rglru_gated_bwd(const void* xa, const void* xi,
+                               const void* xc, const void* dh,
+                               const float* b_a, const float* b_i,
+                               const float* lam, const float* h0,
+                               const float* dh_last, void* dxa, void* dxi,
+                               void* dxc, float* db_a, float* db_i,
+                               float* dlam, float* dh0, float* carry,
+                               double* part, int dtype, int B, int S, int W,
+                               int steps, void* stream) {
+  if (B == 0 || S == 0 || W == 0) return 0;
+  if (steps != kBwdL) return cudaErrorInvalidValue;
+  const BwdArgs p{xa, xi, xc, dh, b_a, b_i, lam, h0, dh_last, dxa, dxi, dxc,
+                  db_a, db_i, dlam, dh0, carry, part, B, S, W,
+                  (S + kBwdL - 1) / kBwdL};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return launch_bwd<float>(p, s);
+  if (dtype == kBFloat16) return launch_bwd<__nv_bfloat16>(p, s);
   return cudaErrorInvalidValue;
 }

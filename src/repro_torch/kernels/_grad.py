@@ -3,8 +3,9 @@ from __future__ import annotations
 
 import torch
 
-SCAN_BACKWARD = ("ROADMAP.md A, training: the backward of the RG-LRU and "
-                 "Mamba scans")
+SCAN_BACKWARD = ("the interface entry rglru_scan (a, b -> h) is on no model "
+                 "path and has no backward kernel; the model's RG-LRU calls "
+                 "rglru_gated, which has one")
 
 
 def refuse_grad(what: str, *tensors) -> None:
@@ -14,5 +15,5 @@ def refuse_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: no backward kernel on CUDA yet ({SCAN_BACKWARD}); the "
+            f"{what}: no backward kernel on CUDA ({SCAN_BACKWARD}); the "
             f"inputs require grad and would be detached")

@@ -28,18 +28,18 @@ under autograd), which also writes each row's log-sum-exp (counted in
 counted in its ``launches`` and by kernel in its ``impl_launches``, which
 launches the kernel :func:`plan_bwd` names:
 
-- ``tc`` (``csrc/flash_bwd_tc.cu``): bf16 at head_dim 64, 96 or 128, on the
-  tensor cores (wgmma, TMA); P enters its product as bf16, dS as two bf16
-  terms (hi + lo), a rounding fixed in the kernel;
-- ``simt`` (``csrc/flash_attention_bwd.cu``): fp32, and bf16 at head_dim 16
-  or 32, on the fp32 cores.
+- ``tc`` (``csrc/flash_bwd_tc.cu``): bf16 at head_dim 64, 96 or 128 without
+  a window, on the tensor cores (wgmma, TMA); P enters its product as bf16,
+  dS as two bf16 terms (hi + lo), a rounding fixed in the kernel;
+- ``simt`` (``csrc/flash_attention_bwd.cu``): fp32, bf16 at head_dim 16, 32
+  or 256, and any call with a window, on the fp32 cores.
 
-The backward takes the training path's masks only (causal, chunk or none,
-from position 0, every key written) at head_dim 16-128: a window, key
-positions, ``q_offset``/``kv_len``, head_dim 256 or a forced decode kernel
-raise under grad (:func:`check_grad_call`), and nothing falls back to
-another kernel or to the plain version.  A CPU tensor's plain version is
-differentiated by autograd.
+The backward takes the training path's masks (causal, window, chunk or
+none, from position 0, every key written) at every head_dim of
+``BWD_HEAD_DIMS``: key positions, ``q_offset``/``kv_len`` or a forced
+decode kernel raise under grad (:func:`check_grad_call`), and nothing falls
+back to another kernel or to the plain version.  A CPU tensor's plain
+version is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -57,11 +57,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # any other head_dim raises
-BWD_HEAD_DIMS = (16, 32, 64, 96, 128)     # the backward kernels'
-BWD_TC_HEAD_DIMS = (64, 96, 128)          # the tensor-core backward's (bf16)
+BWD_HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the backward kernels'
+BWD_TC_HEAD_DIMS = (64, 96, 128)          # the tensor-core backward's (bf16,
+                                          # no window)
 BWD_IMPLS = ("tc", "simt")
-_BWD_LATER = ("is not in the backward kernel yet (ROADMAP.md A, training: "
-              "flash backward at head_dim 256 and with a window)")
 TC_HEAD_DIMS = (64, 96, 128, 256)
 KV_TILE = 64            # keys of a tile in every kernel
 DECODE_MAX_SQ = 8       # query rows the decode kernels take
@@ -146,21 +145,24 @@ def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
 
 
 def plan_bwd(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
-             dtype: torch.dtype, impl: Optional[str] = None) -> str:
+             dtype: torch.dtype, impl: Optional[str] = None,
+             window: int = 0) -> str:
     """The backward kernel for a call of these shapes (pure Python, no
-    device): ``tc`` for bf16 at a head_dim of ``BWD_TC_HEAD_DIMS``, else
-    ``simt``.  ``impl`` forces one (chip_smoke.py checks both where both
-    take a call) and raises where that kernel does not take the call; a
-    head_dim outside ``BWD_HEAD_DIMS`` raises."""
+    device): ``tc`` for bf16 at a head_dim of ``BWD_TC_HEAD_DIMS`` without
+    a window, else ``simt``.  ``impl`` forces one (chip_smoke.py checks both
+    where both take a call) and raises where that kernel does not take the
+    call; a head_dim outside ``BWD_HEAD_DIMS`` raises."""
     if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head_dim {D} {_BWD_LATER}")
-    tc = dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS
+        raise ValueError(f"flash_attention_bwd: head_dim {D} must be one of "
+                         f"{BWD_HEAD_DIMS}")
+    tc = dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS and not window
     if impl is None:
         return "tc" if tc else "simt"
     if impl not in BWD_IMPLS or (impl == "tc" and not tc):
         raise ValueError(f"flash_attention_bwd: impl {impl!r} does not take "
-                         f"{dtype} at head_dim {D} (tc: bf16 at "
-                         f"{BWD_TC_HEAD_DIMS}; simt: {BWD_HEAD_DIMS})")
+                         f"{dtype} at head_dim {D}, window {window} (tc: "
+                         f"bf16 at {BWD_TC_HEAD_DIMS}, no window; simt: "
+                         f"{BWD_HEAD_DIMS})")
     return impl
 
 
@@ -169,15 +171,16 @@ def check_grad_call(D: int, Skv: int, *, window: int = 0,
                     kv_len: Optional[int] = None, impl: Optional[str] = None,
                     splits: Optional[int] = None) -> None:
     """Raise ``NotImplementedError`` for a call under autograd that the
-    backward kernels do not take: a window, key positions, ``q_offset`` or
-    ``kv_len`` short of Skv, a forced decode kernel or splits, a head_dim
-    outside ``BWD_HEAD_DIMS``."""
-    if window or k_pos or q_offset or kv_len not in (None, Skv) or impl or \
+    backward kernels do not take: key positions, ``q_offset`` or ``kv_len``
+    short of Skv, a forced decode kernel or splits, a head_dim outside
+    ``BWD_HEAD_DIMS``.  A window is taken (``simt``)."""
+    if k_pos or q_offset or kv_len not in (None, Skv) or impl or \
             splits or D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention under autograd: window {window}, key "
-            f"positions {k_pos}, q_offset {q_offset}, kv_len {kv_len}, "
-            f"forced kernel {impl}/{splits} or head_dim {D} {_BWD_LATER}")
+            f"flash_attention under autograd: key positions {k_pos}, "
+            f"q_offset {q_offset}, kv_len {kv_len}, forced kernel "
+            f"{impl}/{splits} or head_dim {D} is not in the backward "
+            f"kernels (window {window} is)")
 
 
 def warp_decode_layout(rows: int, D: int, dtype: torch.dtype) -> tuple:
@@ -236,7 +239,7 @@ def _tc_fn():
 @functools.cache
 def _bwd_fn():
     return _load("flash_attention_bwd", "flash_attention_bwd",
-                 [ctypes.c_void_p] * 10 + [_i] * 9
+                 [ctypes.c_void_p] * 10 + [_i] * 10
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -252,20 +255,21 @@ class FlashAttentionFn(torch.autograd.Function):
     log-sum-exp, then the backward kernel from the saved q, k, v, o, lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, chunk):
-        o, lse = _forward(q, k, v, causal=causal, window=0, chunk=chunk,
+    def forward(ctx, q, k, v, causal, window, chunk):
+        o, lse = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
                           q_offset=0, kv_len=None, k_pos=None, impl=None,
                           splits=None, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.chunk = causal, chunk
+        ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         causal=ctx.causal, chunk=ctx.chunk)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal,
+                                         window=ctx.window, chunk=ctx.chunk)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -297,7 +301,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         check_grad_call(q.shape[-1], k.shape[1], window=window,
                         k_pos=k_pos is not None, q_offset=q_offset,
                         kv_len=kv_len, impl=impl, splits=splits)
-        return FlashAttentionFn.apply(q, k, v, causal, chunk)
+        return FlashAttentionFn.apply(q, k, v, causal, window, chunk)
     return _forward(q, k, v, causal=causal, window=window, chunk=chunk,
                     q_offset=q_offset, kv_len=kv_len, k_pos=k_pos, impl=impl,
                     splits=splits, with_lse=False)[0]
@@ -375,23 +379,27 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        chunk: int = 0, impl: Optional[str] = None):
+                        window: int = 0, chunk: int = 0,
+                        impl: Optional[str] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
-    chunk=chunk)`` whose output was o and log-sum-exp lse (B, Hq, Sq), for
-    the output gradient do.  A CPU tensor takes ``attention_bwd_ref``; a
-    CUDA tensor launches the kernel :func:`plan_bwd` names (``impl`` forces
-    one), each with its delta, dK/dV and dQ passes, adding one to
+    window=window, chunk=chunk)`` whose output was o and log-sum-exp lse
+    (B, Hq, Sq), for the output gradient do.  A CPU tensor takes
+    ``attention_bwd_ref``; a CUDA tensor launches the kernel
+    :func:`plan_bwd` names (``impl`` forces one), each with its delta, dK/dV
+    and dQ passes, adding one to
     ``flash_attention_bwd.launches`` and to its kernel's entry of
     ``flash_attention_bwd.impl_launches``.  A build or launch error raises:
     no call falls back to the other kernel."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                 chunk=chunk)
+                                 window=window, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    how = plan_bwd(B, Sq, Skv, Hq, Hkv, D, q.dtype, impl)
+    how = plan_bwd(B, Sq, Skv, Hq, Hkv, D, q.dtype, impl, window)
+    if window < 0 or chunk < 0:
+        raise ValueError("flash_attention_bwd: negative window or chunk")
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or \
             o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (B, Hq, Sq) or Hkv == 0 or Hq % Hkv:
@@ -411,13 +419,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     delta = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     args = (*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
             code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
-            int(causal), chunk, 1.0 / math.sqrt(D))
+            int(causal))
+    scale = 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if how == "tc":
-        err = _bwd_tc_fn()(*args, stream)
+        err = _bwd_tc_fn()(*args, chunk, scale, stream)
         _build.check(err, "flash_bwd_tc")
     else:
-        err = _bwd_fn()(*args, stream)
+        err = _bwd_fn()(*args, window, chunk, scale, stream)
         _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.impl_launches[how] += 1

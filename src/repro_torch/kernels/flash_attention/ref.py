@@ -64,9 +64,10 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                      chunk: int = 0):
+                      window: int = 0, chunk: int = 0):
     """(dq, dk, dv) of the attention the training path runs (queries from
-    position 0, every key slot written), by the explicit formulas the
+    position 0, every key slot written; causal, window and chunk masks as
+    :func:`attention_ref`'s), by the explicit formulas the
     backward kernel computes, in fp32: P = exp(scale * q.k - lse) over the
     visible keys (0 elsewhere), delta = rowsum(dO * O) over the O the
     forward returned (rounded to its dtype), dV = P^T dO, dS = P (dO V^T -
@@ -80,8 +81,8 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))  # B,Hq,Sq,D
     kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)     # B,Hq,Skv,D
     vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
-    mask = _mask(Sq, Skv, q.device, causal=causal, window=0, chunk=chunk,
-                 q_offset=0, kv_len=Skv, k_pos=None)
+    mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
+                 chunk=chunk, q_offset=0, kv_len=Skv, k_pos=None)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     delta = (dof * of).sum(-1)

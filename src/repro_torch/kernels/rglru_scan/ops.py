@@ -8,9 +8,13 @@
   optional initial state; the model's prefill and decode step.
 
 Any S and W, no padding.  A CPU tensor takes the plain version
-(``ref.py``); a CUDA tensor launches a kernel, and never the plain version.
-Neither kernel has a backward yet: a CUDA call under grad mode whose inputs
-require grad raises ``NotImplementedError``.
+(``ref.py``), which autograd differentiates; a CUDA tensor launches a
+kernel, and never the plain version.  Training: a CUDA call of
+:func:`rglru_gated` under grad mode whose inputs require grad goes through
+``RGLRUGatedFn``, whose backward is :func:`rglru_gated_bwd` (its own
+kernel, counted in ``rglru_gated_bwd.launches``).  ``rglru_scan``, the
+interface entry, is on no model path and has no backward: a CUDA call
+under grad whose inputs require grad raises ``NotImplementedError``.
 Each launch adds one to the wrapper's ``launches``; ``rglru_scan`` also
 counts by variant in ``rglru_scan.variant_launches``:
 
@@ -33,7 +37,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._dtypes import code
 from repro_torch.kernels._grad import refuse_grad
-from repro_torch.kernels.rglru_scan.ref import rglru_gated_ref, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_gated_bwd_ref,
+                                              rglru_gated_ref,
+                                              rglru_scan_ref)
 
 _i = ctypes.c_int
 _vp = ctypes.c_void_p
@@ -53,6 +59,7 @@ MAX_STAGES = 4
 MAX_SMEM = 232448         # an H100 block's opt-in shared memory, bytes
 COPY_BYTES = (16, 8, 4, 2)
 SIMPLE_THREADS = 64
+BWD_STEPS = 32            # the backward's chunk of steps (kBwdL)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +152,9 @@ def _fns():
     lib.rglru_scan_fwd.argtypes = [_vp] * 3 + [_i] * 4 + [_vp]
     lib.rglru_scan_ring_fwd.argtypes = [_vp] * 3 + [_i] * 9 + [_vp]
     lib.rglru_gated_fwd.argtypes = [_vp] * 9 + [_i] * 9 + [_vp]
+    lib.rglru_gated_bwd.argtypes = [_vp] * 18 + [_i] * 5 + [_vp]
     for f in (lib.rglru_scan_fwd, lib.rglru_scan_ring_fwd,
-              lib.rglru_gated_fwd):
+              lib.rglru_gated_fwd, lib.rglru_gated_bwd):
         f.restype = ctypes.c_int
     return lib
 
@@ -238,7 +246,9 @@ def rglru_gated(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
     ``a = exp(8 r log_a_hat)`` with ``log_a_hat = -softplus(lam)``,
     ``b = sqrt(max(1 - a^2, 1e-12)) i xc`` and ``h[t] = a[t] h[t-1] + b[t]``;
     h_last is the last state before rounding.  ``tile`` forces the ring's
-    (channels, steps, stages, split); the models never pass it."""
+    (channels, steps, stages, split); the models never pass it.  Under
+    grad mode with an input requiring grad, a CUDA call goes through
+    ``RGLRUGatedFn`` (backward: :func:`rglru_gated_bwd`)."""
     _check("rglru_gated", xc, {"xa": xa, "xi": xi},
            {"b_a": b_a, "b_i": b_i, "lam": lam}, h0)
     B, S, W = xc.shape
@@ -248,7 +258,16 @@ def rglru_gated(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
                tile=tile)
     if xc.device.type == "cpu":
         return rglru_gated_ref(xa, xi, xc, b_a, b_i, lam, h0)
-    refuse_grad("rglru_gated", xa, xi, xc, b_a, b_i, lam, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xa, xi, xc, b_a, b_i, lam, h0)):
+        return RGLRUGatedFn.apply(xa, xi, xc, b_a, b_i, lam, h0, how)
+    return _gated_fwd(xa, xi, xc, b_a, b_i, lam, h0, how)
+
+
+def _gated_fwd(xa, xi, xc, b_a, b_i, lam, h0, how: Plan):
+    """The gated entry's launch on checked CUDA tensors."""
+    B, S, W = xc.shape
     h = torch.empty_like(xc)
     h_last = torch.empty(B, W, dtype=torch.float32, device=xc.device)
     err = _fns().rglru_gated_fwd(
@@ -264,3 +283,62 @@ def rglru_gated(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
 
 
 rglru_gated.launches = 0
+
+
+class RGLRUGatedFn(torch.autograd.Function):
+    """The gated RG-LRU on the card under autograd: the forward kernel,
+    then the backward kernel from the saved inputs (it recomputes a, b and
+    h in fp32; the rounded h is not saved)."""
+
+    @staticmethod
+    def forward(ctx, xa, xi, xc, b_a, b_i, lam, h0, how):
+        ctx.save_for_backward(xa, xi, xc, b_a, b_i, lam, h0)
+        return _gated_fwd(xa, xi, xc, b_a, b_i, lam, h0, how)
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        xa, xi, xc, b_a, b_i, lam, h0 = ctx.saved_tensors
+        grads = rglru_gated_bwd(xa, xi, xc, b_a, b_i, lam, h0,
+                                dh.contiguous(), dh_last.contiguous())
+        return (*grads, None)
+
+
+def rglru_gated_bwd(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
+                    b_a: torch.Tensor, b_i: torch.Tensor, lam: torch.Tensor,
+                    h0: Optional[torch.Tensor], dh: torch.Tensor,
+                    dh_last: Optional[torch.Tensor] = None
+                    ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradients of :func:`rglru_gated` for dh (B, S, W) in xc's dtype
+    and dh_last (B, W) fp32 (None: zero): (dxa, dxi, dxc in xc's dtype;
+    db_a, db_i, dlam (W,) fp32; dh0 (B, W) fp32, None without h0).  A CPU
+    tensor takes ``rglru_gated_bwd_ref``; a CUDA tensor launches the
+    backward kernel (recomputing the forward's a, b and h in fp32 with its
+    arithmetic, chunks of BWD_STEPS steps, the (W,) sums in fixed order),
+    adding one to ``rglru_gated_bwd.launches``."""
+    _check("rglru_gated_bwd", xc, {"xa": xa, "xi": xi, "dh": dh},
+           {"b_a": b_a, "b_i": b_i, "lam": lam}, h0)
+    if dh_last is not None:
+        _check("rglru_gated_bwd", xc, {}, {}, dh_last)
+    if xc.device.type == "cpu":
+        return rglru_gated_bwd_ref(xa, xi, xc, b_a, b_i, lam, h0, dh,
+                                   dh_last)
+    B, S, W = xc.shape
+    K = _cdiv(S, BWD_STEPS)
+    dxa, dxi, dxc = (torch.empty_like(xc) for _ in range(3))
+    db_a, db_i, dlam = (torch.empty(W, dtype=torch.float32, device=xc.device)
+                        for _ in range(3))
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    carry = torch.empty(3, B, K, W, dtype=torch.float32, device=xc.device)
+    part = torch.empty(3, B, K, W, dtype=torch.float64, device=xc.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    err = _fns().rglru_gated_bwd(
+        *(ptr(t) for t in (xa, xi, xc, dh, b_a, b_i, lam, h0, dh_last, dxa,
+                           dxi, dxc, db_a, db_i, dlam, dh0, carry, part)),
+        code(xc, "rglru_gated_bwd xc"), B, S, W, BWD_STEPS,
+        torch.cuda.current_stream(xc.device).cuda_stream)
+    _build.check(err, "rglru_gated_bwd")
+    rglru_gated_bwd.launches += 1
+    return dxa, dxi, dxc, db_a, db_i, dlam, dh0
+
+
+rglru_gated_bwd.launches = 0

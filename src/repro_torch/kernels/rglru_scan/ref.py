@@ -47,3 +47,57 @@ def rglru_gated_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
     fp32, the state after the last step, not rounded)."""
     hs = rglru_scan_ref(*rglru_gates_ref(xa, xi, xc, b_a, b_i, lam), h0)
     return hs.to(xc.dtype), hs[:, -1].clone()
+
+
+def rglru_gated_bwd_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
+                        b_a: torch.Tensor, b_i: torch.Tensor,
+                        lam: torch.Tensor, h0: Optional[torch.Tensor],
+                        dh: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`rglru_gated_ref` by the explicit reverse
+    recurrence, in fp32: (dxa, dxi, dxc in xc's dtype; db_a, db_i, dlam
+    (W,) fp32, summed over (B, S); dh0 (B, W) fp32, or None when h0 is
+    None), for the gradients dh (B, S, W) of h and dh_last (B, W) of h_last
+    (None: zero).
+
+    g[t] = dh[t] + a[t+1] g[t+1], with dh_last added to g[S-1]; then
+    da[t] = g[t] h[t-1] and db[t] = g[t], and the chain rule through
+    ``b = sqrt(max(1 - a^2, 1e-12)) i xc``, ``a = exp(8 r log_a_hat)``, the
+    two sigmoids and ``log_a_hat = -softplus(lam)``.  Where the clamp holds,
+    nothing flows through the square root (as through ``jnp.maximum``)."""
+    B, S, W = xc.shape
+    xcf = xc.float()
+    r = torch.sigmoid(xa.float() + b_a)
+    i = torch.sigmoid(xi.float() + b_i)
+    k = C * -F.softplus(lam)                      # a = exp(k r)
+    a = torch.exp(k * r)
+    y = 1.0 - a * a
+    s = torch.sqrt(torch.clamp(y, min=1e-12))
+    b = s * i * xcf
+    h_prev = torch.empty_like(a)                  # h[t-1]
+    h = (torch.zeros(B, W, dtype=torch.float32, device=xc.device)
+         if h0 is None else h0.float())
+    for t in range(S):
+        h_prev[:, t] = h
+        h = a[:, t] * h + b[:, t]
+    g = torch.empty_like(a)
+    carry = (torch.zeros(B, W, dtype=torch.float32, device=xc.device)
+             if dh_last is None else dh_last.float())
+    dhf = dh.float()
+    for t in range(S - 1, -1, -1):
+        gt = dhf[:, t] + carry
+        g[:, t] = gt
+        carry = a[:, t] * gt
+    d_a = g * h_prev
+    ds = g * i * xcf
+    dxc = g * s * i
+    di = g * s * xcf
+    d_a = d_a + torch.where(y > 1e-12, ds * 0.5 / s, 0.0) * (-2.0 * a)
+    dkr = d_a * a                                 # d(k r)
+    dra = dkr * k * r * (1.0 - r)                 # d(xa + b_a)
+    dri = di * i * (1.0 - i)                      # d(xi + b_i)
+    dlam = (dkr * r).sum((0, 1)) * C * -torch.sigmoid(lam)
+    return (dra.to(xc.dtype), dri.to(xc.dtype), dxc.to(xc.dtype),
+            dra.sum((0, 1)), dri.sum((0, 1)), dlam,
+            None if h0 is None else carry)

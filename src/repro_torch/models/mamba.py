@@ -6,7 +6,8 @@ dependent (dt, B, C), ZOH discretisation ``da = exp(dt * A)``, diagonal
 state scan, gated output.  A multi-token call (prefill) runs the scan
 through the selective-scan kernel (``kernels/mamba_scan``), which also
 returns the final state; a one-token call (decode) is the reference's
-elementwise step on the cached state, in plain torch ops.
+elementwise step on the cached state, in plain torch ops.  Training runs
+autograd through the scan's backward kernel and ``DiscretiseBx``.
 """
 from __future__ import annotations
 
@@ -54,6 +55,30 @@ def conv_history(x: torch.Tensor, history: Optional[torch.Tensor],
         memory_format=torch.contiguous_format)
 
 
+class DiscretiseBx(torch.autograd.Function):
+    """``dbx = dt (x) B * xc`` (B, S, Di, N) fp32, in the reference's order
+    (``dt[..., None] * B[:, :, None, :]``, then times ``xc[..., None]``).
+    Its backward recomputes from dt, B and xc (each (B, S, Di) or (B, S,
+    N)): autograd of the eager expression would keep a clone of
+    ``dt (x) B``, a fourth (B, S, Di, N) fp32 tensor a layer, for the
+    in-place product's gradient."""
+
+    @staticmethod
+    def forward(ctx, dt, bmat, xc):
+        ctx.save_for_backward(dt, bmat, xc)
+        return (dt[..., None] * bmat[:, :, None, :].float()).mul_(
+            xc[..., None].float())
+
+    @staticmethod
+    def backward(ctx, g):
+        dt, bmat, xc = ctx.saved_tensors
+        bf, xf = bmat.float(), xc.float()
+        # sum_n g B, then the chain rule to dt and xc; sum_d g dt xc to B
+        q = torch.einsum("bsdn,bsn->bsd", g, bf)
+        d_b = torch.einsum("bsdn,bsd->bsn", g, dt * xf)
+        return q * xf, d_b.to(bmat.dtype), (q * dt).to(xc.dtype)
+
+
 class Mamba(nn.Module):
     """Params and init as the reference's ``mamba_init``: ``dt_bias`` is
     softplus^-1 of a log-uniform dt in [1e-3, 0.1], ``a_log = log(1..N)``;
@@ -98,10 +123,10 @@ class Mamba(nn.Module):
         dt = F.softplus((dt @ self.dt_proj).float() + self.dt_bias)  # B,S,Di
         a = -torch.exp(self.a_log)                                    # Di,N
         # (B, S, Di, N) fp32 coefficients, in place: 4.3 GB each at 8 x 1024
-        # tokens of falcon-mamba-7b
+        # tokens of falcon-mamba-7b (autograd keeps both: da for exp_ and
+        # the scan, dbx for the scan)
         da = (dt[..., None] * a).exp_()
-        dbx = (dt[..., None] * bmat[:, :, None, :].float()).mul_(
-            xc[..., None].float())
+        dbx = DiscretiseBx.apply(dt, bmat, xc)
         if S == 1:
             h0 = torch.zeros_like(da[:, 0]) if state is None else state
             h_last = da[:, 0] * h0 + dbx[:, 0]

@@ -39,10 +39,10 @@ Training: ``Transformer(..., trainable=True)`` unfreezes every parameter,
 summed over the layers (the reference's ``_run_segments`` sum), and
 ``loss_fn`` is the reference's next-token cross entropy plus
 ``aux_weight`` times that sum.  On the card, autograd runs through the
-kernels' own backward kernels (RMSNorm, flash attention); a kernel without
-one (the RG-LRU and Mamba scans) raises ``NotImplementedError`` when its
-inputs require grad on CUDA, so recurrentgemma-2b and falcon-mamba-7b
-train on the CPU only, through the plain versions.  Other model features
+kernels' own backward kernels: RMSNorm, flash attention (windows and head
+dim 256 included), the gated RG-LRU and the Mamba scan; on the CPU through
+the plain versions.  All ten configs train.  ``remat`` is not ported
+(ROADMAP.md A12): a config that sets it is refused.  Other model features
 raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
@@ -81,6 +81,8 @@ def check_ported(cfg: ModelConfig) -> None:
     unported = (
         (f"mlp={cfg.mlp!r}", cfg.mlp not in PORTED_MLPS, _LATER),
         ("attn_logit_softcap", cfg.attn_logit_softcap, _LATER),
+        (f"remat={cfg.remat!r}", cfg.remat != "none",
+         "ROADMAP.md A12 (the reference's _remat_wrap)"),
     )
     for what, present, where in unported:
         if present:

@@ -1,7 +1,8 @@
 """The port's training path against the JAX reference on the CPU, fp32.
 
-- The loss and every parameter's gradient of each of the eight attention
-  configs (reduced) against ``jax.value_and_grad`` of the reference's
+- The loss and every parameter's gradient of each of the ten configs
+  (reduced; recurrentgemma-2b's window and falcon-mamba-7b's scan
+  included) against ``jax.value_and_grad`` of the reference's
   ``loss_fn``, on equal weights (``params_from_jax``; norm scales, biases
   and QKV biases perturbed, which are 1 and 0 at init and would hide a
   wrong gradient) and an equal batch (image embeddings and frames where the
@@ -50,7 +51,11 @@ from repro_torch.runtime import FaultInjector
 ATTENTION_ARCHS = ("chatglm3-6b", "qwen2-7b", "stablelm-1.6b",
                    "starcoder2-3b", "whisper-small", "dbrx-132b",
                    "llama4-maverick-400b-a17b", "phi-3-vision-4.2b")
-PERTURBED = ("scale", "bias", "bq", "bk", "bv")
+# the ten: the two recurrent configs train through the scans' backward
+TRAINED_ARCHS = ATTENTION_ARCHS + ("recurrentgemma-2b", "falcon-mamba-7b")
+# leaves that are 1 or 0 at init (norm scales, biases; the RG-LRU's gate
+# biases and both conv biases, which only the recurrent configs have)
+PERTURBED = ("scale", "bias", "bq", "bk", "bv", "b_a", "b_i", "conv_b")
 GRAD_RTOL = 1e-4
 
 
@@ -102,7 +107,7 @@ def _leaves(tree):
             for p, a in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", TRAINED_ARCHS)
 def test_loss_and_grads_match_reference(arch):
     params, jcfg, model, tcfg = _setup(arch)
     nb = _batch(tcfg)
@@ -274,3 +279,16 @@ def test_train_on_the_card_is_the_default():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_loop(TrainRunConfig(cfg=get_reduced("qwen2-7b"), steps=1))
+
+
+def test_check_ported_refuses_remat():
+    """``remat`` is not ported (ROADMAP.md A12): a config that sets it is
+    refused, naming A12, rather than trained without recompute."""
+    from repro_torch.models.transformer import check_ported
+    cfg = get_reduced("qwen2-7b")
+    check_ported(cfg)
+    for policy in ("full", "selective"):
+        with pytest.raises(NotImplementedError, match="remat.*A12"):
+            check_ported(dataclasses.replace(cfg, remat=policy))
+        with pytest.raises(NotImplementedError, match="A12"):
+            Transformer(dataclasses.replace(cfg, remat=policy), "cpu")

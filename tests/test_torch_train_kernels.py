@@ -3,9 +3,9 @@ backward kernels (``attention_bwd_ref``, ``rmsnorm_bwd_ref``) against
 ``torch.autograd.grad`` of the port's forward plain versions and against
 ``jax.grad`` of the reference's (``repro.kernels.flash_attention.ref``,
 ``repro.models.common.rmsnorm``), at every mask and head_dim the backward
-kernel takes; the log-sum-exp against ``logsumexp``; the wrappers' routing
-under autograd (the plan, what raises); and the scans refusing autograd on
-the card.  The CUDA kernels themselves are held to these plain versions on
+kernel takes, windows and head_dim 256 included; the log-sum-exp against
+``logsumexp``; the wrappers' routing under autograd (the plan, what
+raises); and ``refuse_grad``, left to the RG-LRU's interface entry.  The CUDA kernels themselves are held to these plain versions on
 the card by ``chip_smoke.py``.
 
 Tolerance: fp32 throughout, 2e-5 absolute and relative (tests/
@@ -103,6 +103,92 @@ def test_attention_bwd_ref_matches_autograd_and_jax_grad(case):
     _close(lse, torch.logsumexp(s.masked_fill(~ok, -torch.inf), -1))
 
 
+# (B, Sq, Skv, Hq, Hkv, D, causal, window, chunk): recurrentgemma-2b's
+# local attention (MQA 10:1, D 256, causal window) at a reduced length, its
+# reduced config's D 16 window 8, a window at D 64 with Sq != Skv unmasked
+# otherwise, and a window beside a chunk
+WINDOW_CASES = [
+    (1, 70, 70, 10, 1, 256, True, 24, 0),
+    (2, 37, 37, 4, 1, 16, True, 8, 0),
+    (1, 40, 56, 4, 2, 64, False, 17, 0),
+    (1, 66, 66, 4, 2, 128, True, 20, 32),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_attention_bwd_ref_with_a_window_matches_autograd_and_jax_grad(case):
+    B, Sq, Skv, Hq, Hkv, D, causal, window, chunk = case
+    rng = np.random.default_rng(sum(case))
+    qn, kn, vn = _rand(rng, B, Sq, Hq, D), _rand(rng, B, Skv, Hkv, D), \
+        _rand(rng, B, Skv, Hkv, D)
+    don = _rand(rng, B, Sq, Hq, D)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn))
+    do = torch.from_numpy(don)
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(),
+                            lse.detach(), do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, name)
+
+    def f(qj, kj, vj):
+        out = jax_attention(qj, kj, vj, **kw)
+        return jnp.sum(out * jnp.asarray(don.transpose(0, 2, 1, 3)))
+
+    jg = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(
+        *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (qn, kn, vn)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, jg):
+        _close(g, np.asarray(w).transpose(0, 2, 1, 3), name)
+    # the window moves something: without it the gradients differ
+    other = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(),
+                              lse.detach(), do, causal=causal, chunk=chunk)
+    assert not torch.allclose(other[1], got[1], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("D,dtype,window,want", [
+    (256, torch.bfloat16, 2048, "simt"), (256, torch.bfloat16, 0, "simt"),
+    (256, torch.float32, 2048, "simt"), (128, torch.bfloat16, 64, "simt"),
+    (64, torch.bfloat16, 0, "tc"), (16, torch.bfloat16, 8, "simt"),
+])
+def test_plan_bwd_sends_a_window_or_head_dim_256_to_simt(D, dtype, window,
+                                                         want):
+    assert flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, dtype,
+                              window=window) == want
+    if want == "simt":
+        with pytest.raises(ValueError, match="does not take"):
+            flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, dtype, impl="tc",
+                               window=window)
+    # under autograd a window and head_dim 256 are taken
+    flash_ops.check_grad_call(D, 4096, window=window)
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        flash_ops.check_grad_call(D, 4096, window=window, q_offset=1)
+
+
+def test_cpu_windowed_attention_under_autograd_takes_the_plain_version():
+    """A windowed D 256 call on the CPU under autograd: the plain version,
+    differentiated by autograd, equal to ``attention_bwd_ref``; no counter
+    moves."""
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(_rand(rng, 1, 40, 10, 256)).requires_grad_()
+    k, v = (torch.from_numpy(_rand(rng, 1, 40, 1, 256)).requires_grad_()
+            for _ in range(2))
+    n = (flash_ops.flash_attention.launches,
+         flash_ops.flash_attention_bwd.launches)
+    out = flash_ops.flash_attention(q, k, v, window=16)
+    do = torch.from_numpy(_rand(rng, 1, 40, 10, 256))
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    o, lse = attention_ref(q.detach(), k.detach(), v.detach(), window=16,
+                           return_lse=True)
+    want = flash_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                         o, lse, do, window=16)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        _close(g, w, name)
+    assert n == (flash_ops.flash_attention.launches,
+                 flash_ops.flash_attention_bwd.launches)
+
+
 def test_attention_bwd_ref_uses_the_rounded_output():
     """delta = rowsum(dO * O) over the O the forward returned: a bf16 O
     gives bf16 arithmetic's delta, not the fp32 one."""
@@ -197,20 +283,33 @@ def test_plan_under_autograd_takes_a_prefill_kernel(Sq, D, dtype, want):
 
 
 def test_backward_kernel_covers_the_eight_attention_configs():
-    from repro_torch.configs import get_config, get_reduced
-    for arch in ("chatglm3-6b", "qwen2-7b", "stablelm-1.6b",
-                 "starcoder2-3b", "whisper-small", "dbrx-132b",
-                 "llama4-maverick-400b-a17b", "phi-3-vision-4.2b"):
+    """Every config of the ten with attention layers (all but
+    falcon-mamba-7b), full and reduced: its head_dim is a backward kernel's
+    and its masks pass the autograd guard; recurrentgemma-2b's windowed D
+    256 layers plan ``simt``."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
         for cfg in (get_config(arch), get_reduced(arch)):
-            assert cfg.resolved_head_dim in flash_ops.BWD_HEAD_DIMS, arch
-            assert not cfg.attn_window, arch
+            if not any(k.startswith("attn") for k in cfg.layer_kinds()):
+                assert arch == "falcon-mamba-7b"
+                continue
+            D = cfg.resolved_head_dim
+            assert D in flash_ops.BWD_HEAD_DIMS, arch
+            flash_ops.check_grad_call(D, 64, window=cfg.attn_window)
+            impl = flash_ops.plan_bwd(2, 64, 64, cfg.n_heads,
+                                      cfg.n_kv_heads, D, torch.bfloat16,
+                                      window=cfg.attn_window)
+            assert impl == ("simt" if cfg.attn_window or D not in
+                            flash_ops.BWD_TC_HEAD_DIMS else "tc"), arch
+            assert bool(cfg.attn_window) == (arch == "recurrentgemma-2b")
 
 
 def test_refuse_grad_raises_only_under_grad_with_grad_inputs():
     a = torch.ones(2, requires_grad=True)
     b = torch.ones(2)
-    with pytest.raises(NotImplementedError, match="scans"):
-        _grad.refuse_grad("mamba_scan", b, a, None)
-    _grad.refuse_grad("mamba_scan", b, None)
+    with pytest.raises(NotImplementedError, match="rglru_scan.*no model"):
+        _grad.refuse_grad("rglru_scan", b, a, None)
+    _grad.refuse_grad("rglru_scan", b, None)
     with torch.no_grad():
-        _grad.refuse_grad("mamba_scan", a)
+        _grad.refuse_grad("rglru_scan", a)
