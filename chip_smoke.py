@@ -157,16 +157,19 @@ non-zero (no phase's failure is caught):
    2048 over 2 x 4096), whisper-small's 1500 x 1500 unmasked and 448 x 1500
    cross, chunk and window masks, ragged lengths, D 16 to 256 and G 1 to
    12, each case on the plan's kernel (``tc``, the tensor cores, for bf16 at
-   D 64-128 without a window; else ``simt``) and on the other one forced
-   where it takes the case, in bf16 each gradient also held row by row to
-   FLASH_ROW_TOL; the first four shapes timed on each; RMSNorm's (dx, dw) at
-   8192 x 3584 and 8192 x 2048 and two small shapes, timed at qwen2-7b's
+   D 64-256 with or without a window; else ``simt``) and on the other one
+   forced where it takes the case, in bf16 each gradient also held row by
+   row to FLASH_ROW_TOL; the first four shapes timed on each, with each
+   launch of the call (delta, dK/dV, dQ) timed apart by CUDA events;
+   RMSNorm's (dx, dw) at 8192 x 3584 and 8192 x 2048 and two small shapes,
+   timed at qwen2-7b's
    rows; the gated RG-LRU's (dxa, dxi, dxc, db_a, db_i, dlambda, dh0; within
    TOL x RGLRU_TOL_MULT) at recurrentgemma-2b's 2 x 4096 by 2560 and ragged
    shapes with h0 and dh_last; the Mamba scan's (dda, ddbx, dc; within TOL)
    at falcon-mamba-7b's 8 x 1024 by 8192 x 16 and ragged shapes at N 4, 8
-   and 16; each timed beside its bound, its plain version and a library
-   call the port never calls where one computes the same function (SDPA's
+   and 16 (its fold, grads and dc launches timed apart at the first); each
+   timed beside its bound, its plain version and a library call the port
+   never calls where one computes the same function (SDPA's
    backward with the window as a mask, ``F.rms_norm``'s autograd backward;
    none for the scans).  Then the slice's main paths (TRAIN_RUNS):
    ``make_train_step`` trains qwen2-7b (8 of 28 layers, 8 x 1024),
@@ -175,11 +178,12 @@ non-zero (no phase's failure is caught):
    moments; lr 1e-3 for 4 steps, falcon-mamba-7b lr 3e-4 for 12) from
    seeded random weights, each step's launches exact
    (``expected_train_launches``, by layer kind; the attention forwards on
-   ``tc_prefill`` with the log-sum-exp, the backwards on ``tc`` for
-   qwen2-7b and ``simt`` for recurrentgemma-2b's window), every
+   ``tc_prefill`` with the log-sum-exp, the backwards on ``tc``, also for
+   recurrentgemma-2b's window at D 256), every
    parameter's gradient finite and non-zero, the loss finite and falling
    or flat; step ms, tokens/s, peak memory, the share of the step's
-   FLOP bound and one profiled step.  Then falcon-mamba-7b's peak memory
+   FLOP bound and one profiled step (device ms by kernel, and the backward
+   kernels' by launch).  Then falcon-mamba-7b's peak memory
    with ``DiscretiseBx`` and with the eager product it replaced, the
    gradient checks (GRAD_CHECKS: the bf16 kernel path's gradients against
    fp32 ones, leaf by leaf, within FLOOR_MULT times the bf16 plain path's
@@ -585,8 +589,9 @@ def phase_sass() -> None:
     head_dim; the backward's S^T, dP^T (and S, dP) as HGMMA 64x64x16 from
     shared memory, its dV, dK and dQ products as HGMMA 64xDx16 with the A
     operand in registers and dO, Q, K transposed, at head_dim 64, 96 and
-    128; both fed by TMA loads (UTMALDG), and no product on the older
-    tensor-core path (HMMA, ``mma.sync``)."""
+    128 (at 256 each warpgroup takes its half's as 64x128x16); both fed by
+    TMA loads (UTMALDG), and no product on the older tensor-core path
+    (HMMA, ``mma.sync``)."""
     for lib, dims in (("flash_prefill_tc", (64, 96, 128, 256)),
                       ("flash_bwd_tc", (64, 96, 128))):
         hgmma, hmma, tma = sass_of(lib)
@@ -1540,6 +1545,7 @@ def kernel_kind(name: str) -> str:
                       ("dq_kernel<", "flash_attention_bwd"),
                       ("dkdv_tc_kernel<", "flash_attention_bwd"),
                       ("dq_tc_kernel<", "flash_attention_bwd"),
+                      ("_tc_wide_kernel", "flash_attention_bwd"),
                       ("delta_kernel<", "flash_attention_bwd"),
                       ("rmsnorm_bwd", "rmsnorm_bwd"),
                       ("rmsnorm_dw", "rmsnorm_bwd"),
@@ -1548,7 +1554,6 @@ def kernel_kind(name: str) -> str:
                       ("bwd_grads<", "rglru_gated_bwd"),
                       ("bwd_params", "rglru_gated_bwd"),
                       ("mb_fold<", "mamba_scan_bwd"),
-                      ("mb_carry", "mamba_scan_bwd"),
                       ("mb_grads<", "mamba_scan_bwd"),
                       ("mb_dc", "mamba_scan_bwd"),
                       ("gated<", "rglru_gated"), ("direct<", "rglru_scan"),
@@ -1659,6 +1664,51 @@ def device_breakdown(events, host_ms: float) -> dict:
             "by_kernel_ms": top,
             "rglru_block_by_op_ms": dict(sorted(rglru_ops.items(),
                                                 key=lambda kv: -kv[1]))}
+
+
+# the backward kernels in a profiler's events (``launch_split``)
+BWD_KINDS = ("flash_attention_bwd", "rglru_gated_bwd", "mamba_scan_bwd")
+
+
+def launch_split(events) -> dict:
+    """{launch: [launches, device ms]} of the backward kernels in a
+    profiler's events, a launch named by its kernel and template arguments
+    (``delta_kernel<__nv_bfloat16>``, ``dkdv_tc_kernel<128>``,
+    ``mb_grads<float, 16>``)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and \
+                kernel_kind(e.name) in BWD_KINDS:
+            n = e.name.replace("(anonymous namespace)::", "")
+            k = out.setdefault(n.removeprefix("void ").split("(")[0],
+                               [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def launch_times(timer: Timer, fn, names: tuple, reps: int = 10) -> dict:
+    """Each launch of one backward call apart: ``fn(marks)`` records the
+    len(names) + 1 CUDA events ``marks`` at its launches' boundaries (the
+    C entries' ``marks``); the median over ``reps`` calls of each launch's
+    ms, the L2 flushed and the stream held by a sleep kernel before each
+    call, as ``Timer``.  (CUDA events and not the profiler: minutes into a
+    run the profiler dropped a short window's device events.)"""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(names) + 1)]
+    for m in marks:
+        m.record()   # creates the event
+    fn(marks)
+    times = {n: [] for n in names}
+    for _ in range(reps):
+        timer.flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        fn(marks)
+        marks[-1].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(marks[i].elapsed_time(marks[i + 1]))
+    return {n: statistics.median(t) for n, t in times.items()}
 
 
 def layer_profile(model, prompts, img, new) -> dict:
@@ -3029,16 +3079,16 @@ def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk,
     return bound(nbytes, int(2.5 * fwd["flops"]), dt)
 
 
-def bwd_variants(shape, dt, window=0) -> list:
+def bwd_variants(shape, dt) -> list:
     """(impl, forced) of every backward kernel that takes a case: the
     plan's first (not forced), then the other kernel where it takes the
     case."""
     B, Sq, Skv, Hq, Hkv, D = shape
-    planned = plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, window=window)
+    planned = plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt)
     out = [(planned, False)]
     for impl in flash_ops.BWD_IMPLS:
         try:
-            plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, impl, window=window)
+            plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt, impl)
         except ValueError:
             continue
         if impl != planned:
@@ -3128,10 +3178,11 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
     plan's kernel, the other kernel forced), each one's dq, dk and dv
     against ``attention_bwd_ref`` on the same q, k, v, o, lse and dO, within
     TOL and FLASH_ROW_TOL (``bwd_check``).  The first BWD_TIMED cases are
-    timed in bf16: every variant, the plain version and SDPA's backward
-    (forward and backward minus forward; a window as a boolean mask), which
-    the port never calls; at each of them ``bwd_last_key_probe`` shows that
-    the row check sees a kernel that drops the last key."""
+    timed in bf16: every variant (and its launches apart,
+    ``launch_times``), the plain version and SDPA's backward (forward and
+    backward minus forward; a window as a boolean mask), which the port
+    never calls; at each of them ``bwd_last_key_probe`` shows that the row
+    check sees a kernel that drops the last key."""
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         for i, (name, (B, Sq, Skv, Hq, Hkv, D), causal, window, chunk) in \
@@ -3178,8 +3229,7 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                     **flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal,
                                      chunk, window))
                 del qt, kt, vt, dot, mask
-            for impl, forced in bwd_variants((B, Sq, Skv, Hq, Hkv, D), dt,
-                                             window):
+            for impl, forced in bwd_variants((B, Sq, Skv, Hq, Hkv, D), dt):
                 kw = dict(masks, impl=impl if forced else None)
                 before = dict(flash_attention_bwd.impl_launches)
                 grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -3200,8 +3250,12 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                         "err": errs, "forward_err": err_o,
                         "lse_err": err_lse}
                 if timed:
-                    case.update(ms=timer.ms(lambda: flash_attention_bwd(
-                        q, k, v, o, lse, do, **kw)), **timed)
+                    def call(marks=None):
+                        return flash_attention_bwd(q, k, v, o, lse, do,
+                                                   marks=marks, **kw)
+
+                    case.update(ms=timer.ms(call), split_ms=launch_times(
+                        timer, call, ("delta", "dkdv", "dq")), **timed)
                 log(f"[train] flash_attention_bwd {case}")
                 cases.append(case)
                 del grads
@@ -3295,12 +3349,15 @@ def kernels_rglru_bwd(timer: Timer, g) -> list:
 def mamba_bwd_shapes() -> tuple:
     """(B, S, Di, N, dh_last, timed): falcon-mamba-7b's training shape (8 x
     1024 by 8192 x 16, no dh_last, as the model runs it), then ragged ones,
-    each N of {4, 8, 16}: S not a multiple of the 32-step chunk, Di * N not
-    a multiple of the 256-element block, with and without dh_last."""
+    each N of {4, 8, 16}: S not a multiple of the 16-step chunk, Di * N not
+    a multiple of the 512-element block, with and without dh_last; the
+    last a chain of 32 chunks over two element blocks, whose blocks wait
+    for their predecessors while those run."""
     fm = get_config("falcon-mamba-7b")
     return ((8, 1024, fm.d_inner, fm.ssm_state, False, True),
             (1, 45, 130, 4, True, False), (2, 33, 24, 8, False, False),
-            (1, 70, 130, 16, True, False), (2, 1, 16, 4, True, False))
+            (1, 70, 130, 16, True, False), (2, 1, 16, 4, True, False),
+            (1, 500, 40, 16, True, False))
 
 
 def kernels_mamba_bwd(timer: Timer, g) -> list:
@@ -3308,8 +3365,9 @@ def kernels_mamba_bwd(timer: Timer, g) -> list:
     at ``mamba_bwd_shapes``, bf16 and fp32 inputs (fp32 outputs), within
     TOL of the inputs' dtype; a second launch must give the same bits.
     Timed in fp32 (the model's da and dbx) at the training shape beside its
-    bound and the plain version; no PyTorch call computes a linear
-    recurrence's backward."""
+    bound and the plain version, and its launches apart
+    (``launch_times``; fold includes its scratch's memset); no PyTorch call
+    computes a linear recurrence's backward."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for Bs, S, Di, N, with_last, timed in mamba_bwd_shapes():
@@ -3349,9 +3407,13 @@ def kernels_mamba_bwd(timer: Timer, g) -> list:
                 # da, dbx, c, dy read; dda, ddbx (fp32) and dc written
                 nbytes = (2 * n + Bs * S * (N + Di)) * es + \
                     (2 * n + Bs * S * N) * 4
+
+                def call(marks=None):
+                    return mamba_scan_bwd(da, dbx, c, dy, dh_last, marks)
+
                 case.update(
-                    ms=timer.ms(lambda: mamba_scan_bwd(da, dbx, c, dy,
-                                                       dh_last)),
+                    ms=timer.ms(call), split_ms=launch_times(
+                        timer, call, ("fold", "grads", "dc")),
                     plain_ms=timer.ms(lambda: mamba_scan_bwd_ref(
                         da, dbx, c, dy, dh_last), reps=3),
                     library_ms=None,
@@ -3450,11 +3512,9 @@ def train_impls(cfg, batch: int, seq: int) -> tuple:
     if not any(k.startswith("attn") for k in cfg.layer_kinds()):
         return None, None
     D, dt = cfg.resolved_head_dim, torch.bfloat16
-    window = cfg.attn_window if "attn_local" in cfg.layer_kinds() else 0
     fwd = flash_plan(batch, seq, cfg.n_heads, cfg.n_kv_heads, D, dt, seq,
                      lse=True).impl
-    return fwd, plan_bwd(batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, D, dt,
-                         window=window)
+    return fwd, plan_bwd(batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, D, dt)
 
 
 def grads_finite_nonzero(model) -> dict:
@@ -3482,8 +3542,8 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
     before the steps and read just after; each step's launches must be
     exactly ``expected_train_launches`` (all RMSNorms ``vector``, the
     attention forwards on the plan's prefill kernel with the log-sum-exp
-    and the backwards on ``plan_bwd``'s: ``tc`` for qwen2-7b, ``simt`` for
-    recurrentgemma-2b's windowed D 256), every parameter's gradient finite
+    and the backwards on ``plan_bwd``'s: ``tc``, recurrentgemma-2b's
+    windowed D 256 included), every parameter's gradient finite
     and non-zero after each step, and the loss finite and falling or flat
     (the last step's no higher than the first's).
     Then one more step under the profiler (device ms by kernel, the idle
@@ -3550,6 +3610,7 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     breakdown = device_breakdown(prof.events(), host_ms)
+    bwd_split = launch_split(prof.events())   # [launches, ms] by launch
     del prof
     params = dict(model.named_parameters())
     grads = {n: p.grad for n, p in params.items()}
@@ -3578,6 +3639,10 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
            "params_without_finite_nonzero_grad": missing,
            "profiled_step": {k: breakdown[k] for k in (
                "device_ms", "idle_share", "by_kernel_ms")},
+           "profiled_step_bwd_launch_ms": {n: ms for n, (_, ms) in
+                                           bwd_split.items()},
+           "profiled_step_bwd_launches": {n: k for n, (k, _) in
+                                          bwd_split.items()},
            "profiled_step_host_ms": host_ms, "adamw_update_ms": adamw_ms}
     log(f"[train] {arch} {json.dumps(res)}")
     if any(missing):
@@ -3871,8 +3936,8 @@ def kernel_line(rows: dict, runs: dict) -> dict:
     that ran (each case's ``impl``, each run's ``flash_impls``); its
     backward's entry is the plan's kernel at qwen2-7b's shape (``tc``), with
     both kernels under ``impls`` (each case's ``impl``, each run's
-    ``bwd_impls``; ``simt`` timed forced at qwen2-7b's shape, and planned at
-    recurrentgemma-2b's window under ``cases``)."""
+    ``bwd_impls``; ``simt`` timed forced at qwen2-7b's shape; both at
+    recurrentgemma-2b's window under ``cases``, ``tc`` planned)."""
     flash = "src/repro/kernels/flash_attention/kernel.py:78 " \
             "(flash_attention_kernel)"
     meta = {

@@ -22,6 +22,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);   // round to nearest even, as XLA/PyTorch do
 }
 
+// Records event i of ``marks`` (an array of cudaEvent_t, or null) on the
+// stream: the boundaries of a C entry's launches, for a caller that times
+// them apart (a failed record surfaces at the next cudaGetLastError).
+inline void mark(void* marks, int i, cudaStream_t s) {
+  if (marks != nullptr)
+    cudaEventRecord(static_cast<cudaEvent_t*>(marks)[i], s);
+}
+
 // Lets kernel ``Kern`` take ``bytes`` of dynamic shared memory, set once per
 // device (the attribute outlives the launch).
 template <auto Kern>

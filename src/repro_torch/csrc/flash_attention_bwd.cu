@@ -47,11 +47,12 @@
 // the backward does 7 such products, 2.5x the forward's FLOPs by the
 // usual count; it reads q, k, v, o, dO once and writes dq, dk, dv).  This
 // first design runs on the fp32 cores, not the tensor cores, so it sits far
-// from the bf16 bound; the wrapper's plan sends bf16 at D 64, 96 and 128
-// without a window to the tensor-core design (csrc/flash_bwd_tc.cu) and
-// keeps this kernel, the ``simt`` variant, for fp32, for D 16, 32 and 256,
-// and for a window (recurrentgemma-2b's local attention: D 256, window
-// 2048).  Both run the delta pass of flash_bwd_common.cuh.  Shared memory:
+// from the bf16 bound; the wrapper's plan sends bf16 at D 64, 96, 128 and
+// 256, with or without a window, to the tensor-core design
+// (csrc/flash_bwd_tc.cu) and keeps this kernel, the ``simt`` variant, for
+// fp32 and for D 16 and 32 (the reduced configs), at every mask; it is
+// also forced beside ``tc`` in chip_smoke.py's checks.  Both run the delta
+// pass of flash_bwd_common.cuh.  Shared memory:
 // dK/dV 4 x TL x (D + 1) + 2 x TL x (TL + 1) floats (166 KB at D 128, 137
 // KB at D 256), dQ 4 x TL x (D + 1) + TL x (TL + 1) (149 KB, 133 KB): one
 // block an SM.  Registers (nvcc -Xptxas -v, sm_90a; bf16 / fp32 alike
@@ -380,10 +381,12 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, void* dq, void* dk,
                    void* dv, float* delta, int B, const Params& p,
-                   cudaStream_t s) {
+                   cudaStream_t s, void* marks) {
   constexpr int TL = tile_of<D>();
+  mark(marks, 0, s);
   cudaError_t e = launch_delta<T>(o, dout, delta, B, p.Sq, p.Hq, D, s);
   if (e != cudaSuccess) return e;
+  mark(marks, 1, s);
   if ((e = allow_smem<dkdv_kernel<T, D>>(dkdv_smem<D>())) != cudaSuccess ||
       (e = allow_smem<dq_kernel<T, D>>(dq_smem<D>())) != cudaSuccess)
     return e;
@@ -393,11 +396,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<T*>(dk), static_cast<T*>(dv), p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  mark(marks, 2, s);
   const dim3 gq((p.Sq + TL - 1) / TL, p.Hq, B);
   dq_kernel<T, D><<<gq, kThreads, dq_smem<D>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<T*>(dq), p);
+  mark(marks, 3, s);
   return cudaGetLastError();
 }
 
@@ -405,11 +410,11 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, void* dq, void* dk,
                        void* dv, float* delta, int B, int D, const Params& p,
-                       cudaStream_t s) {
+                       cudaStream_t s, void* marks) {
   switch (D) {
 #define REPRO_CASE(DD) \
   case DD:             \
-    return launch<T, DD>(q, k, v, o, dout, dq, dk, dv, delta, B, p, s);
+    return launch<T, DD>(q, k, v, o, dout, dq, dk, dv, delta, B, p, s, marks);
     REPRO_CASE(16)
     REPRO_CASE(32)
     REPRO_CASE(64)
@@ -427,15 +432,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 // q, o, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D): `dtype`,
 // contiguous, 16-byte aligned; lse (B, Hq, Sq) fp32 from the forward;
 // delta: fp32 scratch (B, Hq, Sq).  D in {16, 32, 64, 96, 128, 256};
-// window 0 for none.  Returns the first CUDA error of the three launches
-// (0 on success).
+// window 0 for none; marks: null, or four cudaEvent_t recorded before the
+// delta launch, after it, after dK/dV and after dQ.  Returns the first CUDA
+// error of the three launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
                                    void* dq, void* dk, void* dv, void* delta,
                                    int dtype, int B, int Sq, int Skv, int Hq,
                                    int Hkv, int D, int causal, int window,
-                                   int chunk, float scale, void* stream) {
+                                   int chunk, float scale, void* stream,
+                                   void* marks) {
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   Params p{static_cast<const float*>(lse), static_cast<const float*>(delta),
            Sq, Skv, Hq, Hkv, causal, chunk, scale};
@@ -443,9 +450,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* d = static_cast<float*>(delta);
   if (dtype == kFloat32)
-    return dispatch_d<float>(q, k, v, o, dout, dq, dk, dv, d, B, D, p, s);
+    return dispatch_d<float>(q, k, v, o, dout, dq, dk, dv, d, B, D, p, s,
+                             marks);
   if (dtype == kBFloat16)
     return dispatch_d<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, d, B, D,
-                                     p, s);
+                                     p, s, marks);
   return cudaErrorInvalidValue;
 }

@@ -15,8 +15,8 @@ struct Params {
   const float* delta;   // (B, Hq, Sq)
   int Sq, Skv, Hq, Hkv, causal, chunk;
   float scale;
-  int window = 0;       // a key sees queries up to window - 1 later; the
-                        // tensor-core kernel takes none (0)
+  int window = 0;       // a key sees queries up to window - 1 later; 0
+                        // for none (both kernels take it)
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {

@@ -113,6 +113,17 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def event_marks(marks, n: int):
+    """``marks`` (None, or ``n`` ``torch.cuda.Event`` each recorded once,
+    so that it exists) as the C array of their handles that a backward
+    entry records at its launches' boundaries; None passes None."""
+    if marks is None:
+        return None
+    if len(marks) != n or not all(m.cuda_event for m in marks):
+        raise ValueError(f"marks: {n} CUDA events, each recorded once")
+    return (ctypes.c_void_p * n)(*(m.cuda_event for m in marks))
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if err != 0:

@@ -28,11 +28,12 @@ under autograd), which also writes each row's log-sum-exp (counted in
 counted in its ``launches`` and by kernel in its ``impl_launches``, which
 launches the kernel :func:`plan_bwd` names:
 
-- ``tc`` (``csrc/flash_bwd_tc.cu``): bf16 at head_dim 64, 96 or 128 without
-  a window, on the tensor cores (wgmma, TMA); P enters its product as bf16,
-  dS as two bf16 terms (hi + lo), a rounding fixed in the kernel;
-- ``simt`` (``csrc/flash_attention_bwd.cu``): fp32, bf16 at head_dim 16, 32
-  or 256, and any call with a window, on the fp32 cores.
+- ``tc`` (``csrc/flash_bwd_tc.cu``): bf16 at head_dim 64, 96, 128 or 256,
+  with or without a window, on the tensor cores (wgmma, TMA; at 256 two
+  warpgroups split D); P enters its product as bf16, dS as two bf16 terms
+  (hi + lo), a rounding fixed in the kernel;
+- ``simt`` (``csrc/flash_attention_bwd.cu``): fp32 and bf16 at head_dim 16
+  or 32, at every mask, on the fp32 cores.
 
 The backward takes the training path's masks (causal, window, chunk or
 none, from position 0, every key written) at every head_dim of
@@ -58,8 +59,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # any other head_dim raises
 BWD_HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the backward kernels'
-BWD_TC_HEAD_DIMS = (64, 96, 128)          # the tensor-core backward's (bf16,
-                                          # no window)
+BWD_TC_HEAD_DIMS = (64, 96, 128, 256)     # the tensor-core backward's (bf16,
+                                          # any mask)
 BWD_IMPLS = ("tc", "simt")
 TC_HEAD_DIMS = (64, 96, 128, 256)
 KV_TILE = 64            # keys of a tile in every kernel
@@ -145,24 +146,23 @@ def plan(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
 
 
 def plan_bwd(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
-             dtype: torch.dtype, impl: Optional[str] = None,
-             window: int = 0) -> str:
+             dtype: torch.dtype, impl: Optional[str] = None) -> str:
     """The backward kernel for a call of these shapes (pure Python, no
-    device): ``tc`` for bf16 at a head_dim of ``BWD_TC_HEAD_DIMS`` without
-    a window, else ``simt``.  ``impl`` forces one (chip_smoke.py checks both
-    where both take a call) and raises where that kernel does not take the
-    call; a head_dim outside ``BWD_HEAD_DIMS`` raises."""
+    device): ``tc`` for bf16 at a head_dim of ``BWD_TC_HEAD_DIMS``, else
+    ``simt``; both take every mask, a window included.  ``impl`` forces one
+    (chip_smoke.py checks both where both take a call) and raises where
+    that kernel does not take the call; a head_dim outside
+    ``BWD_HEAD_DIMS`` raises."""
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {D} must be one of "
                          f"{BWD_HEAD_DIMS}")
-    tc = dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS and not window
+    tc = dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS
     if impl is None:
         return "tc" if tc else "simt"
     if impl not in BWD_IMPLS or (impl == "tc" and not tc):
         raise ValueError(f"flash_attention_bwd: impl {impl!r} does not take "
-                         f"{dtype} at head_dim {D}, window {window} (tc: "
-                         f"bf16 at {BWD_TC_HEAD_DIMS}, no window; simt: "
-                         f"{BWD_HEAD_DIMS})")
+                         f"{dtype} at head_dim {D} (tc: bf16 at "
+                         f"{BWD_TC_HEAD_DIMS}; simt: {BWD_HEAD_DIMS})")
     return impl
 
 
@@ -173,7 +173,7 @@ def check_grad_call(D: int, Skv: int, *, window: int = 0,
     """Raise ``NotImplementedError`` for a call under autograd that the
     backward kernels do not take: key positions, ``q_offset`` or ``kv_len``
     short of Skv, a forced decode kernel or splits, a head_dim outside
-    ``BWD_HEAD_DIMS``.  A window is taken (``simt``)."""
+    ``BWD_HEAD_DIMS``.  A window is taken (by either kernel)."""
     if k_pos or q_offset or kv_len not in (None, Skv) or impl or \
             splits or D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
@@ -240,14 +240,14 @@ def _tc_fn():
 def _bwd_fn():
     return _load("flash_attention_bwd", "flash_attention_bwd",
                  [ctypes.c_void_p] * 10 + [_i] * 10
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 @functools.cache
 def _bwd_tc_fn():
     return _load("flash_bwd_tc", "flash_bwd_tc",
-                 [ctypes.c_void_p] * 10 + [_i] * 9
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 10 + [_i] * 10
+                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -380,7 +380,7 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, chunk: int = 0,
-                        impl: Optional[str] = None):
+                        impl: Optional[str] = None, marks=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
     window=window, chunk=chunk)`` whose output was o and log-sum-exp lse
     (B, Hq, Sq), for the output gradient do.  A CPU tensor takes
@@ -388,8 +388,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     :func:`plan_bwd` names (``impl`` forces one), each with its delta, dK/dV
     and dQ passes, adding one to
     ``flash_attention_bwd.launches`` and to its kernel's entry of
-    ``flash_attention_bwd.impl_launches``.  A build or launch error raises:
-    no call falls back to the other kernel."""
+    ``flash_attention_bwd.impl_launches``.  ``marks``: four
+    ``torch.cuda.Event`` (see ``_build.event_marks``) recorded before the
+    delta pass and after each pass, so that chip_smoke.py times the passes
+    apart.  A build or launch error raises: no call falls back to the other
+    kernel."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window, chunk=chunk)
@@ -397,7 +400,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    how = plan_bwd(B, Sq, Skv, Hq, Hkv, D, q.dtype, impl, window)
+    how = plan_bwd(B, Sq, Skv, Hq, Hkv, D, q.dtype, impl)
     if window < 0 or chunk < 0:
         raise ValueError("flash_attention_bwd: negative window or chunk")
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or \
@@ -417,17 +420,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          "aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
-    args = (*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
-            code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
-            int(causal))
-    scale = 1.0 / math.sqrt(D)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if how == "tc":
-        err = _bwd_tc_fn()(*args, chunk, scale, stream)
-        _build.check(err, "flash_bwd_tc")
-    else:
-        err = _bwd_fn()(*args, window, chunk, scale, stream)
-        _build.check(err, "flash_attention_bwd")
+    fn, name = ((_bwd_tc_fn(), "flash_bwd_tc") if how == "tc"
+                else (_bwd_fn(), "flash_attention_bwd"))
+    err = fn(*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
+             code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
+             int(causal), window, chunk, 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream,
+             _build.event_marks(marks, 4))
+    _build.check(err, name)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.impl_launches[how] += 1
     return dq, dk, dv

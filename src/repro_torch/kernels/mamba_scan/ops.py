@@ -25,8 +25,8 @@ from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_ref,
                                                 mamba_scan_ref)
 
 STATE_SIZES = (4, 8, 16)
-BWD_STEPS = 32            # the backward's chunk of steps (kMbL)
-BWD_THREADS = 256         # the backward's block: 256 / N channels (kMbThreads)
+BWD_STEPS = 16            # the backward's chunk of steps (kMbL)
+BWD_BLOCK = 512           # the backward's elements (d, n) a block (kMbBlock)
 _i = ctypes.c_int
 _vp = ctypes.c_void_p
 
@@ -36,7 +36,7 @@ def _fns():
     """The C entry points, their library built and loaded at first use."""
     lib = _build.library("mamba_scan")
     lib.mamba_scan_fwd.argtypes = [_vp] * 5 + [_i] * 5 + [_vp]
-    lib.mamba_scan_bwd.argtypes = [_vp] * 10 + [_i] * 7 + [_vp]
+    lib.mamba_scan_bwd.argtypes = [_vp] * 11 + [_i] * 7 + [_vp] * 2
     for f in (lib.mamba_scan_fwd, lib.mamba_scan_bwd):
         f.restype = ctypes.c_int
     return lib
@@ -115,14 +115,19 @@ class MambaScanFn(torch.autograd.Function):
 
 
 def mamba_scan_bwd(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
-                   dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None
+                   dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None,
+                   marks=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients of :func:`mamba_scan` for dy (B, S, Di) in da's dtype
     and dh_last (B, Di, N) fp32 (None: zero): (dda, ddbx (B, S, Di, N), dc
     (B, S, N)), all fp32.  A CPU tensor takes ``mamba_scan_bwd_ref``; a CUDA
     tensor launches the backward kernel (the states recomputed a chunk of
-    BWD_STEPS steps at a time, dc summed over channel blocks in fixed
-    order), adding one to ``mamba_scan_bwd.launches``."""
+    BWD_STEPS steps at a time, the chunks chained in step order, dc summed
+    over element blocks in fixed order), adding one to
+    ``mamba_scan_bwd.launches``.  ``marks``: four ``torch.cuda.Event`` (see
+    ``_build.event_marks``) recorded before the fold launch (and its
+    scratch's memset) and after each launch, so that chip_smoke.py times
+    the fold, grads and dc launches apart."""
     if da.device.type == "cpu":
         return mamba_scan_bwd_ref(da, dbx, c, dy, dh_last)
     _check(da, dbx, c)
@@ -136,21 +141,25 @@ def mamba_scan_bwd(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
             or dh_last.device != da.device or not dh_last.is_contiguous()):
         raise ValueError(f"mamba_scan_bwd: dh_last must be a contiguous "
                          f"{(B, Di, N)} fp32 tensor on {da.device}")
+    if any(t is not None and t.data_ptr() % 16 for t in (da, dbx, dh_last)):
+        raise ValueError("mamba_scan_bwd: da, dbx and dh_last must be "
+                         "16-byte aligned")
     K = -(-S // BWD_STEPS)
-    blocks = -(-(Di * N) // BWD_THREADS)
-    dda = torch.empty(B, S, Di, N, dtype=torch.float32, device=da.device)
+    blocks = -(-(Di * N) // BWD_BLOCK)
+    dev = da.device
+    dda = torch.empty(B, S, Di, N, dtype=torch.float32, device=dev)
     ddbx = torch.empty_like(dda)
-    dc = torch.empty(B, S, N, dtype=torch.float32, device=da.device)
-    carry = torch.empty(3, B, K, Di * N, dtype=torch.float32,
-                        device=da.device)
-    part = torch.empty(blocks, B, S, N, dtype=torch.float32,
-                       device=da.device)
+    dc = torch.empty(B, S, N, dtype=torch.float32, device=dev)
+    carry = torch.empty(2, B, K, Di * N, dtype=torch.float32, device=dev)
+    part = torch.empty(blocks, B, S, N, dtype=torch.float32, device=dev)
+    sync = torch.empty(2 + 2 * K * B * blocks, dtype=torch.int32, device=dev)
     err = _fns().mamba_scan_bwd(
         da.data_ptr(), dbx.data_ptr(), c.data_ptr(), dy.data_ptr(),
         None if dh_last is None else dh_last.data_ptr(), dda.data_ptr(),
         ddbx.data_ptr(), dc.data_ptr(), carry.data_ptr(), part.data_ptr(),
-        code(da, "mamba_scan_bwd da"), B, S, Di, N, BWD_STEPS, BWD_THREADS,
-        torch.cuda.current_stream(da.device).cuda_stream)
+        sync.data_ptr(), code(da, "mamba_scan_bwd da"), B, S, Di, N,
+        BWD_STEPS, BWD_BLOCK, torch.cuda.current_stream(dev).cuda_stream,
+        _build.event_marks(marks, 4))
     _build.check(err, "mamba_scan_bwd")
     mamba_scan_bwd.launches += 1
     return dda, ddbx, dc

@@ -4,8 +4,8 @@ autograd; the kernel's rounding design emulated in PyTorch (64-row tiles,
 fp32 accumulators, P and dS entering the products as bf16 or as two bf16
 terms) against ``jax.grad`` of the reference's attention
 (``repro.kernels.flash_attention.ref.attention_ref``, its plain path: the
-reference differentiates plain JAX on the training path) on the same numpy
-inputs; its distance to the fp32 gradients against the plain path's
+reference differentiates plain JAX on the training path), with and without
+a sliding window and at head_dim 64 to 256, on the same numpy inputs; its distance to the fp32 gradients against the plain path's
 (``attention_bwd_ref``); and the wrappers counting no launch on the CPU.
 
 The emulation is code of this file, not the kernel: it checks that the
@@ -52,14 +52,18 @@ def _split(x: torch.Tensor, two: bool) -> list:
     return [hi, (x - hi).bfloat16().float()] if two else [hi]
 
 
-def tc_bwd_emulated(q, k, v, o, lse, do, *, causal, chunk, split):
+def tc_bwd_emulated(q, k, v, o, lse, do, *, causal, chunk, split,
+                    window=0):
     """(dq, dk, dv) in bf16 as ``flash_bwd_tc`` computes them: bf16 q, k, v,
     o, do (B, S, H, D), lse fp32 (B, Hq, Sq) in natural-log units, taken to
-    log2 units; P = exp2(s * scale * log2 e - lse2) on the visible pairs;
+    log2 units; P = exp2(s * scale * log2 e - lse2) on the visible pairs
+    (causal, ``window``, chunk);
     dK/dV by 64-key tiles walking the G query heads and 64-row query tiles,
     dQ by 64-row tiles walking 64-key tiles; every product of bf16 values
     summed in fp32, P and dS rounded to bf16 (or split, ``split`` a key of
-    ``ROUNDINGS``) before the products that take them."""
+    ``ROUNDINGS``) before the products that take them.  At head_dim 256 the
+    kernel's two warpgroups split D and exchange S's P and dP as fp32
+    tiles: the same values, so the same emulation."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -69,8 +73,9 @@ def tc_bwd_emulated(q, k, v, o, lse, do, *, causal, chunk, split):
     kf, vf = (t.float().transpose(1, 2) for t in (k, v))   # B, Hkv, Skv, D
     delta = (dof * of).sum(-1)                             # B, Hq, Sq
     lse2 = lse * l2e
-    mask = _mask(Sq, Skv, q.device, causal=causal, window=0, chunk=chunk,
-                 q_offset=0, kv_len=Skv, k_pos=None).expand(Sq, Skv)
+    mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
+                 chunk=chunk, q_offset=0, kv_len=Skv,
+                 k_pos=None).expand(Sq, Skv)
     dq = torch.zeros(B, Hq, Sq, D)
     dk = torch.zeros(B, Hkv, Skv, D)
     dv = torch.zeros(B, Hkv, Skv, D)
@@ -120,15 +125,15 @@ def _inputs(case, seed):
     return q, k, v, do
 
 
-def _jax_grads(q, k, v, do, causal, chunk):
+def _jax_grads(q, k, v, do, causal, chunk, window=0):
     """jax.grad of the reference's attention at fp32 copies of the bf16
     inputs, in model layout."""
     qn, kn, vn, don = (t.float().numpy().transpose(0, 2, 1, 3)
                        for t in (q, k, v, do))
 
     def f(a, b, c):
-        return jnp.sum(jax_attention(a, b, c, causal=causal, chunk=chunk)
-                       * jnp.asarray(don))
+        return jnp.sum(jax_attention(a, b, c, causal=causal, chunk=chunk,
+                                     window=window) * jnp.asarray(don))
 
     g = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(qn), jnp.asarray(kn),
                                         jnp.asarray(vn))
@@ -154,6 +159,17 @@ CASES = [
     ((1, 190, 70, 7, 1, 128), False, 0),
     ((1, 96, 96, 1, 1, 96), True, 0),
 ]
+# (B, Sq, Skv, Hq, Hkv, D), causal, window: recurrentgemma-2b's head shape
+# (MQA 10:1, D 256) under a window of 40 (cutting the 64-row tiles) and of
+# 64 (tile-aligned), causal and not, and D 128 and 64 windows over ragged
+# lengths
+WINDOW_CASES = [
+    ((1, 256, 256, 10, 1, 256), True, 40),
+    ((1, 231, 231, 10, 1, 256), True, 64),
+    ((1, 203, 203, 7, 1, 128), True, 50),
+    ((1, 90, 150, 4, 2, 96), False, 33),
+    ((2, 150, 150, 8, 2, 64), True, 100),
+]
 
 
 @pytest.mark.parametrize("split", list(ROUNDINGS))
@@ -171,6 +187,29 @@ def test_emulated_tc_backward_matches_jax_grad(case, causal, chunk, split):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=TOL,
                                    atol=TOL, err_msg=f"{name} {split}")
+
+
+@pytest.mark.parametrize("case,causal,window", WINDOW_CASES,
+                         ids=lambda c: "-".join(map(str, c))
+                         if isinstance(c, tuple) else str(c))
+def test_emulated_tc_backward_with_a_window_matches_jax_grad(case, causal,
+                                                             window):
+    """The design at the kernel's fixed rounding (dS split) under a sliding
+    window, D 256 included, against ``jax.grad`` of the reference's
+    windowed attention; without the window dk would differ."""
+    q, k, v, do = _inputs(case, seed=sum(case) + window)
+    o, lse = attention_ref(q, k, v, causal=causal, window=window,
+                           return_lse=True)
+    got = tc_bwd_emulated(q, k, v, o, lse, do, causal=causal, chunk=0,
+                          split="ds", window=window)
+    want = _jax_grads(q, k, v, do, causal, 0, window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=TOL,
+                                   atol=TOL, err_msg=name)
+    full = _jax_grads(q, k, v, do, causal, 0)
+    assert not np.allclose(full[1].numpy(), want[1].numpy(), rtol=TOL,
+                           atol=TOL)
 
 
 def emulated_error_ratios(case=(1, 1024, 1024, 7, 1, 128), causal=True,
@@ -287,6 +326,30 @@ def test_row_check_passes_the_design_and_fails_a_dropped_key(
     assert min(p["row_err"] for p in probe.values()) > 0.1
 
 
+@pytest.mark.parametrize("case,causal,window", WINDOW_CASES[:3],
+                         ids=lambda c: "-".join(map(str, c))
+                         if isinstance(c, tuple) else str(c))
+def test_row_check_passes_the_design_with_a_window(chip_smoke, case, causal,
+                                                   window):
+    """``bwd_check`` with the window's rows admits the emulated kernel under
+    a window (D 256 and 128), and the last-key probe fails a kernel that
+    drops the last key."""
+    q, k, v, do = _inputs(case, seed=sum(case) + window)
+    o, lse = attention_ref(q, k, v, causal=causal, window=window,
+                           return_lse=True)
+    refs = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                             window=window)
+    got = tc_bwd_emulated(q, k, v, o, lse, do, causal=causal, chunk=0,
+                          split="ds", window=window)
+    errs = chip_smoke.bwd_check("emulated", got, refs, torch.bfloat16,
+                                causal, 0, window)
+    assert max(errs[n + "_row"] for n in ("dq", "dk", "dv")) <= \
+        chip_smoke.FLASH_ROW_TOL[torch.bfloat16] / 2
+    probe = chip_smoke.bwd_last_key_probe(q, k, v, o, lse, do, refs,
+                                          causal, 0, window)
+    assert min(p["row_err"] for p in probe.values()) > 0.1
+
+
 def test_fp32_rows_of_few_keys_sit_beyond_the_row_tol_by_rounding_alone(
         chip_smoke):
     """Why fp32 is held to TOL only: the fp32 plain version against the
@@ -314,6 +377,7 @@ def test_fp32_rows_of_few_keys_sit_beyond_the_row_tol_by_rounding_alone(
     (128, torch.bfloat16, "tc"), (16, torch.bfloat16, "simt"),
     (32, torch.bfloat16, "simt"), (64, torch.float32, "simt"),
     (128, torch.float32, "simt"), (16, torch.float32, "simt"),
+    (256, torch.bfloat16, "tc"), (256, torch.float32, "simt"),
 ])
 def test_plan_bwd_takes_tc_for_bf16_at_64_96_128(D, dtype, want):
     assert flash_ops.plan_bwd(8, 1024, 1024, 28, 4, D, dtype) == want

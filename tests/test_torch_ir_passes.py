@@ -15,7 +15,7 @@ genome, fitness and evaluations, and the ``file:`` golden constants of
 import json
 
 import pytest
-from hypothesis import given, settings
+from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 import repro_torch.ir as ir
@@ -88,7 +88,7 @@ def graph_irs(draw):
     return GraphIR(name="rand", nodes=nodes, outputs=[f"n{n - 1}"])
 
 
-@settings(max_examples=40)
+@settings(max_examples=40, suppress_health_check=[HealthCheck.too_slow])
 @given(graph_irs())
 def test_hypothesis_serialize_parse_serialize_bit_stable(gir):
     text = gir.to_json()

@@ -148,22 +148,37 @@ def test_attention_bwd_ref_with_a_window_matches_autograd_and_jax_grad(case):
 
 
 @pytest.mark.parametrize("D,dtype,window,want", [
-    (256, torch.bfloat16, 2048, "simt"), (256, torch.bfloat16, 0, "simt"),
-    (256, torch.float32, 2048, "simt"), (128, torch.bfloat16, 64, "simt"),
+    (256, torch.float32, 2048, "simt"), (256, torch.float32, 0, "simt"),
+    (32, torch.bfloat16, 48, "simt"), (128, torch.float32, 64, "simt"),
     (64, torch.bfloat16, 0, "tc"), (16, torch.bfloat16, 8, "simt"),
+    (96, torch.float32, 33, "simt"),
 ])
 def test_plan_bwd_sends_a_window_or_head_dim_256_to_simt(D, dtype, window,
                                                          want):
-    assert flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, dtype,
-                              window=window) == want
+    """In fp32 and at head_dim 16 and 32, a window or head_dim 256 goes to
+    ``simt`` (bf16 at 64-256 goes to ``tc`` with or without one: below)."""
+    assert flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, dtype) == want
     if want == "simt":
         with pytest.raises(ValueError, match="does not take"):
-            flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, dtype, impl="tc",
-                               window=window)
+            flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, dtype, impl="tc")
     # under autograd a window and head_dim 256 are taken
     flash_ops.check_grad_call(D, 4096, window=window)
     with pytest.raises(NotImplementedError, match="backward kernel"):
         flash_ops.check_grad_call(D, 4096, window=window, q_offset=1)
+
+
+@pytest.mark.parametrize("D,window", [
+    (256, 2048), (256, 0), (128, 64), (96, 33), (64, 100), (256, 40),
+])
+def test_plan_bwd_sends_bf16_windows_and_head_dim_256_to_tc(D, window):
+    """bf16 at head_dim 64, 96, 128 and 256 plans ``tc`` with or without a
+    window (recurrentgemma-2b's local attention: D 256, window 2048);
+    ``simt`` can still be forced there."""
+    assert flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D,
+                              torch.bfloat16) == "tc"
+    assert flash_ops.plan_bwd(2, 4096, 4096, 10, 1, D, torch.bfloat16,
+                              impl="simt") == "simt"
+    flash_ops.check_grad_call(D, 4096, window=window)
 
 
 def test_cpu_windowed_attention_under_autograd_takes_the_plain_version():
@@ -286,7 +301,7 @@ def test_backward_kernel_covers_the_eight_attention_configs():
     """Every config of the ten with attention layers (all but
     falcon-mamba-7b), full and reduced: its head_dim is a backward kernel's
     and its masks pass the autograd guard; recurrentgemma-2b's windowed D
-    256 layers plan ``simt``."""
+    256 layers plan ``tc`` (the reduced configs' D 16 and 32, ``simt``)."""
     from repro_torch.configs import ARCH_IDS, get_config, get_reduced
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
@@ -298,10 +313,9 @@ def test_backward_kernel_covers_the_eight_attention_configs():
             assert D in flash_ops.BWD_HEAD_DIMS, arch
             flash_ops.check_grad_call(D, 64, window=cfg.attn_window)
             impl = flash_ops.plan_bwd(2, 64, 64, cfg.n_heads,
-                                      cfg.n_kv_heads, D, torch.bfloat16,
-                                      window=cfg.attn_window)
-            assert impl == ("simt" if cfg.attn_window or D not in
-                            flash_ops.BWD_TC_HEAD_DIMS else "tc"), arch
+                                      cfg.n_kv_heads, D, torch.bfloat16)
+            assert impl == ("tc" if D in flash_ops.BWD_TC_HEAD_DIMS
+                            else "simt"), arch
             assert bool(cfg.attn_window) == (arch == "recurrentgemma-2b")
 
 
