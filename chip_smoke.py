@@ -204,7 +204,10 @@ its split rule; no contract line.  ``--scan-sweep`` runs phases 1-2 and then
 only both RG-LRU entries at recurrentgemma-2b's prefill shape over the
 ring's tiles (SCAN_SWEEP_*), bf16 and fp32, to place the plan's TILES; no
 contract line.  ``--train-only`` runs phases 1-2 and then only phase 9; no
-contract line.
+contract line.  ``--rglru-ablate`` runs phases 1-2 and then only the gated
+RG-LRU backward kernel's ablations (RGLRU_ABLATIONS: copies, chain, second
+gate_math taken away) beside it, each built with ptxas's register and
+spill report and timed in turns; no contract line.
 
 Before the last line: one JSON line ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power-limit line.  Last line:
@@ -215,6 +218,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import itertools
@@ -258,11 +262,14 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import VARIANTS as RGLRU_VARIANTS  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import plan as rglru_plan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_gated, rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rglru_scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_gated_bwd  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import BWD_STEPS as RGLRU_BWD_STEPS  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_gated_bwd_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_gated_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_gates_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_states_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import plan as rms_plan  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import variants as rms_variants  # noqa: E402
@@ -1549,10 +1556,7 @@ def kernel_kind(name: str) -> str:
                       ("delta_kernel<", "flash_attention_bwd"),
                       ("rmsnorm_bwd", "rmsnorm_bwd"),
                       ("rmsnorm_dw", "rmsnorm_bwd"),
-                      ("bwd_fold<", "rglru_gated_bwd"),
-                      ("bwd_carry", "rglru_gated_bwd"),
-                      ("bwd_grads<", "rglru_gated_bwd"),
-                      ("bwd_params", "rglru_gated_bwd"),
+                      ("rg_bwd<", "rglru_gated_bwd"),
                       ("mb_fold<", "mamba_scan_bwd"),
                       ("mb_grads<", "mamba_scan_bwd"),
                       ("mb_dc", "mamba_scan_bwd"),
@@ -3269,26 +3273,78 @@ RGLRU_BWD_NAMES = ("dxa", "dxi", "dxc", "db_a", "db_i", "dlam", "dh0")
 
 def rglru_bwd_shapes() -> tuple:
     """(B, S, W, h0, dh_last, timed): recurrentgemma-2b's training shape
-    (2 x 4096 by 2560, from zero and without dh_last, as the model runs it),
-    then ragged ones: S not a multiple of the backward's 32-step chunk, W
-    not a multiple of its 128-channel block, with h0 and dh_last."""
+    (2 x 4096 by 2560, from zero and without dh_last, as the model runs it);
+    a chain that little else hides (1 x 4096 by 256: 64 chunks in series,
+    four blocks each); then ragged ones: S not a multiple of the 64-step
+    chunk in one, two and five chunks, W not a multiple of a thread's
+    8-byte group (130, 129: element loads) or of a block's strip (20, 136),
+    with h0 and dh_last."""
     rg = get_config("recurrentgemma-2b")
     return ((2, 4096, rg.rnn_width, False, False, True),
+            (1, 4096, 256, False, False, True),
             (1, 45, 130, True, True, False),
             (3, 33, 20, True, False, False),
             (2, 1, 129, True, True, False),
-            (1, 300, 64, False, True, False))
+            (1, 300, 64, False, True, False),
+            (2, 100, 136, True, True, False))
 
 
 def rglru_bwd_work(Bs, S, Wd, dt, h0: bool, dh_last: bool) -> dict:
-    """xa, xi, xc, dh read and dxa, dxi, dxc written once each, the (W,)
-    vectors read and their gradients written, h0, dh_last read and dh0
-    written where given; ~50 fp32 operations an element (the forward's ~30,
-    recomputed, and the reverse step and chain rule)."""
+    """The function's bytes: xa, xi, xc, dh read and dxa, dxi, dxc written
+    once each, the (W,) vectors read and their gradients written, dh_last
+    read and dh0 written where given, and the forward's states (fp32, one a
+    chunk per (batch, channel)) read; ~50 fp32 operations an element (the
+    forward's ~30, recomputed, and the reverse step and chain rule).  Beside
+    the bound, ``scratch_bytes``: what the kernel's design moves besides,
+    the fp64 partials of the (W,) sums (three a chunk per (batch, channel))
+    written and read, the chain's slots set, written and read, and the
+    counters set."""
     n = Bs * S * Wd
+    rows = Bs * -(-S // RGLRU_BWD_STEPS) * Wd
     nbytes = 7 * n * esize(dt) + 6 * Wd * 4 + \
-        (2 * h0 + dh_last) * Bs * Wd * 4
-    return bound(nbytes, 50 * n, torch.float32)
+        (h0 + dh_last) * Bs * Wd * 4 + rows * 4
+    return {**bound(nbytes, 50 * n, torch.float32),
+            "scratch_bytes": 2 * 3 * rows * 8 + 3 * rows * 4 + (4 + Wd) * 4}
+
+
+def rglru_states_check(args, h0, states, steps: int) -> float:
+    """The forward's kept states: within the fp32 RG-LRU tolerance of
+    ``rglru_states_ref``; the first is h0 (zero) exactly; and the state
+    entering chunk k is bit for bit the h_last of the forward run on the
+    first k chunks alone (the same tiles), at the second and the last
+    chunk.  Returns the max abs error against the plain version."""
+    err = close(states, rglru_states_ref(*args, h0, steps),
+                TOL[torch.float32] * RGLRU_TOL_MULT)
+    first = torch.zeros_like(states[:, 0]) if h0 is None else h0
+    if not torch.equal(states[:, 0], first):
+        raise AssertionError("rglru_gated states: the first is not h0")
+    K = states.shape[1]
+    for k in sorted({1, K - 1} & set(range(1, K))):
+        part = [x[:, :k * steps].contiguous() for x in args[:3]]
+        _, h_last = rglru_gated(*part, *args[3:], h0)
+        if not torch.equal(states[:, k], h_last):
+            raise AssertionError(f"rglru_gated states: chunk {k} is not the "
+                                 f"h_last of the first {k * steps} steps")
+    return err
+
+
+def rglru_fwd_states_times(timer: Timer, g) -> dict:
+    """The gated forward with and without kept states, in turns, at
+    recurrentgemma-2b's serve prefill (8 x 4096) and training (2 x 4096)
+    shapes in bf16: what keeping them costs the forward."""
+    rg = get_config("recurrentgemma-2b")
+    out = {}
+    for Bs in (SERVES[1][1], 2):
+        args, _ = rglru_gated_inputs(g, Bs, 4096, rg.rnn_width,
+                                     torch.bfloat16)
+        t = in_turns(timer, {
+            "none": lambda: rglru_gated(*args),
+            "states": lambda: rglru_gated(*args,
+                                          states_every=RGLRU_BWD_STEPS)})
+        out[f"{Bs}x4096"] = {"ms": t["none"], "states_ms": t["states"]}
+        del args
+    log(f"[train] rglru_gated forward with states {out}")
+    return out
 
 
 def kernels_rglru_bwd(timer: Timer, g) -> list:
@@ -3297,10 +3353,16 @@ def kernels_rglru_bwd(timer: Timer, g) -> list:
     RGLRU_TOL_MULT (the RG-LRU's tolerance, as its forward: the kernel's
     sigmoids are the special-function unit's, and 1 / sqrt(1 - a^2) in the
     gradient magnifies a's last bit); whether each case is also within TOL
-    is recorded.  A second launch must give the same bits (no atomics).
-    Timed in bf16 at the training shape beside its bound and the plain
-    version; no PyTorch call computes a linear recurrence's backward."""
+    is recorded.  Its states come from the forward kernel
+    (``rglru_states_check``; the plain version also holds them to its
+    own).  A second launch must give the same bits (no atomics, a fixed
+    chain).  Timed in bf16 at the timed shapes beside its bound and the
+    plain version, its two launches apart (``launch_times``), and the
+    forward with and without states (``rglru_fwd_states_times``, on the
+    first case); no PyTorch call computes a linear recurrence's
+    backward."""
     cases = []
+    fwd_times = rglru_fwd_states_times(timer, g)
     for dt in (torch.bfloat16, torch.float32):
         for Bs, S, Wd, with_h0, with_last, timed in rglru_bwd_shapes():
             args, h0 = rglru_gated_inputs(g, Bs, S, Wd, dt)
@@ -3309,41 +3371,170 @@ def kernels_rglru_bwd(timer: Timer, g) -> list:
             dh_last = (torch.randn(Bs, Wd, generator=g, device=DEV)
                        if with_last else None)
             tol = TOL[dt] * RGLRU_TOL_MULT
+            _, _, states = rglru_gated(*args, h0,
+                                       states_every=RGLRU_BWD_STEPS)
+            states_err = rglru_states_check(args, h0, states,
+                                            RGLRU_BWD_STEPS)
             n0 = rglru_gated_bwd.launches
-            got = rglru_gated_bwd(*args, h0, dh, dh_last)
-            again = rglru_gated_bwd(*args, h0, dh, dh_last)
+            got = rglru_gated_bwd(*args, h0, dh, dh_last, states)
+            again = rglru_gated_bwd(*args, h0, dh, dh_last, states)
             if rglru_gated_bwd.launches != n0 + 2:
                 raise AssertionError("rglru_gated_bwd: not one launch a call")
-            want = rglru_gated_bwd_ref(*args, h0, dh, dh_last)
-            errs, within_tol = {}, True
+            want = rglru_gated_bwd_ref(*args, h0, dh, dh_last, states,
+                                       RGLRU_BWD_STEPS)
+            errs, within_tol, bad = {}, True, []
             for name, a, b, c in zip(RGLRU_BWD_NAMES, got, want, again):
                 if b is None:
                     continue
                 if not torch.equal(a, c):
                     raise AssertionError(f"rglru_gated_bwd {name}: two "
                                          f"launches differ")
-                errs[name] = close(a, b, tol)
                 err = (a.float() - b.float()).abs()
+                out = err > tol * (1 + b.float().abs())
+                if not torch.isfinite(a).all() or out.any():
+                    at = out.nonzero()[:4].tolist()
+                    bad.append(f"{name}: {int(out.sum())} beyond {tol:g}, "
+                               f"max {err.max().item():.3e}, first at {at}")
+                    continue
+                errs[name] = err.max().item()
                 within_tol &= bool((err <= TOL[dt] * (1 + b.float().abs()))
                                    .all())
+            if bad:
+                raise AssertionError(f"rglru_gated_bwd {Bs}x{S}x{Wd} {dt}: "
+                                     f"{'; '.join(bad)}")
             case = {"shape": [Bs, S, Wd], "dtype": str(dt)[6:],
                     "h0": with_h0, "dh_last": with_last, "tol": tol,
-                    "within_TOL": within_tol,
-                    "max_abs_err": max(errs.values()), "err": errs}
+                    "steps": RGLRU_BWD_STEPS, "within_TOL": within_tol,
+                    "max_abs_err": max(errs.values()), "err": errs,
+                    "states_err": states_err}
             del got, again, want
             if timed and dt == torch.bfloat16:
+                def call(marks=None):
+                    return rglru_gated_bwd(*args, h0, dh, dh_last, states,
+                                           marks=marks)
+
                 case.update(
-                    ms=timer.ms(lambda: rglru_gated_bwd(*args, h0, dh,
-                                                        dh_last)),
+                    ms=timer.ms(call), split_ms=launch_times(
+                        timer, call, ("memset", "bwd")),
                     plain_ms=timer.ms(lambda: rglru_gated_bwd_ref(
                         *args, h0, dh, dh_last), reps=3),
                     library_ms=None,
                     **rglru_bwd_work(Bs, S, Wd, dt, with_h0, with_last))
+                if not cases:
+                    case["forward_states_ms"] = fwd_times
             log(f"[train] rglru_gated_bwd {case}")
             cases.append(case)
-            del args, h0, dh, dh_last
+            del args, h0, dh, dh_last, states
     torch.cuda.empty_cache()
     return cases
+
+
+# The gated RG-LRU backward kernel's ablations (--rglru-ablate): edits of
+# csrc/rglru_scan.cu, each taking a part of rg_bwd's work away, so that
+# what is left is timed (the results are then wrong, and not checked).
+RGLRU_ABLATIONS = {
+    # no global reads of xa, xi, xc, dh: the staging slots zero-filled
+    "no_copies": (("      if (Vec && u < n && whole) {",
+                   "      if (false) {"),),
+    # no wait for the e entering the chunk's end
+    "no_chain": (("      wait_slots<V>(p.chain + row, nv, e);",
+                  "      for (int v = 0; v < V; ++v) e[v] = 0.f;"),),
+    # phase 3 without its gate_math (a from phase 1's registers)
+    "one_gate_math": (
+        ("        gate_math(xa[v], xi[v], prm[cv + v], prm[CB + cv + v], kk,"
+         " r, i, av,\n                  y, s, rs);",
+         "        r = xa[v]; i = xi[v]; av = a[u][v]; y = 1.f; s = xc[v];"
+         " rs = 1.f;"),),
+}
+RGLRU_ABLATIONS["none_of_the_three"] = sum(RGLRU_ABLATIONS.values(), ())
+
+
+def ptxas_report(log_text: str, kernel: str) -> dict:
+    """Registers and spill stores by instance of ``kernel`` from ``nvcc
+    -Xptxas -v`` output (instance: the mangled name's template part)."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            name = (fn[fn.index(kernel) + len(kernel):].split("EEEvNS")[0]
+                    if kernel in fn else None)
+        elif name and "spill stores" in line:
+            out.setdefault(name, {})["spill_stores"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(
+                line.split("Used")[1].split()[0])
+    return out
+
+
+def rglru_ablate() -> None:
+    """The backward kernel ``rg_bwd`` as built and with each of
+    RGLRU_ABLATIONS applied to its source: every version built at once
+    (nvcc -Xptxas -v: registers and spills by instance), then timed in
+    turns through ``rglru_gated_bwd`` (its library swapped in) at the
+    kernel's timed shapes in bf16, from the forward's states.  One
+    ``[ablate]`` line a shape and a ``[ptxas]`` line a version."""
+    src = (_build.CSRC / "rglru_scan.cu").read_text()
+    texts = {"as_built": src}
+    for name, edits in RGLRU_ABLATIONS.items():
+        t = src
+        for old, new in edits:
+            if t.count(old) != 1:
+                raise AssertionError(f"ablation {name}: the kernel source "
+                                     f"changed ({old.strip()!r})")
+            t = t.replace(old, new)
+        texts[name] = t
+    root = _build.BUILD_DIR.parent / "rglru_ablate"
+    jobs = {}
+    for name, text in texts.items():
+        (root / name).mkdir(parents=True, exist_ok=True)
+        cu, so = root / name / "rglru_scan.cu", root / name / "rglru_scan.so"
+        cu.write_text(text)
+        jobs[name] = (so, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(_build.CSRC), "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ablation {name}: nvcc failed\n{out}")
+        log(f"[ptxas] {name} {json.dumps(ptxas_report(out, 'rg_bwd'))}")
+        lib = ctypes.CDLL(str(so))
+        lib.rglru_gated_bwd.argtypes = \
+            rglru_scan_ops._fns().rglru_gated_bwd.argtypes
+        lib.rglru_gated_bwd.restype = ctypes.c_int
+        libs[name] = lib
+
+    def through(lib, fn):
+        def call():
+            saved = rglru_scan_ops._fns
+            rglru_scan_ops._fns = lambda: lib
+            try:
+                return fn()
+            finally:
+                rglru_scan_ops._fns = saved
+        return call
+
+    timer = Timer()
+    g = torch.Generator(device=DEV).manual_seed(1)
+    for Bs, S, Wd, with_h0, with_last, timed in rglru_bwd_shapes():
+        if not timed:
+            continue
+        args, h0 = rglru_gated_inputs(g, Bs, S, Wd, torch.bfloat16)
+        h0 = h0 if with_h0 else None
+        dh = torch.randn(Bs, S, Wd, generator=g, device=DEV).to(
+            torch.bfloat16)
+        dh_last = (torch.randn(Bs, Wd, generator=g, device=DEV)
+                   if with_last else None)
+        _, _, states = rglru_gated(*args, h0, states_every=RGLRU_BWD_STEPS)
+        ms = in_turns(timer, {name: through(lib, lambda: rglru_gated_bwd(
+            *args, h0, dh, dh_last, states)) for name, lib in libs.items()})
+        res = {"shape": [Bs, S, Wd], "ms": ms, **rglru_bwd_work(
+            Bs, S, Wd, torch.bfloat16, with_h0, with_last)}
+        log(f"[ablate] {json.dumps(res)}")
+        del args, h0, dh, dh_last, states
+    torch.cuda.empty_cache()
 
 
 def mamba_bwd_shapes() -> tuple:
@@ -4061,6 +4252,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build, then only phase 9, training (no contract "
                          "line)")
+    ap.add_argument("--rglru-ablate", action="store_true",
+                    help="build, then only the gated RG-LRU backward "
+                         "kernel's ablations (no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -4082,6 +4276,10 @@ def main(argv=None) -> int:
         return 0
     if args.scan_sweep:
         scan_sweep()
+        return 0
+    if args.rglru_ablate:
+        rglru_ablate()
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     if args.train_only:
         phase_train()

@@ -1,4 +1,5 @@
-// Shared helpers of the port's CUDA kernels: element types and conversions.
+// Shared helpers of the port's CUDA kernels: element types and conversions,
+// event marks, shared-memory opt-in, block tickets.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +29,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 inline void mark(void* marks, int i, cudaStream_t s) {
   if (marks != nullptr)
     cudaEventRecord(static_cast<cudaEvent_t*>(marks)[i], s);
+}
+
+// The block's ticket: its place in the order blocks started in (a chain
+// of blocks waits only for earlier tickets, which run or have finished)
+__device__ __forceinline__ int take_ticket(int* counter) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  return ticket;
 }
 
 // Lets kernel ``Kern`` take ``bytes`` of dynamic shared memory, set once per

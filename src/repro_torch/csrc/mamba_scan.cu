@@ -235,14 +235,6 @@ __device__ __forceinline__ float at(const float4& v, int j) {
   return reinterpret_cast<const float*>(&v)[j];
 }
 
-// The block's ticket: its place in the order blocks started in
-__device__ __forceinline__ int take_ticket(int* counter) {
-  __shared__ int ticket;
-  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
-  __syncthreads();
-  return ticket;
-}
-
 // Wait until *flag is set (thread 0 spins; then a block barrier).  A wait
 // still open after two seconds is a fault: trap, so that the launch fails
 // instead of hanging the card.

@@ -23,13 +23,15 @@
 //     a = exp(8 * r * log_a_hat), log_a_hat = -softplus(lambda)
 //     b = sqrt(max(1 - a * a, 1e-12)) * i * xc
 //     h[t] = a[t] * h[t-1] + b[t] from h[-1] = h0.
-//   At S = 1 with h0 it is the model's decode step.
+//   At S = 1 with h0 it is the model's decode step.  Under autograd it also
+//   keeps `states`, the fp32 state entering every 64th step (the
+//   backward's chunk), for the backward.
 // - rglru_gated_bwd: the gated entry's backward (training): from dh (B, S,
-//   W) and dh_last (B, W) to dxa, dxi, dxc, db_a, db_i, dlambda and dh0,
-//   recomputing a, b and h in fp32 with the forward's arithmetic
-//   (gate_math); see "the gated entry's backward" below.  No TPU
-//   counterpart: the reference differentiates rglru_mix
-//   (src/repro/models/rglru.py:65) through XLA.
+//   W), dh_last (B, W) and the forward's states to dxa, dxi, dxc, db_a,
+//   db_i, dlambda and dh0, recomputing a, b and h in fp32 with the
+//   forward's arithmetic (gate_math) from the saved states; see "the gated
+//   entry's backward" below.  No TPU counterpart: the reference
+//   differentiates rglru_mix (src/repro/models/rglru.py:65) through XLA.
 //
 // Bound: bytes (a multiply-add per three elements moved; the gated entry's
 // ~40 operations an element, several on the special-function unit, come
@@ -67,11 +69,12 @@
 // The launch shape (C, T, G, P, copy width) comes from the wrapper's plan
 // (kernels/rglru_scan/ops.py: TILES, placed by chip_smoke.py --scan-sweep).
 // Registers and spills (nvcc -Xptxas -v, sm_90a; launch bound 512 threads):
-// Gated NL 8: 63 (bf16), 57 (fp32); NL 16: 94, 92; Direct NL 8: 50, 57;
-// NL 16: 81, 108; no spills (an NL 32 instance spilled 40-68 bytes and was
+// Gated NL 8: 56 (bf16), 58 (fp32); NL 16: 94, 96; Direct NL 8: 50, 57;
+// NL 16: 92, 105; no spills (an NL 32 instance spilled 40-68 bytes and was
 // dropped); the same for C 32 and 64; simple: 168 (bf16), 128 (fp32).
-// The backward (launch bound 128): bwd_fold 80 (bf16, fp32), bwd_grads 69,
-// 72, bwd_carry 64, bwd_params 72; no spills.
+// The backward rg_bwd (256 threads, four blocks an SM): 64 in both
+// instances with 8-byte accesses; the element-wise ones (two blocks an SM)
+// 96 (bf16), 94 (fp32); no spills.
 #include "common.cuh"
 
 namespace {
@@ -129,12 +132,15 @@ struct Args {
   void* h;              // (B, S, W), the inputs' type
   const float* h0;      // (B, W) initial state, or null: zero
   float* h_last;        // (B, W) final state, or null
+  float* states;        // (B, K, W) the state entering steps 0, 2^shift,
+                        // 2 * 2^shift, ... (K = ceil(S / 2^shift)), or null
   const float* b_a;     // (W,) each, Gated only
   const float* b_i;
   const float* lam;
   int S, W;
   int C, G, P;          // channels a block, threads a channel, ring stages
   int copy_bytes;       // 16, 8, 4 (cp.async) or 2 (through registers)
+  int shift, K;         // states: 2^shift a multiple of the steps a thread
 };
 
 // One chunk of `bytes` from global to shared memory; zero-filled when !ok.
@@ -202,13 +208,14 @@ __device__ __forceinline__ float gate_k(float lam) {
 }
 
 // The gate arithmetic of one element (see Gated): r, i, a, the clamped
-// y = max(1 - a * a, 1e-12) and s = sqrt(y), from xa, xi and the channel's
-// b_a, b_i and k; b = s * i * xc.  The forward and the backward both call
-// it, so the backward recomputes the forward's a and b bit for bit.
+// y = max(1 - a * a, 1e-12), s = sqrt(y) as y / sqrt(y) and rs = 1 / sqrt(y),
+// from xa, xi and the channel's b_a, b_i and k; b = s * i * xc.  The forward
+// and the backward both call it, so the backward recomputes the forward's a
+// and b bit for bit.
 __device__ __forceinline__ void gate_math(float xa, float xi, float ba,
                                           float bi, float k, float& r,
                                           float& i, float& a, float& y,
-                                          float& s) {
+                                          float& s, float& rs) {
   constexpr float kLog2e = 1.4426950408889634f;
   const float xr = fmaxf(xa + ba, -30.f);
   const float xq = fmaxf(xi + bi, -30.f);
@@ -220,7 +227,8 @@ __device__ __forceinline__ void gate_math(float xa, float xi, float ba,
   // (8 * r) * log_a_hat in the reference: the same product, rounded once
   a = expf(k * r);
   y = fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f);
-  s = y * rsqrtf(y);
+  rs = rsqrtf(y);
+  s = y * rs;
 }
 
 // The gated entry: (a, b) from xa, xi, xc and the thread's channel's b_a,
@@ -248,8 +256,9 @@ struct Gated {
   }
   __device__ void load(const E* st, int e, int tile, float& a,
                        float& b) const {
-    float r, i, y, s;
-    gate_math(to_f32(st[e]), to_f32(st[tile + e]), ba, bi, k, r, i, a, y, s);
+    float r, i, y, s, rs;
+    gate_math(to_f32(st[e]), to_f32(st[tile + e]), ba, bi, k, r, i, a, y, s,
+              rs);
     b = s * i * to_f32(st[2 * tile + e]);
   }
 };
@@ -299,7 +308,8 @@ __device__ __forceinline__ void run_steps(float h, const float (&a)[NL],
 // stores them, and folds the rest (all threads of a channel compute the
 // same carry, in the same order).  A tile wholly inside S and W (every tile
 // but the last, and every strip but a ragged last one) runs without the
-// masks.
+// masks.  With p.states, the thread whose steps start at a multiple of
+// 2^p.shift stores the state it starts them from: the bits it runs on.
 template <typename E, class Ld, int C, int NL>
 __global__ void __launch_bounds__(kMaxThreads)
 ring_kernel(const Args p) {
@@ -367,6 +377,10 @@ ring_kernel(const Args p) {
     float h = carry;
     for (int q = 0; q < G; ++q) {
       if (q == j) {                              // this thread's steps
+        if (p.states != nullptr && live && n > 0 &&
+            (t0 & ((1 << p.shift) - 1)) == 0)
+          p.states[((size_t)blockIdx.y * p.K + (t0 >> p.shift)) * W + c0 + c] =
+              h;
         E* o = out + (size_t)t0 * W;
         if (full)
           run_steps<true>(h, a, b, n, live, o, W);
@@ -422,33 +436,76 @@ cudaError_t launch_ring(const Args& p, int B, int steps,
 
 // ---- the gated entry's backward ----
 //
-// Bound: bytes (xa, xi, xc and dh read, dxa, dxi and dxc written: 14 bytes
-// an element in bf16; ~50 fp32 operations an element).  This first design
-// reads the four inputs twice (passes 1 and 3) and keeps nothing of the
-// forward; its scratch is 3 fp32 and 3 fp64 values a chunk per (batch,
-// channel), 1/32 of a tensor each.
-// Chunk-parallel, three passes over chunks of kBwdL steps (a thread per
-// (batch, chunk, channel); a warp takes 32 neighbouring channels of one
-// step, so every load and store is coalesced), then a fixed-order sum:
-// 1. bwd_fold: the chunk's (a, b) from xa, xi, xc by gate_math (the
-//    forward's arithmetic), folded forward into (A, H) = (prod a, the state
-//    from zero), and the chunk's dh folded backward into E, the e = a * g
-//    that reaches the step before the chunk from zero after it;
-// 2. bwd_carry: a thread per (batch, channel) walks the chunks: the state
-//    entering each chunk (from h0) in place of H, and the e leaving it
-//    backwards (from dh_last) in place of E; the e before step 0 is dh0;
-// 3. bwd_grads: the chunk again, h from the carried state (h[t-1] and a in
-//    registers), then backwards g[t] = dh[t] + e[t+1], e[t] = a[t] g[t],
-//    da = g h[t-1], db = g and the chain rule to dxa, dxi, dxc; the
-//    thread's sums of db_a, db_i and d(k r) r over its steps (fp64) go to a
-//    partial row of (batch, chunk);
-// 4. bwd_params: a thread per channel sums the partials in (batch, chunk)
-//    order: db_a, db_i, dlam = sum * 8 * -sigmoid(lam).  No atomics: two
-//    runs give the same bits.
+// Bound: bytes (xa, xi, xc and dh read, dxa, dxi and dxc written once each:
+// 14 bytes an element in bf16; ~80 fp32 operations an element, ~10 of them
+// on the special-function unit).  The forward keeps the fp32 state entering
+// every 64th step (`states`, 1/64 of an fp32 tensor), so the backward reads
+// each input once: it recomputes a chunk's h from the saved state instead
+// of from a pass of its own.  (The first design, four launches, read the
+// four inputs twice with 2-byte loads, a thread a channel, at ~1 TB/s.)
+// One launch, rg_bwd: a block takes a strip of CB channels of one batch row
+// over a chunk of kRgL = 64 steps, 256 threads;
+// thread (j, c) owns V channels (an 8-byte slot: 4 bf16, 2 fp32) over
+// sub-chunk j of kRgNL = 4 steps:
+// - it stages its 16 slots (4 inputs x 4 steps) in shared memory by
+//   cp.async (only the thread reads them: no barrier guards them);
+// - phase 1: a and b by gate_math (the forward's arithmetic: the same
+//   bits), kept in registers, folded into (A, H, E) = (prod a, the state
+//   from zero, the e from zero: sum over t of dh[t] times the product of a
+//   up to t) for the sub-chunk; the G = 16 triples of a channel meet in
+//   shared memory;
+// - a thread a channel group folds them: sub-chunk 0's the chunk's (A, E),
+//   the last sub-chunk's the state entering each sub-chunk, from the saved
+//   one (in place of H);
+// - phase 2: h forward from the sub-chunk's state, h[t-1] kept in b's
+//   registers;
+// - the chain: the chunks cross in reverse step order.  A block takes a
+//   ticket at its start, every strip of chunk k + 1 before any of chunk k,
+//   so it waits only for a block that started before it (no deadlock).
+//   Sub-chunk 0's threads wait for the e entering the chunk's end
+//   (dh_last, or zero, for the last chunk), store the e leaving its start
+//   (one multiply-add by the chunk's (A, E); chunk 0: dh0) for chunk k - 1,
+//   then turn E into the e entering each sub-chunk's end.  The value is
+//   its own flag: the slots start as 0xffffffff, a NaN that no arithmetic
+//   gives, and are written and polled with relaxed gpu-scope accesses, so a
+//   hand-off is one store and one poll, no fence.  Two launches give the
+//   same bits: every value is the same fmaf chain, whatever the timing;
+// - phase 3, after a barrier: backwards from the e entering the
+//   sub-chunk's end: g[t] = dh[t] + e, e = a[t] g[t], da = g h[t-1],
+//   db = g and the chain rule to dxa, dxi, dxc (gate_math again: twice an
+//   element), 8-byte stores;
+// - the (W,) sums: the thread's sums of db_a, db_i and d(k r) r over its
+//   steps (fp32), summed over the sub-chunks in order in fp64 into a
+//   partial row of (batch, chunk); the last block of a strip to finish (a
+//   counter a strip) sums the strip's rows in fixed order (256 / CB
+//   strided groups of rows, each in (batch, chunk) order, then the groups
+//   in order), in fp64: db_a, db_i, dlam = sum * 8 * -sigmoid(lam).  No
+//   atomics on a result: two runs give the same bits.
+// Rows W does not divide into 8-byte groups, or tensors not 8-byte aligned,
+// take element loads and stores (Vec false, its own instance).
+// Bytes of the function: the four inputs and three outputs once, and the
+// saved states (1/64 of an fp32 tensor).  Scratch this design moves
+// besides: the chain slots and the fp64 partials (3 values a chunk per
+// (batch, channel), written and read once), ~7% more at (2, 4096, 2560).
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W) at recurrentgemma-2b's
+// (2, 4096, 2560) bf16: 0.164-0.166 ms with its memset, ~54% of the bytes
+// bound (0.088 ms; the first design: 0.499 ms); 32-step chunks 0.194 (the
+// chain's hand-offs doubled).  Ablations (chip_smoke.py --rglru-ablate):
+// without the input copies 0.134, without the chain wait 0.158, without
+// phase 3's gate_math 0.168, without all three 0.109 ms: the input reads
+// are a fifth of the time, the chain and the special-function unit little;
+// most of it is each block's fixed phases (ticket, folds, barriers, the
+// stores) at four blocks an SM, which 64 registers allow.  Eight bf16
+// channels a thread in 16-byte loads took 128 registers and two blocks an
+// SM, and was slower; at four blocks an SM it spilled.
 
-constexpr int kBwdThreads = 128;
-constexpr int kBwdL = 32;        // steps a chunk
-constexpr int kCarryAhead = 8;   // loads issued ahead in the serial passes
+constexpr int kRgThreads = 256;
+constexpr int kRgL = 64;                 // steps a chunk (32: slower)
+constexpr int kRgNL = 4;                 // steps a thread
+constexpr int kRgBlocks = 4;             // blocks an SM (launch bound; 2
+                                         // for the element-wise instances)
+constexpr uint32_t kUnset = 0xffffffffu; // an empty chain slot
+constexpr long long kWaitCycles = 4000000000ll;   // ~2 s: a fault
 
 struct BwdArgs {
   const void* xa;
@@ -458,7 +515,7 @@ struct BwdArgs {
   const float* b_a;       // (W,) each
   const float* b_i;
   const float* lam;
-  const float* h0;        // (B, W) or null
+  const float* states;    // (B, K, W): the forward's state entering each chunk
   const float* dh_last;   // (B, W) or null
   void* dxa;              // (B, S, W), the inputs' type
   void* dxi;
@@ -467,197 +524,407 @@ struct BwdArgs {
   float* db_i;
   float* dlam;
   float* dh0;             // (B, W) or null
-  float* carry;           // (3, B, K, W) fp32 scratch: A, H, E
   double* part;           // (3, B, K, W) fp64 scratch: partial sums
+  int* ticket;            // scratch, -1
+  int* done;              // scratch, -1: finished blocks a strip, less one
+  float* chain;           // (B, K, W) scratch, kUnset: the e entering each
+                          // chunk's end (chunks 0 .. K-2)
   int B, S, W, K;
+  int NS;                 // strips a batch row
+  int vec;                // 8-byte groups and addresses (see the C entry)
+};
+
+// A chain slot, relaxed at gpu scope: each value is its own flag
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.global.f32 [%0], %1;" ::"l"(p), "f"(v)
+               : "memory");
+}
+
+// Wait until the first nv of V chain slots at p are set (every poll issues
+// all nv loads at once); the rest are zero.  A wait still open after ~2 s
+// is a fault: trap, so that the launch fails instead of hanging the card.
+template <int V>
+__device__ __forceinline__ void wait_slots(const float* p, int nv,
+                                           float (&e)[V]) {
+  const long long t0 = clock64();   // the SM's cycles: cheap to read
+  for (;;) {
+    bool set = true;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      e[v] = v < nv ? ld_relaxed(p + v) : 0.f;
+      set &= __float_as_uint(e[v]) != kUnset;
+    }
+    if (set) return;
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+template <typename E>
+struct RgShape {
+  static constexpr int V = 8 / (int)sizeof(E);   // channels a thread
+  static constexpr int G = kRgL / kRgNL;         // sub-chunks a chunk
+  static constexpr int NG = kRgThreads / G;      // channel groups a block
+  static constexpr int CB = NG * V;              // channels a block
+  static constexpr int kSlots = 4 * kRgNL * kRgThreads;   // of 8 bytes
+  // the slots, then A, H, E [G][CB], then b_a, b_i, k, the chunk's A, E
+  // [CB] each
+  static constexpr size_t kSmem =
+      (size_t)kSlots * 8 + (size_t)(3 * G + 5) * CB * sizeof(float);
+  static_assert(kRgL % kRgNL == 0 && kRgThreads % G == 0 && G > 1 &&
+                    kRgThreads % CB == 0 && CB <= kRgThreads &&
+                    3 * G * CB * sizeof(float) >=
+                        3 * kRgThreads * sizeof(double),
+                "chunk shape");
 };
 
 template <typename E>
-__global__ void __launch_bounds__(kBwdThreads)
-bwd_fold(const BwdArgs p) {
-  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (w >= p.W) return;
-  const int k = blockIdx.y, bb = blockIdx.z, t0 = k * kBwdL;
-  const int n = min(kBwdL, p.S - t0);
-  const size_t W = p.W, at = ((size_t)bb * p.S + t0) * W + w;
-  const E* xa = static_cast<const E*>(p.xa) + at;
-  const E* xi = static_cast<const E*>(p.xi) + at;
-  const E* xc = static_cast<const E*>(p.xc) + at;
-  const E* dh = static_cast<const E*>(p.dh) + at;
-  const float ba = p.b_a[w], bi = p.b_i[w], kk = gate_k(p.lam[w]);
-  float av[kBwdL], gv[kBwdL];
-  float A = 1.f, H = 0.f;
+__device__ __forceinline__ void unpack(const float2& s, float (&f)[8 / sizeof(E)]) {
+  const E* e = reinterpret_cast<const E*>(&s);
 #pragma unroll
-  for (int u = 0; u < kBwdL; ++u) {
-    if (u < n) {
-      float r, i, y, s;
-      gate_math(to_f32(xa[u * W]), to_f32(xi[u * W]), ba, bi, kk, r, i,
-                av[u], y, s);
-      H = fmaf(av[u], H, s * i * to_f32(xc[u * W]));
-      A *= av[u];
-      gv[u] = to_f32(dh[u * W]);
+  for (int v = 0; v < (int)(8 / sizeof(E)); ++v) f[v] = to_f32(e[v]);
+}
+
+template <typename E, bool Vec, int V>
+__device__ __forceinline__ void store_out(E* dst, const float (&f)[V],
+                                          int nv, bool whole) {
+  if (Vec) {
+    if (whole) {
+      float2 s;
+      E* e = reinterpret_cast<E*>(&s);
+#pragma unroll
+      for (int v = 0; v < V; ++v) e[v] = from_f32<E>(f[v]);
+      __stcs(reinterpret_cast<float2*>(dst), s);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (v < nv) dst[v] = from_f32<E>(f[v]);
+  }
+}
+
+template <typename E, bool Vec>
+__global__ void __launch_bounds__(kRgThreads, Vec ? kRgBlocks : 2)
+rg_bwd(const BwdArgs p) {
+  using Sh = RgShape<E>;
+  constexpr int V = Sh::V, G = Sh::G, NG = Sh::NG, CB = Sh::CB;
+  constexpr int NL = kRgNL, T = kRgThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* raw = reinterpret_cast<float2*>(smem);      // [4][NL][T]
+  float* xA = reinterpret_cast<float*>(raw + Sh::kSlots);   // [G][CB]
+  float* xH = xA + G * CB;
+  float* xE = xH + G * CB;
+  float* prm = xE + G * CB;                           // [3][CB]
+  float* xAt = prm + 3 * CB;                          // [CB]
+  float* xEt = xAt + CB;                              // [CB]
+
+  const int ticket = take_ticket(p.ticket) + 1;   // the counter starts at -1
+  const int per_chunk = p.B * p.NS;
+  const int k = p.K - 1 - ticket / per_chunk;
+  const int bb = ticket % per_chunk / p.NS, strip = ticket % p.NS;
+  const int tid = threadIdx.x, j = tid / NG, c = tid % NG, cv = c * V;
+  const int w0 = strip * CB + cv;                     // the thread's first
+  // its channels in W and steps in S (plain comparisons: nvcc 12.9 gave
+  // `max(0, min(V, ...)) == V` false at V)
+  const bool whole = w0 + V <= p.W;
+  const int nv = whole ? V : (w0 < p.W ? p.W - w0 : 0);
+  const int t0 = k * kRgL + j * NL;
+  const int n = t0 + NL <= p.S ? NL : (t0 < p.S ? p.S - t0 : 0);
+  const size_t W = p.W, off = ((size_t)bb * p.S + t0) * W + w0;
+  const size_t row = ((size_t)bb * p.K + k) * W + w0;   // of (B, K, W)
+  // the channels' b_a, b_i and lambda, loaded before the copies are issued
+  const int pw = strip * CB + tid;
+  const bool pok = tid < CB && pw < p.W;
+  const float pa = pok ? p.b_a[pw] : 0.f, pi = pok ? p.b_i[pw] : 0.f,
+              pl = pok ? p.lam[pw] : 0.f;
+  const E* src[4] = {static_cast<const E*>(p.xa) + off,
+                     static_cast<const E*>(p.xi) + off,
+                     static_cast<const E*>(p.xc) + off,
+                     static_cast<const E*>(p.dh) + off};
+#pragma unroll
+  for (int u = 0; u < NL; ++u)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float2* slot = &raw[(q * NL + u) * T + tid];
+      if (Vec && u < n && whole) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         static_cast<uint32_t>(__cvta_generic_to_shared(slot))),
+                     "l"(src[q] + u * W)
+                     : "memory");
+      } else if (Vec) {
+        *slot = make_float2(0.f, 0.f);
+      } else {
+        E* s = reinterpret_cast<E*>(slot);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          s[v] = u < n && v < nv ? src[q][u * W + v] : from_f32<E>(0.f);
+      }
+    }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (tid < CB) {
+    prm[tid] = pa;
+    prm[CB + tid] = pi;
+    prm[2 * CB + tid] = pok ? gate_k(pl) : 0.f;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // phase 1: a, b and the sub-chunk's (A, H, E)
+  float a[NL][V], b[NL][V];
+  {
+    float A[V], H[V], Ev[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      A[v] = 1.f;
+      H[v] = Ev[v] = 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < NL; ++u) {
+      float xa[V], xi[V], xc[V], dh[V];
+      unpack<E>(raw[(0 * NL + u) * T + tid], xa);
+      unpack<E>(raw[(1 * NL + u) * T + tid], xi);
+      unpack<E>(raw[(2 * NL + u) * T + tid], xc);
+      unpack<E>(raw[(3 * NL + u) * T + tid], dh);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float r, i, y, s, rs;
+        gate_math(xa[v], xi[v], prm[cv + v], prm[CB + cv + v],
+                  prm[2 * CB + cv + v], r, i, a[u][v], y, s, rs);
+        b[u][v] = s * i * xc[v];
+        if (u < n) {
+          H[v] = fmaf(a[u][v], H[v], b[u][v]);
+          A[v] *= a[u][v];
+          Ev[v] = fmaf(A[v], dh[v], Ev[v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      xA[j * CB + cv + v] = A[v];
+      xH[j * CB + cv + v] = H[v];
+      xE[j * CB + cv + v] = Ev[v];
     }
   }
-  float e = 0.f;
+  __syncthreads();
+
+  // the sub-chunks folded, a thread a channel group: sub-chunk 0's threads
+  // the chunk's (A, E) for the chain; the last's the state entering each
+  // sub-chunk, from the saved one, over H
+  if (j == 0) {
+    float At[V], Et[V];
 #pragma unroll
-  for (int u = kBwdL - 1; u >= 0; --u)
-    if (u < n) e = av[u] * (gv[u] + e);
-  const size_t slot = ((size_t)bb * p.K + k) * W + w;
+    for (int v = 0; v < V; ++v) {
+      At[v] = 1.f;
+      Et[v] = 0.f;
+    }
+#pragma unroll 4
+    for (int q = G - 1; q >= 0; --q)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float aq = xA[q * CB + cv + v];
+        Et[v] = fmaf(aq, Et[v], xE[q * CB + cv + v]);
+        At[v] *= aq;
+      }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      xAt[cv + v] = At[v];
+      xEt[cv + v] = Et[v];
+    }
+  } else if (j == G - 1) {
+    float h[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) h[v] = v < nv ? p.states[row + v] : 0.f;
+#pragma unroll 4
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float hq = xH[q * CB + cv + v];
+        xH[q * CB + cv + v] = h[v];
+        h[v] = fmaf(xA[q * CB + cv + v], h[v], hq);
+      }
+  }
+  __syncthreads();
+
+  // phase 2: h forward from the sub-chunk's state; b[u] ends as h[t-1]
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    float h = xH[j * CB + cv + v];
+#pragma unroll
+    for (int u = 0; u < NL; ++u) {
+      const float hp = h;
+      h = fmaf(a[u][v], h, b[u][v]);
+      b[u][v] = hp;
+    }
+  }
+
+  // the chain: sub-chunk 0's threads take the e entering the chunk's end
+  // (dh_last, or zero, for the last chunk), pass on the e leaving its start
+  // (one multiply-add), then turn E into the e entering each sub-chunk's
+  // end
+  if (j == 0) {
+    float e[V];
+    if (k == p.K - 1 || nv == 0) {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        e[v] = v < nv && p.dh_last != nullptr
+                   ? p.dh_last[(size_t)bb * W + w0 + v] : 0.f;
+    } else {
+      wait_slots<V>(p.chain + row, nv, e);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (v < nv) {
+        const float out = fmaf(xAt[cv + v], e[v], xEt[cv + v]);
+        if (k > 0)
+          st_relaxed(p.chain + row - W + v, out);   // chunk k - 1's slot
+        else if (p.dh0 != nullptr)
+          p.dh0[(size_t)bb * W + w0 + v] = out;
+      }
+#pragma unroll 4
+    for (int q = G - 1; q >= 0; --q)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float eq = xE[q * CB + cv + v];
+        xE[q * CB + cv + v] = e[v];
+        e[v] = fmaf(xA[q * CB + cv + v], e[v], eq);
+      }
+  }
+  __syncthreads();
+
+  // phase 3: backwards from the e entering the sub-chunk's end
+  float e[V], sa[V], si[V], sk[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    e[v] = xE[j * CB + cv + v];
+    sa[v] = si[v] = sk[v] = 0.f;
+  }
+  E* dst[3] = {static_cast<E*>(p.dxa) + off, static_cast<E*>(p.dxi) + off,
+               static_cast<E*>(p.dxc) + off};
+#pragma unroll
+  for (int u = NL - 1; u >= 0; --u) {
+    if (u < n) {
+      float xa[V], xi[V], xc[V], dh[V], oa[V], oi[V], oc[V];
+      unpack<E>(raw[(0 * NL + u) * T + tid], xa);
+      unpack<E>(raw[(1 * NL + u) * T + tid], xi);
+      unpack<E>(raw[(2 * NL + u) * T + tid], xc);
+      unpack<E>(raw[(3 * NL + u) * T + tid], dh);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float kk = prm[2 * CB + cv + v];
+        float r, i, av, y, s, rs;
+        gate_math(xa[v], xi[v], prm[cv + v], prm[CB + cv + v], kk, r, i, av,
+                  y, s, rs);
+        const float x = xc[v];
+        const float g = dh[v] + e[v];
+        e[v] = av * g;
+        float da = g * b[u][v];                          // g h[t-1]
+        // b = s i xc: through s only where the clamp does not hold
+        if (y > 1e-12f) da -= g * i * x * av * rs;
+        const float dkr = da * av;                       // d(k r)
+        oa[v] = dkr * kk * r * (1.f - r);                // d(xa + b_a)
+        oi[v] = g * s * x * i * (1.f - i);               // d(xi + b_i)
+        oc[v] = g * s * i;
+        sa[v] += oa[v];
+        si[v] += oi[v];
+        sk[v] += dkr * r;
+      }
+      store_out<E, Vec>(dst[0] + u * W, oa, nv, whole);
+      store_out<E, Vec>(dst[1] + u * W, oi, nv, whole);
+      store_out<E, Vec>(dst[2] + u * W, oc, nv, whole);
+    }
+  }
+
+  // the chunk's partial sums: the sub-chunks' in order, in fp64
+  __syncthreads();   // every read of xE done
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    xA[j * CB + cv + v] = sa[v];
+    xH[j * CB + cv + v] = si[v];
+    xE[j * CB + cv + v] = sk[v];
+  }
+  __syncthreads();
   const size_t plane = (size_t)p.B * p.K * W;
-  p.carry[slot] = A;
-  p.carry[plane + slot] = H;
-  p.carry[2 * plane + slot] = e;
-}
-
-__global__ void __launch_bounds__(kBwdThreads)
-bwd_carry(const BwdArgs p) {
-  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (w >= p.W) return;
-  const int bb = blockIdx.y;
-  const size_t W = p.W, plane = (size_t)p.B * p.K * W;
-  float* A = p.carry + (size_t)bb * p.K * W + w;
-  float* H = A + plane;
-  float* E = A + 2 * plane;
-  // kCarryAhead chunks' values loaded ahead of each run of dependent
-  // multiply-adds
-  float h = p.h0 != nullptr ? p.h0[(size_t)bb * W + w] : 0.f;
-  for (int k0 = 0; k0 < p.K; k0 += kCarryAhead) {
-    float av[kCarryAhead], hv[kCarryAhead];
-#pragma unroll
-    for (int u = 0; u < kCarryAhead; ++u)
-      if (k0 + u < p.K) {
-        av[u] = A[(k0 + u) * W];
-        hv[u] = H[(k0 + u) * W];
+  for (int i = tid; i < CB; i += T) {
+    const int w = strip * CB + i;
+    if (w < p.W) {
+      double da = 0.0, di = 0.0, dk = 0.0;
+      for (int q = 0; q < G; ++q) {
+        da += xA[q * CB + i];
+        di += xH[q * CB + i];
+        dk += xE[q * CB + i];
       }
-#pragma unroll
-    for (int u = 0; u < kCarryAhead; ++u)
-      if (k0 + u < p.K) {
-        H[(k0 + u) * W] = h;               // the state entering the chunk
-        h = fmaf(av[u], h, hv[u]);
-      }
-  }
-  float e = p.dh_last != nullptr ? p.dh_last[(size_t)bb * W + w] : 0.f;
-  for (int k1 = p.K - 1; k1 >= 0; k1 -= kCarryAhead) {
-    float av[kCarryAhead], ev[kCarryAhead];
-#pragma unroll
-    for (int u = 0; u < kCarryAhead; ++u)
-      if (k1 - u >= 0) {
-        av[u] = A[(k1 - u) * W];
-        ev[u] = E[(k1 - u) * W];
-      }
-#pragma unroll
-    for (int u = 0; u < kCarryAhead; ++u)
-      if (k1 - u >= 0) {
-        E[(k1 - u) * W] = e;               // the e entering the chunk's end
-        e = fmaf(av[u], e, ev[u]);
-      }
-  }
-  if (p.dh0 != nullptr) p.dh0[(size_t)bb * W + w] = e;
-}
-
-template <typename E>
-__global__ void __launch_bounds__(kBwdThreads)
-bwd_grads(const BwdArgs p) {
-  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (w >= p.W) return;
-  const int k = blockIdx.y, bb = blockIdx.z, t0 = k * kBwdL;
-  const int n = min(kBwdL, p.S - t0);
-  const size_t W = p.W, at = ((size_t)bb * p.S + t0) * W + w;
-  const E* xa = static_cast<const E*>(p.xa) + at;
-  const E* xi = static_cast<const E*>(p.xi) + at;
-  const E* xc = static_cast<const E*>(p.xc) + at;
-  const E* dh = static_cast<const E*>(p.dh) + at;
-  E* dxa = static_cast<E*>(p.dxa) + at;
-  E* dxi = static_cast<E*>(p.dxi) + at;
-  E* dxc = static_cast<E*>(p.dxc) + at;
-  const float ba = p.b_a[w], bi = p.b_i[w], kk = gate_k(p.lam[w]);
-  const size_t slot = ((size_t)bb * p.K + k) * W + w;
-  const size_t plane = (size_t)p.B * p.K * W;
-  float h = p.carry[plane + slot];
-  float e = p.carry[2 * plane + slot];
-  float hp[kBwdL];                                    // h[t-1]
-#pragma unroll
-  for (int u = 0; u < kBwdL; ++u) {
-    if (u < n) {
-      float r, i, a, y, s;
-      gate_math(to_f32(xa[u * W]), to_f32(xi[u * W]), ba, bi, kk, r, i, a,
-                y, s);
-      hp[u] = h;
-      h = fmaf(a, h, s * i * to_f32(xc[u * W]));
+      const size_t slot = ((size_t)bb * p.K + k) * W + w;
+      p.part[slot] = da;
+      p.part[plane + slot] = di;
+      p.part[2 * plane + slot] = dk;
     }
   }
-  double sa = 0.0, si = 0.0, sk = 0.0;
-#pragma unroll
-  for (int u = kBwdL - 1; u >= 0; --u) {
-    if (u < n) {
-      float r, i, a, y, s;
-      const float x = to_f32(xc[u * W]);
-      gate_math(to_f32(xa[u * W]), to_f32(xi[u * W]), ba, bi, kk, r, i, a,
-                y, s);
-      const float g = to_f32(dh[u * W]) + e;
-      e = a * g;
-      float da = g * hp[u];
-      // b = s i xc: through s only where the clamp does not hold
-      if (y > 1e-12f) da -= g * i * x * a / s;
-      const float dkr = da * a;                       // d(k r)
-      const float dra = dkr * kk * r * (1.f - r);     // d(xa + b_a)
-      const float dri = g * s * x * i * (1.f - i);    // d(xi + b_i)
-      dxa[u * W] = from_f32<E>(dra);
-      dxi[u * W] = from_f32<E>(dri);
-      dxc[u * W] = from_f32<E>(g * s * i);
-      sa += dra;
-      si += dri;
-      sk += (double)(dkr * r);
+
+  // the last block of the strip to finish sums its partial rows
+  __shared__ int last;
+  __threadfence();   // this block's partials, before its count
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(p.done + strip, 1) == p.B * p.K - 2;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  constexpr int RG = kRgThreads / CB;     // row groups, a thread each
+  double* acc = reinterpret_cast<double*>(xA);   // [3][RG][CB]
+  {
+    const int g = tid / CB, i = tid % CB, w = strip * CB + i;
+    double da = 0.0, di = 0.0, dk = 0.0;
+    if (w < p.W) {
+      const int rows = p.B * p.K;
+      for (int r = g; r < rows; r += RG) {   // in (batch, chunk) order
+        const size_t at = (size_t)r * W + w;
+        da += __ldcg(p.part + at);
+        di += __ldcg(p.part + plane + at);
+        dk += __ldcg(p.part + 2 * plane + at);
+      }
+    }
+    acc[g * CB + i] = da;
+    acc[(RG + g) * CB + i] = di;
+    acc[(2 * RG + g) * CB + i] = dk;
+  }
+  __syncthreads();
+  for (int i = tid; i < CB; i += T) {
+    const int w = strip * CB + i;
+    if (w < p.W) {
+      double da = 0.0, di = 0.0, dk = 0.0;
+      for (int g = 0; g < RG; ++g) {   // the groups in order
+        da += acc[g * CB + i];
+        di += acc[(RG + g) * CB + i];
+        dk += acc[(2 * RG + g) * CB + i];
+      }
+      p.db_a[w] = (float)da;
+      p.db_i[w] = (float)di;
+      p.dlam[w] = (float)dk * kC * -(1.f / (1.f + expf(-p.lam[w])));
     }
   }
-  p.part[slot] = sa;
-  p.part[plane + slot] = si;
-  p.part[2 * plane + slot] = sk;
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
-bwd_params(const BwdArgs p) {
-  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (w >= p.W) return;
-  const size_t W = p.W, plane = (size_t)p.B * p.K * W, rows = p.B * p.K;
-  double sa = 0.0, si = 0.0, sk = 0.0;
-  for (size_t r0 = 0; r0 < rows; r0 += kCarryAhead) {   // loads ahead
-    double va[kCarryAhead], vi[kCarryAhead], vk[kCarryAhead];
-#pragma unroll
-    for (int u = 0; u < kCarryAhead; ++u)
-      if (r0 + u < rows) {
-        const size_t at = (r0 + u) * W + w;
-        va[u] = p.part[at];
-        vi[u] = p.part[plane + at];
-        vk[u] = p.part[2 * plane + at];
-      }
-#pragma unroll
-    for (int u = 0; u < kCarryAhead; ++u)
-      if (r0 + u < rows) {                 // in row order
-        sa += va[u];
-        si += vi[u];
-        sk += vk[u];
-      }
-  }
-  const float lam = p.lam[w];
-  p.db_a[w] = (float)sa;
-  p.db_i[w] = (float)si;
-  p.dlam[w] = (float)sk * kC * -(1.f / (1.f + expf(-lam)));
-}
-
-template <typename E>
-cudaError_t launch_bwd(const BwdArgs& p, cudaStream_t s) {
-  const int wb = (p.W + kBwdThreads - 1) / kBwdThreads;
-  const dim3 chunks(wb, p.K, p.B), rows(wb, p.B);
-  bwd_fold<E><<<chunks, kBwdThreads, 0, s>>>(p);
-  cudaError_t e = cudaGetLastError();
+template <typename E, bool Vec>
+cudaError_t launch_bwd(BwdArgs p, cudaStream_t s, void* marks) {
+  using Sh = RgShape<E>;
+  cudaError_t e = allow_smem<rg_bwd<E, Vec> >(Sh::kSmem);
   if (e != cudaSuccess) return e;
-  bwd_carry<<<rows, kBwdThreads, 0, s>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_grads<E><<<chunks, kBwdThreads, 0, s>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_params<<<wb, kBwdThreads, 0, s>>>(p);
+  p.NS = (p.W + Sh::CB - 1) / Sh::CB;
+  const unsigned blocks = (unsigned)p.K * p.B * p.NS;
+  mark(marks, 1, s);
+  rg_bwd<E, Vec><<<blocks, kRgThreads, Sh::kSmem, s>>>(p);
+  mark(marks, 2, s);
   return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t dispatch_bwd(const BwdArgs& p, cudaStream_t s, void* marks) {
+  return p.vec ? launch_bwd<E, true>(p, s, marks)
+               : launch_bwd<E, false>(p, s, marks);
 }
 
 }  // namespace
@@ -683,7 +950,7 @@ extern "C" int rglru_scan_ring_fwd(const void* a, const void* b, void* h,
                                    void* stream) {
   if (B == 0 || S == 0 || W == 0) return 0;
   Args p{{a, b, nullptr}, h, nullptr, nullptr, nullptr, nullptr, nullptr,
-         S, W, channels, split, stages, copy_bytes};
+         nullptr, S, W, channels, split, stages, copy_bytes, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_ring<float, Direct>(p, B, steps, s);
   if (dtype == kBFloat16)
@@ -692,17 +959,26 @@ extern "C" int rglru_scan_ring_fwd(const void* a, const void* b, void* h,
 }
 
 // The gated entry: xa, xi, xc, h (B, S, W) in `dtype`; b_a, b_i, lam (W,),
-// h0 (B, W) or null, h_last (B, W) in fp32.
+// h0 (B, W) or null, h_last (B, W) in fp32; states: null, or (B, ceil(S /
+// every), W) fp32 for the state entering every `every`-th step (the
+// backward's chunk), `every` a power of two and a multiple of the tile's
+// steps a thread.
 extern "C" int rglru_gated_fwd(const void* xa, const void* xi,
                                const void* xc, const float* b_a,
                                const float* b_i, const float* lam,
                                const float* h0, void* h, float* h_last,
-                               int dtype, int B, int S, int W, int channels,
-                               int steps, int stages, int split,
-                               int copy_bytes, void* stream) {
+                               float* states, int dtype, int B, int S, int W,
+                               int channels, int steps, int stages, int split,
+                               int copy_bytes, int every, void* stream) {
   if (B == 0 || S == 0 || W == 0) return 0;
-  Args p{{xa, xi, xc}, h, h0, h_last, b_a, b_i, lam,
-         S, W, channels, split, stages, copy_bytes};
+  int shift = 0;
+  while (shift < 30 && (1 << shift) < every) ++shift;
+  if (states != nullptr && (every != (1 << shift) || split < 1 ||
+                            steps % split || every % (steps / split)))
+    return cudaErrorInvalidValue;
+  Args p{{xa, xi, xc}, h, h0, h_last, states, b_a, b_i, lam,
+         S, W, channels, split, stages, copy_bytes, shift,
+         (S + (1 << shift) - 1) >> shift};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_ring<float, Gated>(p, B, steps, s);
   if (dtype == kBFloat16)
@@ -711,27 +987,37 @@ extern "C" int rglru_gated_fwd(const void* xa, const void* xi,
 }
 
 // The gated entry's backward: xa, xi, xc, dh, dxa, dxi, dxc (B, S, W) in
-// `dtype`; b_a, b_i, lam, db_a, db_i, dlam (W,), h0, dh_last, dh0 (B, W)
-// in fp32 (h0, dh_last: null for zero; dh0: null when there is no h0);
-// carry: fp32 scratch (3, B, K, W) and part: fp64 scratch (3, B, K, W), K
-// = ceil(S / steps); `steps` must be the kernel's chunk (32).  Returns the
-// first CUDA error of the four launches.
+// `dtype`; b_a, b_i, lam, db_a, db_i, dlam (W,), dh_last, dh0 (B, W) in
+// fp32 (dh_last: null for zero; dh0: null when the forward had no h0);
+// states: (B, K, W) fp32, the forward's state entering every 64th step
+// (rglru_gated_fwd's `states` at every = 64), K = ceil(S / 64); part:
+// fp64 scratch (3, B, K, W); sync: int32 scratch of 4 + W + B * K * W (a
+// ticket counter, padding, a counter a strip, the chain's slots; all set to
+// 0xffffffff here, on the stream, by one memset: the counters count from
+// -1).  vec: W * the input type's size a multiple of 8 bytes and every
+// (B, S, W) tensor 8-byte aligned.  marks: null, or three cudaEvent_t
+// recorded before the scratch's memset, after it and after the launch.
+// Returns the first CUDA error.
 extern "C" int rglru_gated_bwd(const void* xa, const void* xi,
                                const void* xc, const void* dh,
                                const float* b_a, const float* b_i,
-                               const float* lam, const float* h0,
+                               const float* lam, const float* states,
                                const float* dh_last, void* dxa, void* dxi,
                                void* dxc, float* db_a, float* db_i,
-                               float* dlam, float* dh0, float* carry,
-                               double* part, int dtype, int B, int S, int W,
-                               int steps, void* stream) {
+                               float* dlam, float* dh0, double* part,
+                               int* sync, int dtype, int B, int S, int W,
+                               int vec, void* stream, void* marks) {
   if (B == 0 || S == 0 || W == 0) return 0;
-  if (steps != kBwdL) return cudaErrorInvalidValue;
-  const BwdArgs p{xa, xi, xc, dh, b_a, b_i, lam, h0, dh_last, dxa, dxi, dxc,
-                  db_a, db_i, dlam, dh0, carry, part, B, S, W,
-                  (S + kBwdL - 1) / kBwdL};
+  const int K = (S + kRgL - 1) / kRgL;
+  BwdArgs p{xa, xi, xc, dh, b_a, b_i, lam, states, dh_last, dxa, dxi, dxc,
+            db_a, db_i, dlam, dh0, part, sync, sync + 4,
+            reinterpret_cast<float*>(sync + 4 + W), B, S, W, K, 0, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_bwd<float>(p, s);
-  if (dtype == kBFloat16) return launch_bwd<__nv_bfloat16>(p, s);
+  mark(marks, 0, s);
+  const cudaError_t e = cudaMemsetAsync(
+      sync, 0xff, (4 + W + (size_t)B * K * W) * sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  if (dtype == kFloat32) return dispatch_bwd<float>(p, s, marks);
+  if (dtype == kBFloat16) return dispatch_bwd<__nv_bfloat16>(p, s, marks);
   return cudaErrorInvalidValue;
 }

@@ -9,6 +9,11 @@ import torch
 import torch.nn.functional as F
 
 C = 8.0     # the reference's c in a = exp(c * r * log(a_hat))
+# How far kept states may sit from the plain recurrence's: the RG-LRU's
+# fp32 state tolerance (the reference's 2e-5 x 5, tests/test_kernels.py),
+# absolute and relative; the kernel folds its tiles in another order and
+# takes its sigmoids from the special-function unit.
+STATES_TOL = 1e-4
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
@@ -49,12 +54,26 @@ def rglru_gated_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
     return hs.to(xc.dtype), hs[:, -1].clone()
 
 
+def rglru_states_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
+                     b_a: torch.Tensor, b_i: torch.Tensor, lam: torch.Tensor,
+                     h0: Optional[torch.Tensor], every: int) -> torch.Tensor:
+    """The fp32 state entering steps 0, every, 2 every, ...: (B, ceil(S /
+    every), W), h0 (zero when None) first: what the gated forward keeps for
+    its backward."""
+    B, S, W = xc.shape
+    hs = rglru_scan_ref(*rglru_gates_ref(xa, xi, xc, b_a, b_i, lam), h0)
+    first = (torch.zeros(B, W, dtype=torch.float32, device=xc.device)
+             if h0 is None else h0.float())
+    return torch.cat([first[:, None], hs[:, every - 1:S - 1:every]], 1)
+
+
 def rglru_gated_bwd_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
                         b_a: torch.Tensor, b_i: torch.Tensor,
                         lam: torch.Tensor, h0: Optional[torch.Tensor],
                         dh: torch.Tensor,
-                        dh_last: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, ...]:
+                        dh_last: Optional[torch.Tensor] = None,
+                        states: Optional[torch.Tensor] = None,
+                        every: int = 0) -> Tuple[torch.Tensor, ...]:
     """The gradients of :func:`rglru_gated_ref` by the explicit reverse
     recurrence, in fp32: (dxa, dxi, dxc in xc's dtype; db_a, db_i, dlam
     (W,) fp32, summed over (B, S); dh0 (B, W) fp32, or None when h0 is
@@ -65,7 +84,10 @@ def rglru_gated_bwd_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
     da[t] = g[t] h[t-1] and db[t] = g[t], and the chain rule through
     ``b = sqrt(max(1 - a^2, 1e-12)) i xc``, ``a = exp(8 r log_a_hat)``, the
     two sigmoids and ``log_a_hat = -softplus(lam)``.  Where the clamp holds,
-    nothing flows through the square root (as through ``jnp.maximum``)."""
+    nothing flows through the square root (as through ``jnp.maximum``).
+    ``states`` (the forward's state entering every ``every``-th step, as the
+    kernel reads them): held to this recurrence's own within STATES_TOL, a
+    ValueError if they are not; the gradients come from its own."""
     B, S, W = xc.shape
     xcf = xc.float()
     r = torch.sigmoid(xa.float() + b_a)
@@ -81,6 +103,11 @@ def rglru_gated_bwd_ref(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
     for t in range(S):
         h_prev[:, t] = h
         h = a[:, t] * h + b[:, t]
+    if states is not None and not torch.allclose(
+            states, h_prev[:, ::every], rtol=STATES_TOL, atol=STATES_TOL):
+        err = (states - h_prev[:, ::every]).abs().max().item()
+        raise ValueError(f"rglru_gated_bwd_ref: the states are not the "
+                         f"forward's (max abs difference {err:.3e})")
     g = torch.empty_like(a)
     carry = (torch.zeros(B, W, dtype=torch.float32, device=xc.device)
              if dh_last is None else dh_last.float())

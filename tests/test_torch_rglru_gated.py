@@ -230,6 +230,37 @@ def test_plan_refuses_what_the_kernel_cannot_take(kwargs, match):
         plan(8, 4096, 2560, torch.float32, **kwargs)
 
 
+@pytest.mark.parametrize("kwargs,every", [
+    (dict(), 12),                        # not a multiple of 8 steps a thread
+    (dict(), 4),
+    (dict(), 48),                        # not a power of two
+    (dict(tile=(64, 32, 2, 2)), 8),      # 16 steps a thread
+    (dict(tile=(64, 32, 2, 2)), -16),
+])
+def test_plan_refuses_states_off_the_threads_steps(kwargs, every):
+    """The forward keeps a state where a thread's steps start: the
+    backward's chunk must be a power of two and a multiple of the tile's
+    steps a thread."""
+    with pytest.raises(ValueError, match="states every"):
+        plan(8, 4096, 2560, torch.bfloat16, gated=True, states=every,
+             **kwargs)
+
+
+@pytest.mark.parametrize("every", (ops.BWD_STEPS, ops.BWD_STEPS // 2))
+def test_plan_takes_the_backwards_chunks(every):
+    """The backward's chunk, and half of it (the forward keeps states at
+    any power of two its threads' steps divide), at every served shape's
+    tile (8 steps a thread), and the sweep's 16; only the gated entry keeps
+    states."""
+    for B, S, W, dtype in _served_shapes():
+        assert plan(B, S, W, dtype, gated=True, states=every).variant == \
+            "ring"
+    plan(8, 4096, 2560, torch.bfloat16, gated=True, tile=(64, 32, 2, 2),
+         states=every)
+    with pytest.raises(ValueError, match="only the gated entry"):
+        plan(8, 4096, 2560, torch.bfloat16, states=every)
+
+
 def test_expected_launches_count_the_gated_entry_per_call():
     """chip_smoke.py's phase-4 count: one gated launch per RG-LRU layer in
     the prefill and in each of the 31 decode steps (18 x 32 = 576), none

@@ -6,8 +6,12 @@ kernels (``rglru_gated_bwd_ref``, ``mamba_scan_bwd_ref``) against
 plus ``mamba_mix``'s einsum), with ragged lengths that cross the
 reference's chunk, a non-zero h0 and a dh_last; the wrappers' CPU path under
 autograd; and ``DiscretiseBx``, the Mamba block's ``dt (x) B * xc``, against
-autograd of the eager expression.  The CUDA kernels are held to these plain
-versions on the card by ``chip_smoke.py``.
+autograd of the eager expression.  The RG-LRU's backward reads the states its
+forward keeps (one a chunk of ``BWD_STEPS`` steps): their plain version
+``rglru_states_ref`` against the reference's ``linear_scan``, the plain
+backward given them, their checks, the plan's refusals and which calls keep
+them.  The CUDA kernels are held to these plain versions on the card by
+``chip_smoke.py``.
 
 Tolerance: fp32, 2e-5 absolute and relative (tests/test_torch_train_
 kernels.py's ``TOL``): both sides compute in fp32 and differ by summation
@@ -20,13 +24,14 @@ import pytest
 import torch
 
 from repro.models.rglru import _C as JAX_C
-from repro.models.scan_ops import linear_scan_chunked
+from repro.models.scan_ops import linear_scan, linear_scan_chunked
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
 from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_ref,
                                                 mamba_scan_ref)
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rglru_scan.ref import (rglru_gated_bwd_ref,
-                                                rglru_gated_ref)
+                                                rglru_gated_ref,
+                                                rglru_states_ref)
 from repro_torch.models.mamba import DiscretiseBx
 
 TOL = 2e-5
@@ -91,6 +96,17 @@ def test_rglru_gated_bwd_ref_matches_autograd_and_jax_grad(case):
                               dh_last if with_dh_last else None)
     assert got[6] is None if h0 is None else got[6].shape == (B, W)
     assert all(g.dtype == torch.float32 for g in got if g is not None)
+    # given the forward's kept states, the same gradients
+    every = rglru_ops.BWD_STEPS
+    states = rglru_states_ref(*(t.detach() for t in leaves),
+                              None if h0 is None else h0.detach(), every)
+    kept = rglru_gated_bwd_ref(*(t.detach() for t in leaves),
+                               None if h0 is None else h0.detach(), dh,
+                               dh_last if with_dh_last else None, states,
+                               every)
+    for name, g, k in zip(GATED_NAMES, got, kept):
+        assert (g is None) == (k is None), name
+        assert g is None or torch.equal(g, k), name
 
     h, h_last = rglru_gated_ref(*leaves, h0)
     inputs = leaves + ([h0] if h0 is not None else [])
@@ -143,6 +159,136 @@ def test_rglru_gated_bwd_ref_stops_at_the_clamp():
                   torch.sigmoid(xa + zeros))
     assert bool((1 - a * a <= 1e-12).all())
     assert not dxa.any() and not db_a.any() and not dlam.any()
+
+
+def _jax_gates(xa, xi, xc, b_a, b_i, lam):
+    """``rglru_mix``'s a and b."""
+    r = jax.nn.sigmoid(xa + b_a)
+    i = jax.nn.sigmoid(xi + b_i)
+    a = jnp.exp(JAX_C * r * -jax.nn.softplus(lam))
+    return a, jnp.sqrt(jnp.maximum(1.0 - a * a, 1e-12)) * i * xc
+
+
+# (B, S, W, h0, every): S across chunks of both sizes (ragged; one shape,
+# so the reference's scan compiles once), one chunk, one step
+STATES_CASES = [(2, 150, 6, True, 64), (2, 150, 6, False, 32),
+                (2, 150, 6, True, 128), (3, 1, 4, True, 32)]
+
+
+@pytest.mark.parametrize("case", STATES_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rglru_states_ref_is_the_reference_scan_at_chunk_starts(case):
+    """The states the forward keeps for its backward: h0 (zero) first, then
+    the fp32 state after every every-th step, from the reference's
+    ``linear_scan`` on the reference's gates."""
+    B, S, W, with_h0, every = case
+    rng = np.random.default_rng(S * 7 + every)
+    args, h0n, _, _ = _gated_inputs(rng, B, S, W)
+    h0n = h0n if with_h0 else np.zeros_like(h0n)
+    got = rglru_states_ref(*(torch.from_numpy(a) for a in args),
+                           torch.from_numpy(h0n) if with_h0 else None, every)
+    K = -(-S // every)
+    assert got.shape == (B, K, W) and got.dtype == torch.float32
+    hs, _ = linear_scan(*_jax_gates(*(jnp.asarray(a) for a in args)),
+                        jnp.asarray(h0n))
+    want = np.concatenate([h0n[:, None], np.asarray(hs)[:, every - 1:S - 1:
+                                                         every]], 1)
+    _close(got, want, "states")
+    assert torch.equal(got[:, 0], torch.from_numpy(h0n))
+
+
+def test_rglru_gated_bwd_ref_refuses_states_not_the_forwards():
+    """The plain backward holds given states to its own recurrence."""
+    rng = np.random.default_rng(9)
+    args, h0, dh, _ = _gated_inputs(rng, 2, 70, 6)
+    ts = [torch.from_numpy(a) for a in args]
+    h0, dh = torch.from_numpy(h0), torch.from_numpy(dh)
+    every = rglru_ops.BWD_STEPS
+    states = rglru_states_ref(*ts, h0, every)
+    rglru_gated_bwd_ref(*ts, h0, dh, None, states, every)
+    bad = states.clone()
+    bad[1, 1, 3] += 0.01
+    with pytest.raises(ValueError, match="not the forward"):
+        rglru_gated_bwd_ref(*ts, h0, dh, None, bad, every)
+    with pytest.raises(ValueError, match="not the forward"):
+        rglru_ops.rglru_gated_bwd(*ts, h0, dh, None, bad)
+
+
+def test_rglru_gated_bwd_checks_the_states():
+    """Shape (B, ceil(S / BWD_STEPS), W), fp32, contiguous."""
+    rng = np.random.default_rng(10)
+    args, h0, dh, _ = _gated_inputs(rng, 2, 70, 6)
+    ts = [torch.from_numpy(a) for a in args]
+    h0, dh = torch.from_numpy(h0), torch.from_numpy(dh)
+    states = rglru_states_ref(*ts, h0, rglru_ops.BWD_STEPS)
+    assert states.shape == (2, 2, 6)
+    with pytest.raises(ValueError, match="states"):
+        rglru_ops.rglru_gated_bwd(*ts, h0, dh, None, states[:, :1].clone())
+    with pytest.raises(ValueError, match="states"):   # every 32nd step's
+        rglru_ops.rglru_gated_bwd(*ts, h0, dh, None,
+                                  rglru_states_ref(*ts, h0, 32))
+    with pytest.raises(TypeError, match="states"):
+        rglru_ops.rglru_gated_bwd(*ts, h0, dh, None, states.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_ops.rglru_gated_bwd(
+            *ts, h0, dh, None, states.transpose(0, 1).contiguous()
+            .transpose(0, 1))
+    with pytest.raises(ValueError, match="states"):
+        rglru_ops._check("rglru_gated_bwd", ts[2], {}, {}, None,
+                         states[:1].contiguous(), rglru_ops.BWD_STEPS)
+
+
+def _fake_forward(calls):
+    """A stand-in for the forward launch on CPU tensors: the plain outputs
+    and, when asked, the plain states; records each call's ``every``."""
+    def fwd(xa, xi, xc, b_a, b_i, lam, h0, how, every=0):
+        calls.append(every)
+        h, h_last = rglru_gated_ref(xa, xi, xc, b_a, b_i, lam, h0)
+        kept = (rglru_states_ref(xa, xi, xc, b_a, b_i, lam, h0, every)
+                if every else None)
+        return h, h_last, kept
+    return fwd
+
+
+def test_states_are_kept_under_grad_only(monkeypatch):
+    """The CUDA route (its launch replaced by the plain version): a serving
+    call, without grad, asks for no states; under grad ``RGLRUGatedFn``
+    asks for BWD_STEPS' and saves them, and its backward hands them to
+    ``rglru_gated_bwd``, whose gradients are autograd's of the plain
+    forward."""
+    calls = []
+    monkeypatch.setattr(rglru_ops, "_gated_fwd", _fake_forward(calls))
+    rng = np.random.default_rng(11)
+    args, h0, _, _ = _gated_inputs(rng, 2, 70, 6)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    h0 = torch.from_numpy(h0)
+    how = rglru_ops.plan(2, 70, 6, torch.float32, gated=True,
+                         states=rglru_ops.BWD_STEPS)
+    with torch.no_grad():
+        out = rglru_ops._gated_cuda(*leaves, h0, how, False)
+    assert calls == [0] and len(out) == 2
+    h, h_last = rglru_ops._gated_cuda(*leaves, h0, how, True)
+    assert calls == [0, rglru_ops.BWD_STEPS]
+    saved = h.grad_fn.saved_tensors
+    assert saved[-1].shape == (2, 2, 6)
+    assert torch.equal(saved[-1], rglru_states_ref(
+        *(t.detach() for t in leaves), h0, rglru_ops.BWD_STEPS))
+    (h.float().sum() + h_last.sum()).backward()
+    want = torch.autograd.grad(
+        sum(t.float().sum() for t in rglru_gated_ref(*leaves, h0)), leaves)
+    for t, w in zip(leaves, want):
+        _close(t.grad, w)
+
+
+def test_states_every_is_not_taken_under_autograd():
+    rng = np.random.default_rng(12)
+    args, _, _, _ = _gated_inputs(rng, 1, 10, 4)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    with pytest.raises(ValueError, match="autograd"):
+        rglru_ops.rglru_gated(*leaves, states_every=32)
+    with torch.no_grad():
+        h, h_last, kept = rglru_ops.rglru_gated(*leaves, states_every=32)
+    assert kept.shape == (1, 1, 4) and not kept.any()
 
 
 def _jax_mamba(da, dbx, c):
