@@ -171,26 +171,39 @@ non-zero (no phase's failure is caught):
    timed beside its bound, its plain version and a library call the port
    never calls where one computes the same function (SDPA's
    backward with the window as a mask, ``F.rms_norm``'s autograd backward;
-   none for the scans).  Then the slice's main paths (TRAIN_RUNS):
-   ``make_train_step`` trains qwen2-7b (8 of 28 layers, 8 x 1024),
-   recurrentgemma-2b (24 of 26 layers, 2 x 4096) and falcon-mamba-7b (5 of
-   64 layers, 8 x 1024) at their published widths (bf16, AdamW with fp32
-   moments; lr 1e-3 for 4 steps, falcon-mamba-7b lr 3e-4 for 12) from
-   seeded random weights, each step's launches exact
-   (``expected_train_launches``, by layer kind; the attention forwards on
+   none for the scans); the ``simt`` backward also in fp32 at phase 5's
+   fp32 prefill shapes, timed beside its fp32 bound and SDPA's fp32
+   backward.  Then the slice's main paths (TRAIN_RUNS):
+   ``make_train_step`` trains, at their published widths (bf16, AdamW
+   with each config's moment dtype; lr and steps as TRAIN_RUNS says) from
+   seeded random weights, qwen2-7b (8 of 28 layers, 8 x
+   1024) under each ``remat`` policy (none, selective, full),
+   recurrentgemma-2b (24 of 26 layers, 2 x 4096; all 26 under ``full``),
+   falcon-mamba-7b (5 of 64 layers, 8 x 1024), chatglm3-6b (19 of 28, 8 x
+   1024), stablelm-1.6b (24, 8 x 1024), starcoder2-3b (30, 8 x 1024),
+   phi-3-vision-4.2b (32, 2 x (1024 image + 1024 text)), whisper-small (12
+   + 12 over 1500 frames, 8 x 448), dbrx-132b (1 of 40, 8 x 1024) and
+   llama4-maverick-400b-a17b (its first layer, chunked with a dense FFN, 2
+   x 8200), each step's launches exact (``expected_train_launches``, by
+   layer kind, the recomputed forwards counted; the attention forwards on
    ``tc_prefill`` with the log-sum-exp, the backwards on ``tc``, also for
-   recurrentgemma-2b's window at D 256), every
-   parameter's gradient finite and non-zero, the loss finite and falling
-   or flat; step ms, tokens/s, peak memory, the share of the step's
-   FLOP bound and one profiled step (device ms by kernel, and the backward
-   kernels' by launch).  Then falcon-mamba-7b's peak memory
-   with ``DiscretiseBx`` and with the eager product it replaced, the
-   gradient checks (GRAD_CHECKS: the bf16 kernel path's gradients against
-   fp32 ones, leaf by leaf, within FLOOR_MULT times the bf16 plain path's
-   distance), the reference's four training tests
-   (``tests/test_system.py:54-99``) through ``train_loop`` on the card, and
-   the reduced recurrentgemma-2b and falcon-mamba-7b in fp32 on the card
-   against the CPU's plain path and trained by ``train_loop``.
+   recurrentgemma-2b's window at D 256, whisper's encoder and cross
+   attention and llama4's chunk mask), every parameter's gradient finite
+   and non-zero, the loss finite and falling or flat; step ms, tokens/s,
+   peak memory, the share of the step's FLOP bound and one profiled step
+   (device ms by kernel, and the backward kernels' by launch).  Then
+   falcon-mamba-7b's peak memory with ``DiscretiseBx`` and with the eager
+   product it replaced, the bytes qwen2-7b's forward saves under each
+   policy (``remat_costs``), the gradient checks (GRAD_CHECKS: the bf16
+   kernel path's gradients against fp32 ones, leaf by leaf, within
+   FLOOR_MULT times the bf16 plain path's distance; under ``remat`` too),
+   qwen2-7b's three policies held to one another (``remat_compare``:
+   first-step loss and gradients within the grad check's margin, bits
+   reported, peaks falling none > selective > full), the reference's four
+   training tests (``tests/test_system.py:54-99``) through ``train_loop``
+   on the card, and the reduced recurrentgemma-2b and falcon-mamba-7b in
+   fp32 on the card against the CPU's plain path and trained by
+   ``train_loop``.
 
 ``--depth-sweep`` runs phases 1-2 and then only falcon-mamba-7b's serve
 check at 8, 16, 32 and 64 layers in bf16 and at 64 in fp32, and prints no
@@ -204,7 +217,10 @@ its split rule; no contract line.  ``--scan-sweep`` runs phases 1-2 and then
 only both RG-LRU entries at recurrentgemma-2b's prefill shape over the
 ring's tiles (SCAN_SWEEP_*), bf16 and fp32, to place the plan's TILES; no
 contract line.  ``--train-only`` runs phases 1-2 and then only phase 9; no
-contract line.  ``--rglru-ablate`` runs phases 1-2 and then only the gated
+contract line.  ``--train-probe`` runs phases 1-2 and then only two
+training steps of each TRAIN_PROBES config at two depths, printing the
+peaks and the depth a line through them fits (how TRAIN_RUNS' depths were
+placed); no contract line.  ``--rglru-ablate`` runs phases 1-2 and then only the gated
 RG-LRU backward kernel's ablations (RGLRU_ABLATIONS: copies, chain, second
 gate_math taken away) beside it, each built with ptxas's register and
 spill report and timed in turns; no contract line.
@@ -277,8 +293,10 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa
 from repro_torch.data import DataConfig, SyntheticTokenPipeline  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
-from repro_torch.launch.train import TrainRunConfig, train_loop  # noqa: E402
+from repro_torch.launch.train import TrainRunConfig, device_batch  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models.moe import MoE, moe_slots_ref  # noqa: E402
+from repro_torch.models.remat import POLICIES as REMAT_POLICIES  # noqa: E402
 from repro_torch.models.moe import dispatch as moe_dispatch  # noqa: E402
 from repro_torch.models.transformer import Transformer, loss_fn  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
@@ -1449,8 +1467,15 @@ def phase_moe(timer: Timer) -> None:
 
 
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double(), b.double()
-    return ((a - b).norm() / b.norm()).item()
+    """|a - b| / |b| in fp64, 2^24 elements at a time (a billion-element
+    expert leaf would take 25 GB at once)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, b.numel(), 1 << 24):
+        x, y = a[i:i + (1 << 24)].double(), b[i:i + (1 << 24)].double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return (num / den) ** 0.5 if den else float("inf")
 
 
 def reset_counts() -> None:
@@ -2982,37 +3007,112 @@ def scan_sweep() -> None:
 # ---- phase 9: training ------------------------------------------------------
 
 # phase 9's training runs, the slice's main paths, at the published widths,
-# bf16, AdamW with fp32 moments.  Depth (and rows) cut only as the card's
-# 80 GB forces (peaks measured on an H100 80GB HBM3 at 700 W):
+# bf16, AdamW with each config's moment dtype (fp32; llama4 bf16).  Depth
+# (and rows) cut only as the card's 80 GB forces (peaks measured on an
+# H100 80GB HBM3 at 700 W; ``--train-probe`` places the new depths):
 # - qwen2-7b: 8 of 28 layers (AdamW's state at full depth, 12 bytes a
-#   parameter, is 91 GB), 8 x 1024 tokens;
+#   parameter, is 91 GB), 8 x 1024 tokens, under each remat policy;
 # - recurrentgemma-2b: 24 of its 26 layers, the most whole (rglru, rglru,
 #   attn_local) patterns that fit (2.89 B parameters, 35 GB of state at
 #   full depth, and 8.4 GB of fp32 logits at 2 x 4096, with their
-#   log-softmax and its gradient; 74.9 GB at 24 layers), 2 x 4096 tokens so
-#   that the 2048-key window skips tiles;
+#   log-softmax and its gradient; 75.2 GB at 24 layers), 2 x 4096 tokens so
+#   that the 2048-key window skips tiles; all 26 under ``full`` (54.8 GB);
 # - falcon-mamba-7b: 5 of its 64 layers at 8 x 1024 tokens (autograd keeps
 #   da and dbx, (B, S, Di, N) fp32, 4.3 GB each a layer: 70.6 GB at 5
-#   layers, and a sixth does not fit).
-# (arch, layers, batch, seq, lr, steps); each step takes the pipeline's
-# next batch.  falcon-mamba-7b runs at AdamW's default lr, 3e-4, for 12
-# steps: at 1e-3 its loss rose over 12 steps (11.88 -> 13.10), and over 4
-# steps, at each lr tried from 1e-4 to 1e-2, the batches' spread (~0.03)
-# outweighed what it learned or the loss rose.
-TRAIN_RUNS = (("qwen2-7b", 8, 8, 1024, 1e-3, 4),
-              ("recurrentgemma-2b", 24, 2, 4096, 1e-3, 4),
-              ("falcon-mamba-7b", 5, 8, 1024, 3e-4, 12))
-# the gradient checks: the same widths at 2 layers (recurrentgemma-2b: one
-# whole pattern, 3 layers) and the runs' sequence lengths
-GRAD_CHECKS = (("qwen2-7b", 2, 2, 1024),
-               ("recurrentgemma-2b", 3, 2, 4096),
-               ("falcon-mamba-7b", 2, 2, 1024))
+#   layers, and a sixth does not fit);
+# - chatglm3-6b: 19 of 28 layers at 8 x 1024 (3.35 GB a layer over 11.9
+#   before the forward kept O's rounding residual; 76.9 GB; its state
+#   alone at 28 layers is 75 GB, so no policy reaches them);
+# - stablelm-1.6b (24), starcoder2-3b (30) at 8 x 1024 and phi-3-vision-4.2b
+#   (32) at 2 x (1024 image + 1024 text): their published depth, without
+#   remat (44.2, 62.9 and 55.4 GB);
+# - whisper-small: 12 + 12 layers, 8 x 448 decoder tokens over 1500 frames;
+# - dbrx-132b: 1 of 40 layers (16 experts of 6144 x 10752: 54 GB of state
+#   for one layer and the embeddings), 8 x 1024;
+# - llama4-maverick-400b-a17b: its first layer (chunked attention, dense
+#   FFN), 2 x 8200 so the chunk mask cuts in; its first MoE layer (128 x 3
+#   x 5120 x 8192 = 16.1 B parameters, ~129 GB of state) cannot fit.
+# (arch, layers, batch, seq, lr, steps, remat); each step takes the
+# pipeline's next batch.  falcon-mamba-7b runs at AdamW's default lr, 3e-4,
+# for 12 steps: at 1e-3 its loss rose over 12 steps (11.88 -> 13.10), and
+# over 4 steps, at each lr tried from 1e-4 to 1e-2, the batches' spread
+# (~0.03) outweighed what it learned or the loss rose.  starcoder2-3b,
+# phi-3-vision-4.2b and whisper-small run at 3e-4: over 4 steps at 1e-3
+# the first two rose (11.30 -> 11.42, 10.88 -> 10.90) and whisper-small's
+# fell by 0.014 only (``repro_torch.launch.train``, the same weights and
+# batches).  chatglm3-6b runs at 1e-4 for 12 steps: over 4 steps its loss
+# rose at 1e-3, 3e-4 and 1e-4 (the fourth batch reads ~0.05-0.08 above the
+# first at any of them); over 12 at 3e-4 it fell to 11.32-11.40 by steps
+# 7-11 and the twelfth batch, the hardest, read 11.67 (11.56 at the first),
+# at 1e-3 it rose to 12.53.
+TRAIN_RUNS = (("qwen2-7b", 8, 8, 1024, 1e-3, 4, "none"),
+              ("qwen2-7b", 8, 8, 1024, 1e-3, 4, "selective"),
+              ("qwen2-7b", 8, 8, 1024, 1e-3, 4, "full"),
+              ("recurrentgemma-2b", 24, 2, 4096, 1e-3, 4, "none"),
+              ("recurrentgemma-2b", 26, 2, 4096, 1e-3, 4, "full"),
+              ("falcon-mamba-7b", 5, 8, 1024, 3e-4, 12, "none"),
+              ("chatglm3-6b", 19, 8, 1024, 1e-4, 12, "none"),
+              ("stablelm-1.6b", 24, 8, 1024, 1e-3, 4, "none"),
+              ("starcoder2-3b", 30, 8, 1024, 3e-4, 4, "none"),
+              ("phi-3-vision-4.2b", 32, 2, 1024, 3e-4, 4, "none"),
+              ("whisper-small", 12, 8, 448, 3e-4, 4, "none"),
+              ("dbrx-132b", 1, 8, 1024, 1e-3, 4, "none"),
+              ("llama4-maverick-400b-a17b", 1, 2, 8200, 1e-3, 4, "none"))
+# the runs of this config under each policy are held to one another
+# (``remat_compare``)
+REMAT_ARCH = "qwen2-7b"
+# the gradient checks (arch, layers, batch, seq, remat): the runs' widths at
+# 1 or 2 layers (recurrentgemma-2b: one whole pattern, 3 layers; whisper:
+# 2 encoder and 2 decoder layers; the MoE models 1, as they train) and the
+# runs' sequence lengths (llama4: one row of 8200, past its first chunk);
+# under remat, a config of each layer kind that no run recomputes (the
+# Mamba block, the encoder and cross attention, the MoE dispatch, the
+# chunk mask)
+GRAD_CHECKS = (("qwen2-7b", 2, 2, 1024, "none"),
+               ("qwen2-7b", 2, 2, 1024, "full"),
+               ("recurrentgemma-2b", 3, 2, 4096, "none"),
+               ("falcon-mamba-7b", 2, 2, 1024, "none"),
+               ("falcon-mamba-7b", 2, 2, 1024, "full"),
+               ("chatglm3-6b", 2, 2, 1024, "none"),
+               ("stablelm-1.6b", 2, 2, 1024, "none"),
+               ("starcoder2-3b", 2, 2, 1024, "none"),
+               ("phi-3-vision-4.2b", 2, 2, 1024, "none"),
+               ("whisper-small", 2, 2, 448, "none"),
+               ("whisper-small", 2, 2, 448, "full"),
+               ("dbrx-132b", 1, 2, 1024, "none"),
+               ("dbrx-132b", 1, 2, 1024, "selective"),
+               ("llama4-maverick-400b-a17b", 1, 1, 8200, "none"),
+               ("llama4-maverick-400b-a17b", 1, 1, 8200, "selective"))
+# REMAT_ARCH's depths and tokens for the bytes a forward saves
+# (``remat_costs``)
+REMAT_DEPTHS = (2, 8)
+REMAT_TOKENS = (8, 1024)
 # scratch checkpoints of the reference's restart test
 TRAIN_DIR = ROOT / "build" / "train"
 # the reduced recurrent configs on the card in fp32 against the CPU's plain
 # path: relative RMS error of each gradient leaf (tests/test_torch_train.py's
 # GRAD_RTOL: fp32 sums in another order)
 REDUCED_GRAD_RTOL = 1e-4
+# ``--train-probe``: (arch, batch, seq, depths, remat), and the peak that
+# the depths it reports keep under, of the card's 85 GB
+TRAIN_PROBES = (
+    ("chatglm3-6b", 8, 1024, (2, 6), "none"),
+    ("stablelm-1.6b", 8, 1024, (4, 12), "none"),
+    ("starcoder2-3b", 8, 1024, (4, 12), "none"),
+    ("starcoder2-3b", 8, 1024, (4, 12), "full"),
+    ("phi-3-vision-4.2b", 2, 1024, (4, 12), "none"),
+    ("phi-3-vision-4.2b", 2, 1024, (4, 12), "full"),
+    ("whisper-small", 8, 448, (4, 12), "none"),
+    ("dbrx-132b", 8, 1024, (1,), "none"),
+    ("dbrx-132b", 4, 1024, (1,), "none"),
+    ("llama4-maverick-400b-a17b", 2, 8200, (1,), "none"),
+    ("llama4-maverick-400b-a17b", 1, 8200, (1,), "none"),
+    ("qwen2-7b", 8, 1024, (2, 8), "none"),
+    ("qwen2-7b", 8, 1024, (2, 8), "selective"),
+    ("qwen2-7b", 8, 1024, (2, 8), "full"),
+    ("recurrentgemma-2b", 2, 4096, (9, 26), "full"),
+)
+PROBE_FIT_GB = 76.0
 
 
 def flash_bwd_cases() -> list:
@@ -3072,15 +3172,41 @@ def window_mask(Sq: int, Skv: int, causal: bool, window: int,
 
 
 def flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal, chunk,
-                   window=0) -> dict:
-    """q, k, v, o, dO and lse read once, dq, dk, dv written once; 2.5x the
-    forward's 4*D flops a visible (query, key) pair (the usual count of
-    the five products, S recomputed once)."""
+                   window=0, o_lo: bool = False) -> dict:
+    """q, k, v, o, dO, lse (and o_lo, where the forward wrote one) read
+    once, dq, dk, dv written once; 2.5x the forward's 4*D flops a visible
+    (query, key) pair (the usual count of the five products, S recomputed
+    once)."""
     fwd = flash_work(B, Sq, Skv, Hq, Hkv, D, dt, causal=causal,
                      window=window, chunk=chunk)
-    nbytes = (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D) * esize(dt) \
-        + 4 * B * Hq * Sq
+    nbytes = ((4 + o_lo) * B * Sq * Hq * D + 4 * B * Skv * Hkv * D) \
+        * esize(dt) + 4 * B * Hq * Sq
     return bound(nbytes, int(2.5 * fwd["flops"]), dt)
+
+
+def sdpa_bwd_times(timer: Timer, q, k, v, do, causal: bool, window: int,
+                   chunk: int) -> dict:
+    """SDPA's backward on the same inputs, which the port never calls: its
+    forward and its forward and backward, timed in turns, and their
+    difference (a window or chunk as a boolean mask)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    mask = (window_mask(Sq, Skv, causal, window, chunk)
+            if window or chunk else None)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+    t = in_turns(timer, {"fwd": sdpa_fwd, "both": sdpa_fwd_bwd})
+    return {"library_ms": t["both"] - t["fwd"], "library_fwd_ms": t["fwd"],
+            "library_fwd_bwd_ms": t["both"]}
 
 
 def bwd_variants(shape, dt) -> list:
@@ -3147,15 +3273,35 @@ def bwd_check(name: str, grads, refs, dt, causal: bool, chunk: int,
     return errs
 
 
+def o_lo_check(name: str, o, o_lo, fwd_impl: str) -> dict | None:
+    """The forward's rounding residual of O: written by ``tc_prefill`` with
+    the log-sum-exp and by no other kernel; each element within half an
+    ulp of O's bf16 (|o_lo| <= 2^-8 |o|) and not all zero."""
+    if (o_lo is not None) != (fwd_impl == "tc_prefill"):
+        raise AssertionError(f"flash {name}: o_lo from {fwd_impl}: "
+                             f"{o_lo is not None}")
+    if o_lo is None:
+        return None
+    ratio = float((o_lo.float().abs() / o.float().abs().clamp_min(1e-30))
+                  .max())
+    nonzero = float((o_lo != 0).float().mean())
+    if not (ratio <= 2.0 ** -8 * 1.001 and nonzero > 0.5):
+        raise AssertionError(f"flash {name}: o_lo is no rounding residual "
+                             f"of o: max |o_lo|/|o| {ratio:.3e}, nonzero "
+                             f"{nonzero:.3f}")
+    return {"max_rel": ratio, "nonzero_share": nonzero}
+
+
 def bwd_last_key_probe(q, k, v, o, lse, do, refs, causal, chunk,
-                       window=0) -> dict:
+                       window=0, o_lo=None) -> dict:
     """The plain version without the last key (its dk and dv rows zero):
     what a kernel that dropped it would return.  It must fail FLASH_ROW_TOL
     on dk and dv, or the check could not see such a kernel; whether it
     also fails TOL is recorded."""
     dropped = attention_bwd_ref(q, k[:, :-1].contiguous(),
                                 v[:, :-1].contiguous(), o, lse, do,
-                                causal=causal, window=window, chunk=chunk)
+                                causal=causal, window=window, chunk=chunk,
+                                o_lo=o_lo)
     rows = bwd_rows(q.shape[1], k.shape[1], causal, chunk, window)
     out = {}
     for n, g, r in zip(("dk", "dv"), dropped[1:], refs[1:]):
@@ -3196,45 +3342,29 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
             do = rn(B, Sq, Hq, D, dt=dt)
             masks = dict(causal=causal, window=window, chunk=chunk)
             before = dict(flash_attention.impl_launches)
-            o, lse = flash_forward(q, k, v, q_offset=0, kv_len=None,
-                                   k_pos=None, impl=None, splits=None,
-                                   with_lse=True, **masks)
+            o, lse, o_lo = flash_forward(q, k, v, q_offset=0, kv_len=None,
+                                         k_pos=None, impl=None, splits=None,
+                                         with_lse=True, **masks)
             fwd_impl = next(n for n, c in flash_attention.impl_launches.items()
                             if c > before[n])
             ref_o, ref_lse = attention_ref(q, k, v, return_lse=True, **masks)
             err_o, _ = flash_check(name, o, ref_o, dt)
             err_lse = close(lse, ref_lse, TOL[dt])
-            refs = attention_bwd_ref(q, k, v, o, lse, do, **masks)
+            residual = o_lo_check(name, o, o_lo, fwd_impl)
+            refs = attention_bwd_ref(q, k, v, o, lse, do, o_lo=o_lo, **masks)
             timed = {}
             if dt == torch.bfloat16 and i < BWD_TIMED:
                 probe = bwd_last_key_probe(q, k, v, o, lse, do, refs,
-                                           causal, chunk, window)
-                qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
-                              for t in (q, k, v))
-                dot = do.transpose(1, 2)
-                mask = (window_mask(Sq, Skv, causal, window, chunk)
-                        if window or chunk else None)
-
-                def sdpa_fwd():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask,
-                        is_causal=causal and mask is None, enable_gqa=True)
-
-                def sdpa_fwd_bwd():
-                    return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
-
-                t = in_turns(timer, {"fwd": sdpa_fwd, "both": sdpa_fwd_bwd})
+                                           causal, chunk, window, o_lo)
                 timed = dict(
                     plain_ms=timer.ms(lambda: attention_bwd_ref(
-                        q, k, v, o, lse, do, **masks), reps=5),
-                    library_ms=t["both"] - t["fwd"],
-                    library_fwd_ms=t["fwd"], library_fwd_bwd_ms=t["both"],
+                        q, k, v, o, lse, do, o_lo=o_lo, **masks), reps=5),
+                    **sdpa_bwd_times(timer, q, k, v, do, **masks),
                     last_key_probe=probe,
                     **flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, causal,
-                                     chunk, window))
-                del qt, kt, vt, dot, mask
+                                     chunk, window, o_lo is not None))
             for impl, forced in bwd_variants((B, Sq, Skv, Hq, Hkv, D), dt):
-                kw = dict(masks, impl=impl if forced else None)
+                kw = dict(masks, impl=impl if forced else None, o_lo=o_lo)
                 before = dict(flash_attention_bwd.impl_launches)
                 grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
                 moved = {n: c - before[n] for n, c in
@@ -3252,7 +3382,7 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                         "max_abs_err": max(errs[n] for n in ("dq", "dk",
                                                              "dv")),
                         "err": errs, "forward_err": err_o,
-                        "lse_err": err_lse}
+                        "lse_err": err_lse, "o_lo": residual}
                 if timed:
                     def call(marks=None):
                         return flash_attention_bwd(q, k, v, o, lse, do,
@@ -3263,8 +3393,54 @@ def kernels_flash_bwd(timer: Timer, rn) -> list:
                 log(f"[train] flash_attention_bwd {case}")
                 cases.append(case)
                 del grads
-            del q, k, v, do, o, lse, refs, ref_o, ref_lse
+            del q, k, v, do, o, lse, o_lo, refs, ref_o, ref_lse
             torch.cuda.empty_cache()
+    return cases
+
+
+def kernels_flash_bwd_fp32(timer: Timer, rn) -> list:
+    """The ``simt`` backward in fp32 (the path of the grad checks' fp32
+    gradients and the fp32 training tests) at phase 5's fp32 prefill
+    shapes, the fp32 cases of FLASH_TIMED: dq, dk and dv against
+    ``attention_bwd_ref`` within TOL, timed beside its bound (fp32's 67
+    TFLOP/s) and SDPA's fp32 backward (forward and backward minus forward;
+    a window or chunk as a boolean mask), which the port never calls."""
+    dt = torch.float32
+    shapes = {name: (shape, kw) for name, shape, kw in flash_cases()}
+    cases = []
+    for name in FLASH_TIMED[dt]:
+        (B, Sq, Skv, Hq, Hkv, D), kw = shapes[name]
+        masks = dict(causal=kw.get("causal", True),
+                     window=kw.get("window", 0), chunk=kw.get("chunk", 0))
+        q, k, v = rn(B, Sq, Hq, D, dt=dt), rn(B, Skv, Hkv, D, dt=dt), \
+            rn(B, Skv, Hkv, D, dt=dt)
+        do = rn(B, Sq, Hq, D, dt=dt)
+        o, lse, _ = flash_forward(q, k, v, q_offset=0, kv_len=None,
+                                  k_pos=None, impl=None, splits=None,
+                                  with_lse=True, **masks)
+        refs = attention_bwd_ref(q, k, v, o, lse, do, **masks)
+        impl = plan_bwd(B, Sq, Skv, Hq, Hkv, D, dt)
+        before = flash_attention_bwd.impl_launches[impl]
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **masks)
+        if impl != "simt" or \
+                flash_attention_bwd.impl_launches[impl] != before + 1:
+            raise AssertionError(f"flash_attention_bwd fp32 {name}: {impl}")
+        errs = bwd_check(name, grads, refs, dt, **masks)
+        case = {"case": f"fp32 {name}", "shape": [B, Sq, Skv, Hq, Hkv, D],
+                **masks, "dtype": "float32", "impl": impl, "forced": False,
+                "tol": TOL[dt], "row_tol": None,
+                "max_abs_err": max(errs.values()), "err": errs,
+                "ms": timer.ms(lambda: flash_attention_bwd(
+                    q, k, v, o, lse, do, **masks)),
+                "plain_ms": timer.ms(lambda: attention_bwd_ref(
+                    q, k, v, o, lse, do, **masks), reps=5),
+                **sdpa_bwd_times(timer, q, k, v, do, **masks),
+                **flash_bwd_work(B, Sq, Skv, Hq, Hkv, D, dt, masks["causal"],
+                                 masks["chunk"], masks["window"])}
+        log(f"[train] flash_attention_bwd {case}")
+        cases.append(case)
+        del q, k, v, do, o, lse, refs, grads
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -3655,57 +3831,102 @@ def kernels_rmsnorm_bwd(timer: Timer, rn) -> list:
     return cases
 
 
-def visible_pairs(seq: int, window: int) -> int:
-    """Causal (query, key) pairs of one head at ``seq`` positions, within
-    the window where there is one."""
-    if not window or window >= seq:
-        return seq * (seq + 1) // 2
-    return window * (window + 1) // 2 + (seq - window) * window
+def train_attn_calls(cfg, seq: int) -> list:
+    """(Sq, Skv, causal, window, chunk) of each attention call of one
+    training forward over ``seq`` tokens (after an ``img_tokens`` config's
+    image positions), recompute aside: every attention layer's
+    self-attention, and an encoder-decoder's cross attention (a decoder
+    layer's, over the frames) and encoder layers (unmasked)."""
+    pos = seq + cfg.img_tokens
+    calls = [(pos, pos, True, cfg.attn_window if k == "attn_local" else 0,
+              cfg.attn_chunk if k == "attn_chunk" else 0)
+             for k in cfg.layer_kinds() if k.startswith("attn")]
+    if cfg.is_encdec:
+        calls += [(pos, cfg.enc_seq, False, 0, 0)] * cfg.n_layers
+        calls += [(cfg.enc_seq, cfg.enc_seq, False, 0, 0)] * cfg.n_enc_layers
+    return calls
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int,
+                  chunk: int) -> int:
+    """(query, key) pairs of one head that a call sees: queries and keys
+    from position 0, the causal mask cut by the window or the chunk."""
+    if not causal:
+        return Sq * Skv
+    return sum(min(i + 1, window or i + 1, i % chunk + 1 if chunk else i + 1)
+               for i in range(Sq))
 
 
 def train_flops(model, batch: int, seq: int) -> float:
     """A training step's operations: 6 per parameter and token of every
-    matrix the tokens go through (the layers' and the unembedding; the
-    embedding is a lookup; the scans' elementwise work is left out), plus
-    each attention layer's products, 4 * D a visible (query, key) pair
-    forward and 2.5x that backward, within its window."""
+    matrix the tokens go through (the layers' at every position, the
+    routed experts' at top_k of n_experts, cross attention's K and V and
+    the encoder's at the frames, ``img_proj`` at the image tokens, the
+    unembedding; the embedding is a lookup; the scans' elementwise work is
+    left out), plus each attention call's products, 4 * D a visible
+    (query, key) pair forward and 2.5x that backward.  A recompute is not
+    counted: it is work the step does, not work it needs."""
     cfg = model.cfg
-    layers = sum(p.numel() for p in model.layers.parameters())
-    unembed = cfg.d_model * cfg.vocab
-    attn_layers = sum(k.startswith("attn") for k in cfg.layer_kinds())
-    window = cfg.attn_window if "attn_local" in cfg.layer_kinds() else 0
-    pairs = batch * cfg.n_heads * visible_pairs(seq, window)
-    attn = 3.5 * 4 * cfg.resolved_head_dim * pairs * attn_layers
-    return 6.0 * batch * seq * (layers + unembed) + attn
+    pos = seq + cfg.img_tokens
+    dec = enc = 0.0
+    for name, p in model.layers.named_parameters():
+        n = p.numel() * (cfg.top_k / cfg.n_experts
+                         if ".moe.w_" in f".{name}" else 1)
+        if ".cross.wk" in name or ".cross.wv" in name:
+            enc += n
+        else:
+            dec += n
+    if cfg.is_encdec:
+        enc += sum(p.numel() for p in model.enc.layers.parameters())
+    dense = pos * (dec + cfg.d_model * cfg.vocab) + cfg.enc_seq * enc \
+        + cfg.img_tokens * cfg.d_model ** 2
+    attn = sum(3.5 * 4 * cfg.resolved_head_dim * cfg.n_heads
+               * visible_pairs(*call) for call in train_attn_calls(cfg, seq))
+    return 6.0 * batch * dense + batch * attn
 
 
 def expected_train_launches(cfg) -> dict:
-    """One training step: every norm (two a layer outside the ssm family,
-    one inside, and the final one), every attention layer, every RG-LRU
-    layer and every Mamba layer, each once forward and once backward."""
+    """One training step's launches by kernel: each forward kernel once,
+    and once more where ``remat`` recomputes it (every layer's, in every
+    group; not the final norms); each backward kernel once.  RMSNorm
+    configs only launch norms (LayerNorm is eager): two a layer outside the
+    ssm family and one inside, one more a decoder layer of an
+    encoder-decoder (before its cross attention), two an encoder layer, and
+    the final norms (the encoder's and the model's).  Attention: every call
+    of ``train_attn_calls``.  The RG-LRU and Mamba layers one each."""
     kinds = cfg.layer_kinds()
-    norms = len(kinds) * (1 if cfg.family == "ssm" else 2) + 1
-    attn = sum(k.startswith("attn") for k in kinds)
+    rms = cfg.norm == "rmsnorm"
+    layer_norms = rms * (len(kinds) * ((1 if cfg.family == "ssm" else 2)
+                                       + cfg.is_encdec)
+                         + 2 * cfg.n_enc_layers * cfg.is_encdec)
+    final_norms = rms * (1 + cfg.is_encdec)
+    attn = len(train_attn_calls(cfg, 1))
+    rg, mb = kinds.count("rglru"), kinds.count("mamba")
+    fwd = 2 if cfg.remat in REMAT_POLICIES else 1
     counts = dict.fromkeys(KERNELS, 0)
-    counts.update(rmsnorm=norms, rmsnorm_bwd=norms,
-                  flash_attention=attn, flash_attention_bwd=attn,
-                  rglru_gated=kinds.count("rglru"),
-                  rglru_gated_bwd=kinds.count("rglru"),
-                  mamba_scan=kinds.count("mamba"),
-                  mamba_scan_bwd=kinds.count("mamba"))
+    counts.update(rmsnorm=fwd * layer_norms + final_norms,
+                  rmsnorm_bwd=layer_norms + final_norms,
+                  flash_attention=fwd * attn, flash_attention_bwd=attn,
+                  rglru_gated=fwd * rg, rglru_gated_bwd=rg,
+                  mamba_scan=fwd * mb, mamba_scan_bwd=mb)
     return counts
 
 
 def train_impls(cfg, batch: int, seq: int) -> tuple:
-    """(forward, backward) flash kernels of a training step's attention in
-    bf16: the prefill plan with the log-sum-exp and ``plan_bwd`` (None
-    without attention)."""
-    if not any(k.startswith("attn") for k in cfg.layer_kinds()):
-        return None, None
+    """({forward kernel: launches}, {backward kernel: launches}) of a
+    training step's attention in bf16: each call of ``train_attn_calls`` on
+    the prefill plan with the log-sum-exp (twice under ``remat``) and on
+    ``plan_bwd``'s kernel."""
     D, dt = cfg.resolved_head_dim, torch.bfloat16
-    fwd = flash_plan(batch, seq, cfg.n_heads, cfg.n_kv_heads, D, dt, seq,
-                     lse=True).impl
-    return fwd, plan_bwd(batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, D, dt)
+    rec = 2 if cfg.remat in REMAT_POLICIES else 1
+    fwd, bwd = {}, {}
+    for Sq, Skv, *_ in train_attn_calls(cfg, seq):
+        f = flash_plan(batch, Sq, cfg.n_heads, cfg.n_kv_heads, D, dt, Skv,
+                       lse=True).impl
+        b = plan_bwd(batch, Sq, Skv, cfg.n_heads, cfg.n_kv_heads, D, dt)
+        fwd[f] = fwd.get(f, 0) + rec
+        bwd[b] = bwd.get(b, 0) + 1
+    return fwd, bwd
 
 
 def grads_finite_nonzero(model) -> dict:
@@ -3718,29 +3939,85 @@ def grads_finite_nonzero(model) -> dict:
 
 
 def train_batch(cfg, batch: int, seq: int, step: int, seed: int = 1) -> dict:
+    """The pipeline's batch ``step`` on the card, with the image embeddings
+    or frames the config takes, as ``train_loop`` draws them."""
     data = SyntheticTokenPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
-    return {k: torch.from_numpy(v).to(DEV)
-            for k, v in data.global_batch_at(step).items()}
+    return device_batch(cfg, data.global_batch_at(step), torch.device(DEV))
+
+
+def train_cfg(arch: str, layers: int, remat: str = "none"):
+    """``arch`` at its published widths, cut to ``layers`` layers (an
+    encoder-decoder's encoder to as many, at most its own), under
+    ``remat``."""
+    full = get_config(arch)
+    kw = dict(n_layers=layers, remat=remat)
+    if full.is_encdec:
+        kw["n_enc_layers"] = min(layers, full.n_enc_layers)
+    return dataclasses.replace(full, **kw)
+
+
+def train_probe() -> None:
+    """``--train-probe``: the peak memory of two ``make_train_step`` steps
+    of each TRAIN_PROBES entry at each of its depths (an out-of-memory
+    error is reported, not raised), and the deepest depth that a line
+    through two depths' peaks keeps within PROBE_FIT_GB."""
+    for arch, batch, seq, depths, remat in TRAIN_PROBES:
+        peaks = {}
+        for layers in depths:
+            cfg = train_cfg(arch, layers, remat)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                model = Transformer(cfg, DEV, seed=0, trainable=True)
+                step, opt_init = make_train_step(model, AdamWConfig(
+                    moment_dtype=cfg.moment_dtype))
+                opt = opt_init()
+                t0 = time.perf_counter()
+                for s in range(2):
+                    opt, m = step(opt, train_batch(cfg, batch, seq, s))
+                    loss = float(m["loss"])
+                ms = (time.perf_counter() - t0) * 1e3
+                peaks[layers] = torch.cuda.max_memory_allocated() / 1e9
+                log(f"[probe] {arch} {remat} {layers} L {batch} x {seq}: "
+                    f"peak {peaks[layers]:.2f} GB, 2 steps {ms:.0f} ms, "
+                    f"loss {loss:.4f}")
+                del model, step, opt, m
+            except torch.cuda.OutOfMemoryError:
+                log(f"[probe] {arch} {remat} {layers} L {batch} x {seq}: "
+                    f"out of memory")
+                model = step = opt = m = None
+        if len(peaks) == 2:
+            (l1, p1), (l2, p2) = sorted(peaks.items())
+            per = (p2 - p1) / (l2 - l1)
+            fit = int((PROBE_FIT_GB - (p1 - per * l1)) // per)
+            log(f"[probe] {arch} {remat} {batch} x {seq}: {per:.3f} GB a "
+                f"layer over {p1 - per * l1:.2f} GB: {fit} layers within "
+                f"{PROBE_FIT_GB} GB")
 
 
 def train_run(arch: str, layers: int, batch: int, seq: int,
-              lr: float = 1e-3, steps: int = 4) -> dict:
+              lr: float = 1e-3, steps: int = 4, remat: str = "none",
+              keep_grads: bool = False) -> dict:
     """One of the slice's main paths: ``make_train_step`` on ``arch`` at
-    ``layers`` layers (published widths, bf16, seeded random weights) for
-    ``steps`` steps of batch x seq tokens at learning rate ``lr``, each on
-    the pipeline's next batch.  The counts are set to 0 just
+    ``layers`` layers (published widths, bf16, seeded random weights; an
+    encoder-decoder's encoder cut alike, ``train_cfg``) under ``remat`` for
+    ``steps`` steps of batch x seq tokens (and the image embeddings or
+    frames the config takes) at learning rate ``lr``, each on the
+    pipeline's next batch.  The counts are set to 0 just
     before the steps and read just after; each step's launches must be
-    exactly ``expected_train_launches`` (all RMSNorms ``vector``, the
-    attention forwards on the plan's prefill kernel with the log-sum-exp
-    and the backwards on ``plan_bwd``'s: ``tc``, recurrentgemma-2b's
-    windowed D 256 included), every parameter's gradient finite
-    and non-zero after each step, and the loss finite and falling or flat
-    (the last step's no higher than the first's).
+    exactly ``expected_train_launches`` (the recomputed forwards included;
+    all RMSNorms ``vector``, the attention forwards on the plan's prefill
+    kernel with the log-sum-exp and the backwards on ``plan_bwd``'s:
+    ``tc``, recurrentgemma-2b's windowed D 256 included), every parameter's
+    gradient finite and non-zero after each step, and the loss finite and
+    falling or flat (the last step's no higher than the first's).
     Then one more step under the profiler (device ms by kernel, the idle
-    share) and AdamW's update alone, timed on that step's gradients."""
+    share) and AdamW's update alone, timed on that step's gradients.
+    ``keep_grads``: the first step's gradients are returned on the host
+    under ``first_grads`` (for ``remat_compare``)."""
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=layers)
+    cfg = train_cfg(arch, layers, remat)
     model = Transformer(cfg, DEV, seed=0, trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
     adam_cfg = AdamWConfig(lr=lr, moment_dtype=cfg.moment_dtype)
@@ -3750,9 +4027,10 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     expect = expected_train_launches(cfg)
-    fwd_impl, bwd_impl = train_impls(cfg, batch, seq)
+    fwd_want, bwd_want = train_impls(cfg, batch, seq)
     reset_counts()
     metrics, step_ms, per_step, missing = [], [], [], []
+    first_grads = None
     for s in range(steps):
         before = read_counts()
         impls = dict(flash_attention.impl_launches)
@@ -3774,18 +4052,20 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
                for n, c in flash_attention.impl_launches.items()}
         bwd = {n: c - bwd0[n]
                for n, c in flash_attention_bwd.impl_launches.items()}
-        attn = expect["flash_attention"]
         vec = fused_rmsnorm.variant_launches["vector"] - var0["vector"]
-        if fwd != {n: attn * (n == fwd_impl) for n in fwd} or \
-                bwd != {n: attn * (n == bwd_impl) for n in bwd} or \
-                flash_attention.lse_launches - lse0 != attn or \
-                vec != expect["rmsnorm"]:
+        if fwd != {n: fwd_want.get(n, 0) for n in fwd} or \
+                bwd != {n: bwd_want.get(n, 0) for n in bwd} or \
+                flash_attention.lse_launches - lse0 != \
+                expect["flash_attention"] or vec != expect["rmsnorm"]:
             raise AssertionError(f"{arch} train step {s}: forwards {fwd}, "
-                                 f"backwards {bwd} (want {attn} {fwd_impl} "
-                                 f"/ {bwd_impl}), "
+                                 f"backwards {bwd} (want {fwd_want} / "
+                                 f"{bwd_want}), "
                                  f"{flash_attention.lse_launches - lse0} "
                                  f"with lse, {vec} vector norms")
         missing.append(grads_finite_nonzero(model))
+        if keep_grads and s == 0:
+            first_grads = {n: p.grad.cpu() for n, p in
+                           model.named_parameters()}
     launches = read_counts()
     flash_impls = dict(flash_attention.impl_launches)
     bwd_impls = dict(flash_attention_bwd.impl_launches)
@@ -3814,19 +4094,23 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
     steady = statistics.mean(step_ms[1:])
     bound_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     res = {"arch": cfg.name, "layers": cfg.n_layers,
-           "published_layers": full.n_layers,
+           "published_layers": full.n_layers, "remat": remat,
+           "enc_layers": cfg.n_enc_layers if cfg.is_encdec else None,
            "cut": f"depth {cfg.n_layers} of {full.n_layers} layers, "
                   f"{batch} x {seq} tokens: the 80 GB card",
+           "positions": seq + cfg.img_tokens,
            "dtype": cfg.param_dtype, "params": n_params, "batch": batch,
            "seq": seq, "steps": steps, "lr": lr, "loss": losses,
            "grad_norm": gnorms, "first_step_ms": step_ms[0],
            "step_ms": step_ms[1:], "steady_step_ms": steady,
            "tokens_per_s": batch * seq / steady * 1e3,
+           "positions_per_s": batch * (seq + cfg.img_tokens) / steady * 1e3,
            "step_flops": flops, "step_bound_ms": bound_ms,
            "share_of_bound": bound_ms / steady, "peak_mem_gb": peak_gb,
            "launches": launches, "launches_per_step": per_step[0],
            "flash_impls": flash_impls, "bwd_impls": bwd_impls,
-           "lse_launches": lse_launches,
+           "lse_launches": lse_launches, "flash_impls_per_step": fwd_want,
+           "bwd_impls_per_step": bwd_want,
            "params_without_finite_nonzero_grad": missing,
            "profiled_step": {k: breakdown[k] for k in (
                "device_ms", "idle_share", "by_kernel_ms")},
@@ -3844,6 +4128,8 @@ def train_run(arch: str, layers: int, batch: int, seq: int,
                              f"falling or flat")
     del model, opt, step, batches, metrics
     torch.cuda.empty_cache()
+    if first_grads is not None:
+        res["first_grads"] = first_grads
     return res
 
 
@@ -3919,33 +4205,35 @@ def plain_kernels():
 
 
 def loss_grads(model, batch) -> tuple:
+    """(loss, {name: gradient}), the gradients in the parameters' dtype
+    (rel_rms compares them in fp64, a leaf at a time)."""
     for p in model.parameters():
         p.grad = None
     loss = loss_fn(model, batch)[0]
     loss.backward()
-    return loss.item(), {n: p.grad.float() for n, p in
-                         model.named_parameters()}
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
 
 
-def grad_check(arch: str, layers: int, batch: int, seq: int) -> dict:
-    """One step's gradients of ``arch`` at its widths and ``layers`` layers:
-    the bf16 kernel path (exact launches, the plan's backward kernels)
+def grad_check(arch: str, layers: int, batch: int, seq: int,
+               remat: str = "none") -> dict:
+    """One step's gradients of ``arch`` at its widths and ``layers`` layers
+    (``train_cfg``) under ``remat``: the bf16 kernel path (exact launches,
+    the recomputed forwards included, the plan's backward kernels)
     against the fp32 gradients of the same weights and batch (the fp32
     kernel path), leaf by leaf, by the rule ``serve_check`` applies to
     logits: relative RMS error within FLOOR_MULT times the bf16 rounding
     floor, the same distance of the bf16 plain path (autograd through
     ``attention_ref``, ``rmsnorm_ref``, ``rglru_gated_ref`` and
     ``mamba_scan_ref``, on the card)."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    cfg = train_cfg(arch, layers, remat)
     data = train_batch(cfg, batch, seq, 0)
     model = Transformer(cfg, DEV, seed=5, trainable=True)
-    _, bwd_impl = train_impls(cfg, batch, seq)
+    _, bwd_want = train_impls(cfg, batch, seq)
     reset_counts()
     loss_k, g_k = loss_grads(model, data)
     counts = read_counts()
-    attn = expected_train_launches(cfg)["flash_attention_bwd"]
-    if counts != expected_train_launches(cfg) or (
-            attn and flash_attention_bwd.impl_launches[bwd_impl] != attn):
+    bwd = {n: c for n, c in flash_attention_bwd.impl_launches.items() if c}
+    if counts != expected_train_launches(cfg) or bwd != bwd_want:
         raise AssertionError(f"grad check {arch}: launches {counts}, "
                              f"backward {flash_attention_bwd.impl_launches}")
     with plain_kernels():
@@ -3967,8 +4255,10 @@ def grad_check(arch: str, layers: int, batch: int, seq: int) -> dict:
         leaves[n] = {"kernel_vs_fp32": err, "plain_bf16_vs_fp32": floor,
                      "ratio": err / floor if floor else float("inf")}
     worst = max(leaves, key=lambda n: leaves[n]["ratio"])
-    res = {"arch": cfg.name, "layers": cfg.n_layers, "tokens": [batch, seq],
-           "backward_impl": bwd_impl,
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "remat": remat,
+           "enc_layers": cfg.n_enc_layers if cfg.is_encdec else None,
+           "tokens": [batch, seq], "positions": seq + cfg.img_tokens,
+           "backward_impls": bwd,
            "loss": {"bf16_kernels": loss_k, "bf16_plain": loss_p,
                     "fp32": loss_32},
            "limit_ratio": FLOOR_MULT, "worst_leaf": worst,
@@ -3978,7 +4268,7 @@ def grad_check(arch: str, layers: int, batch: int, seq: int) -> dict:
     if bad:
         raise AssertionError(f"grad check {arch}: leaves beyond "
                              f"{FLOOR_MULT} x the bf16 floor: {bad}")
-    del g_k, g_p, g_32
+    del g_k, g_p, g_32, data
     torch.cuda.empty_cache()
     return res
 
@@ -4085,30 +4375,115 @@ def reference_training_tests() -> dict:
     return res
 
 
+def remat_compare(runs: dict, check: dict) -> dict:
+    """REMAT_ARCH's runs under each ``remat`` policy against its run
+    without: the same weights and batches, so the first step's loss and
+    gradients must agree.  Whether their bits are equal, and the relative
+    distance, held within the grad check's margin over the bf16 floor:
+    (FLOOR_MULT - 1) times the smallest floor of a leaf in ``check`` (the
+    config's grad check without remat).  The peaks must fall from none to
+    selective to full; the later losses are reported."""
+    names = {p: next(n for n, r in runs.items() if r["arch"] == REMAT_ARCH
+                     and r["remat"] == p) for p in ("none",) + REMAT_POLICIES}
+    base = runs[names["none"]]
+    limit = (FLOOR_MULT - 1) * min(v["plain_bf16_vs_fp32"]
+                                   for v in check["leaves"].values())
+    out = {"arch": REMAT_ARCH, "limit_rel": limit, "none": {
+        k: base[k] for k in ("peak_mem_gb", "steady_step_ms", "loss")}}
+    for policy in REMAT_POLICIES:
+        run = runs[names[policy]]
+        equal, dist = True, {}
+        for n, g in base["first_grads"].items():
+            h = run["first_grads"][n]
+            equal &= torch.equal(g, h)
+            dist[n] = rel_rms(h.to(DEV), g.to(DEV))
+        worst = max(dist, key=dist.get)
+        gap = abs(run["loss"][0] - base["loss"][0]) / abs(base["loss"][0])
+        out[policy] = {
+            "losses_equal_bits": run["loss"] == base["loss"],
+            "first_loss_rel_gap": gap, "grads_equal_bits": equal,
+            "worst_leaf": worst, "worst_rel_rms": dist[worst],
+            **{k: run[k] for k in ("peak_mem_gb", "steady_step_ms", "loss")},
+            "step_ms_over_none": run["steady_step_ms"]
+            / base["steady_step_ms"]}
+        if not (dist[worst] <= limit and gap <= limit):
+            raise AssertionError(f"remat {policy} vs none: {out[policy]}")
+    for r in runs.values():
+        r.pop("first_grads", None)
+    log(f"[train] remat compare {json.dumps(out)}")
+    peaks = [out[p]["peak_mem_gb"] for p in ("none", "selective", "full")]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        raise AssertionError(f"remat peaks none, selective, full: {peaks}")
+    return out
+
+
+def remat_costs() -> dict:
+    """The bytes a training forward of REMAT_ARCH leaves for its backward
+    (allocated after ``loss_fn`` less before) at REMAT_DEPTHS layers and
+    REMAT_TOKENS, under each policy: the slope over the layers, a token,
+    in d_model words of the param dtype (the unit of the cost model's
+    ``_ACT_SAVE_FACTOR``, 14 / 6 / 1), and what stays beside the layers
+    (the logits, their log-softmax)."""
+    batch, seq = REMAT_TOKENS
+    out = {}
+    for policy in ("none",) + REMAT_POLICIES:
+        saved = {}
+        for layers in REMAT_DEPTHS:
+            cfg = train_cfg(REMAT_ARCH, layers, policy)
+            model = Transformer(cfg, DEV, seed=0, trainable=True)
+            data = train_batch(cfg, batch, seq, 0)
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            loss = loss_fn(model, data)[0]
+            torch.cuda.synchronize()
+            saved[layers] = torch.cuda.memory_allocated() - m0
+            loss.backward()
+            del model, data, loss
+            torch.cuda.empty_cache()
+        (l1, s1), (l2, s2) = sorted(saved.items())
+        per_layer = (s2 - s1) / (l2 - l1)
+        out[policy] = {
+            "saved_gb": {str(k): v / 1e9 for k, v in saved.items()},
+            "per_layer_gb": per_layer / 1e9,
+            "outside_layers_gb": (s1 - per_layer * l1) / 1e9,
+            "words_per_token_layer": per_layer / (batch * seq * cfg.d_model
+                                                  * esize(torch.bfloat16))}
+    res = {"arch": REMAT_ARCH, "tokens": [batch, seq], **out}
+    log(f"[train] remat costs {json.dumps(res)}")
+    return res
+
+
 def phase_train() -> tuple:
     """Phase 9: (kernel rows, runs).  The kernels first (the backward ones
-    and the forward's log-sum-exp), then the main paths' runs (TRAIN_RUNS),
-    falcon-mamba-7b's dt*B*xc peaks, the gradient checks (GRAD_CHECKS) and
-    the reference's training tests."""
+    and the forward's log-sum-exp; the ``simt`` backward in fp32 at phase
+    5's shapes), then the main paths' runs (TRAIN_RUNS), falcon-mamba-7b's
+    dt*B*xc peaks, the gradient checks (GRAD_CHECKS), REMAT_ARCH's runs
+    held to one another (``remat_compare``) and the reference's training
+    tests."""
     timer = Timer()
     g = torch.Generator(device=DEV).manual_seed(4321)
 
     def rn(*shape, dt):
         return torch.randn(*shape, generator=g, device=DEV).to(dt)
 
-    rows = {"flash_attention_bwd": kernels_flash_bwd(timer, rn),
+    rows = {"flash_attention_bwd": kernels_flash_bwd(timer, rn)
+            + kernels_flash_bwd_fp32(timer, rn),
             "rmsnorm_bwd": kernels_rmsnorm_bwd(timer, rn),
             "rglru_gated_bwd": kernels_rglru_bwd(timer, g),
             "mamba_scan_bwd": kernels_mamba_bwd(timer, g)}
     del timer
     torch.cuda.empty_cache()
     runs = {}
-    for arch, layers, batch, seq, lr, steps in TRAIN_RUNS:
-        runs[f"train {arch} {layers} layers"] = train_run(
-            arch, layers, batch, seq, lr, steps)
+    for arch, layers, batch, seq, lr, steps, remat in TRAIN_RUNS:
+        name = f"train {arch} {layers} layers" + (
+            f" remat {remat}" if remat != "none" else "")
+        runs[name] = train_run(arch, layers, batch, seq, lr, steps, remat,
+                               keep_grads=arch == REMAT_ARCH)
     dbx_peaks()
-    for check in GRAD_CHECKS:
-        grad_check(*check)
+    remat_costs()
+    checks = [grad_check(*check) for check in GRAD_CHECKS]
+    remat_compare(runs, next(c for c in checks if c["arch"] == REMAT_ARCH
+                             and c["remat"] == "none"))
     reference_training_tests()
     return rows, runs
 
@@ -4252,6 +4627,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build, then only phase 9, training (no contract "
                          "line)")
+    ap.add_argument("--train-probe", action="store_true",
+                    help="build, then only the peak memory of the training "
+                         "runs' configs at a few depths (no contract line)")
     ap.add_argument("--rglru-ablate", action="store_true",
                     help="build, then only the gated RG-LRU backward "
                          "kernel's ablations (no contract line)")
@@ -4276,6 +4654,10 @@ def main(argv=None) -> int:
         return 0
     if args.scan_sweep:
         scan_sweep()
+        return 0
+    if args.train_probe:
+        train_probe()
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     if args.rglru_ablate:
         rglru_ablate()

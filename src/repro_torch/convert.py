@@ -1,8 +1,9 @@
 """Reference params <-> the port's ``Transformer`` state dict.
 
 The reference groups a model's layers into *segments*, maximal runs of a
-repeated pattern of layer kinds (``segments`` below, a copy of
-``repro/models/transformer.py:segments``), and stacks each pattern
+repeated pattern of layer kinds (``segments``, a copy of
+``repro/models/transformer.py:segments`` in the port's
+``models/transformer.py``), and stacks each pattern
 position's params on a leading repeat axis: ``segments/seg{s}/pos{p}/<leaf
 path>`` has shape ``(reps, ...)``.  Repeat r of position p of a segment is
 layer ``offset + r * len(pattern) + p``, where ``offset`` counts the layers
@@ -33,32 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_ported
-
-
-def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """(pattern, reps) of each segment, in layer order: the pattern is the
-    block pattern, llama4's ``global_every`` layers, or else a MoE
-    interleave of ``moe_every`` layers (a multiple of ``moe_every`` in
-    every case, so that a pattern position says whether a layer is MoE)."""
-    kinds = list(cfg.layer_kinds())
-    plen = 1
-    if cfg.block_pattern or (cfg.attn_chunk and cfg.global_every):
-        plen = len(cfg.block_pattern) or cfg.global_every
-    elif cfg.n_experts and cfg.moe_every > 1:
-        plen = cfg.moe_every
-    if cfg.n_experts and plen % cfg.moe_every:
-        raise ValueError(f"{cfg.name}: pattern length {plen} is not a "
-                         f"multiple of moe_every={cfg.moe_every}")
-    if plen > 1:
-        reps = len(kinds) // plen
-        segs = []
-        if reps:
-            segs.append((tuple(kinds[:plen]), reps))
-        if len(kinds) % plen:
-            segs.append((tuple(kinds[reps * plen:]), 1))
-        return segs
-    return [(tuple(kinds[:1]), len(kinds))]
+from repro_torch.models.transformer import check_ported, segments
 
 
 def _tensor(a) -> torch.Tensor:

@@ -9,7 +9,9 @@
 // derivative of what the port's forward kernels (csrc/flash_attention.cu,
 // csrc/flash_prefill_tc.cu) compute: with s = scale * q.k and
 // P = exp(s - lse) over the visible keys,
-//   delta_i = sum_d dO_id * O_id          (over the O the forward wrote)
+//   delta_i = sum_d dO_id * O_id          (over the O the forward wrote,
+//                                          plus its rounding residual
+//                                          o_lo where the forward wrote one)
 //   dV_j = sum_i P_ij dO_i
 //   dS_ij = P_ij (dO_i . v_j - delta_i)
 //   dQ_i = scale * sum_j dS_ij k_j,  dK_j = scale * sum_i dS_ij q_i
@@ -379,12 +381,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, void* dq, void* dk,
-                   void* dv, float* delta, int B, const Params& p,
-                   cudaStream_t s, void* marks) {
+                   const void* o, const void* o_lo, const void* dout,
+                   void* dq, void* dk, void* dv, float* delta, int B,
+                   const Params& p, cudaStream_t s, void* marks) {
   constexpr int TL = tile_of<D>();
   mark(marks, 0, s);
-  cudaError_t e = launch_delta<T>(o, dout, delta, B, p.Sq, p.Hq, D, s);
+  cudaError_t e = launch_delta<T>(o, o_lo, dout, delta, B, p.Sq, p.Hq, D, s);
   if (e != cudaSuccess) return e;
   mark(marks, 1, s);
   if ((e = allow_smem<dkdv_kernel<T, D>>(dkdv_smem<D>())) != cudaSuccess ||
@@ -408,13 +410,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, void* dq, void* dk,
-                       void* dv, float* delta, int B, int D, const Params& p,
-                       cudaStream_t s, void* marks) {
+                       const void* o, const void* o_lo, const void* dout,
+                       void* dq, void* dk, void* dv, float* delta, int B,
+                       int D, const Params& p, cudaStream_t s, void* marks) {
   switch (D) {
-#define REPRO_CASE(DD) \
-  case DD:             \
-    return launch<T, DD>(q, k, v, o, dout, dq, dk, dv, delta, B, p, s, marks);
+#define REPRO_CASE(DD)                                                   \
+  case DD:                                                               \
+    return launch<T, DD>(q, k, v, o, o_lo, dout, dq, dk, dv, delta, B, p, \
+                         s, marks);
     REPRO_CASE(16)
     REPRO_CASE(32)
     REPRO_CASE(64)
@@ -429,15 +432,18 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D): `dtype`,
-// contiguous, 16-byte aligned; lse (B, Hq, Sq) fp32 from the forward;
+// q, o, o_lo, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D):
+// `dtype`, contiguous, 16-byte aligned; o_lo: the rounding residual of O
+// that the bf16 tensor-core forward writes, or null (the SIMT forward
+// writes none); lse (B, Hq, Sq) fp32 from the forward;
 // delta: fp32 scratch (B, Hq, Sq).  D in {16, 32, 64, 96, 128, 256};
 // window 0 for none; marks: null, or four cudaEvent_t recorded before the
 // delta launch, after it, after dK/dV and after dQ.  Returns the first CUDA
 // error of the three launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
-                                   const void* lse, const void* dout,
+                                   const void* o_lo, const void* lse,
+                                   const void* dout,
                                    void* dq, void* dk, void* dv, void* delta,
                                    int dtype, int B, int Sq, int Skv, int Hq,
                                    int Hkv, int D, int causal, int window,
@@ -450,10 +456,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* d = static_cast<float*>(delta);
   if (dtype == kFloat32)
-    return dispatch_d<float>(q, k, v, o, dout, dq, dk, dv, d, B, D, p, s,
-                             marks);
+    return dispatch_d<float>(q, k, v, o, o_lo, dout, dq, dk, dv, d, B, D, p,
+                             s, marks);
   if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, d, B, D,
-                                     p, s, marks);
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, o_lo, dout, dq, dk, dv, d,
+                                     B, D, p, s, marks);
   return cudaErrorInvalidValue;
 }

@@ -9,7 +9,9 @@
 // derivative of what csrc/flash_prefill_tc.cu computes, the same function
 // as csrc/flash_attention_bwd.cu (which keeps fp32, D 16 and 32): with
 // s = scale * q.k and P = exp(s - lse) over the visible keys,
-//   delta_i = sum_d dO_id * O_id          (over the O the forward wrote)
+//   delta_i = sum_d dO_id * O_id          (over the O the forward wrote,
+//                                          plus its rounding residual
+//                                          o_lo where the forward wrote one)
 //   dV_j = sum_i P_ij dO_i
 //   dS_ij = P_ij (dO_i . v_j - delta_i)
 //   dQ_i = scale * sum_j dS_ij k_j,  dK_j = scale * sum_i dS_ij q_i
@@ -882,16 +884,18 @@ cudaError_t launch_wide(const Maps& m, void* dq, void* dk, void* dv, int B,
 }  // namespace
 
 // The arguments of flash_attention_bwd (csrc/flash_attention_bwd.cu).
-// q, o, dout,
+// q, o, o_lo, dout,
 // dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D): bf16 (dtype must be
-// kBFloat16), contiguous, 16-byte aligned; lse (B, Hq, Sq) fp32 from the
+// kBFloat16), contiguous, 16-byte aligned; o_lo: the forward's rounding
+// residual of O, or null; lse (B, Hq, Sq) fp32 from the
 // forward; delta: fp32 scratch (B, Hq, Sq).  D in {64, 96, 128, 256};
 // window 0 for none; marks: null, or four cudaEvent_t recorded before the
 // delta launch, after it, after dK/dV and after dQ.  Returns the first CUDA
 // error of the three launches (0 on success; cudaErrorInvalidValue for
 // another dtype or D, or a tensor map the driver refuses).
 extern "C" int flash_bwd_tc(const void* q, const void* k, const void* v,
-                            const void* o, const void* lse, const void* dout,
+                            const void* o, const void* o_lo,
+                            const void* lse, const void* dout,
                             void* dq, void* dk, void* dv, void* delta,
                             int dtype, int B, int Sq, int Skv, int Hq,
                             int Hkv, int D, int causal, int window,
@@ -910,7 +914,7 @@ extern "C" int flash_bwd_tc(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   mark(marks, 0, s);
   cudaError_t e = launch_delta<__nv_bfloat16>(
-      o, dout, static_cast<float*>(delta), B, Sq, Hq, D, s);
+      o, o_lo, dout, static_cast<float*>(delta), B, Sq, Hq, D, s);
   if (e != cudaSuccess) return e;
   mark(marks, 1, s);
   switch (D) {

@@ -14,8 +14,11 @@
 // csrc/flash_attention_bwd.cu) it also writes each query row's log-sum-exp
 // of its scaled scores, lse = m + log(l) in fp32 (B, Hq, Sq): the running
 // max is kept in log2 units of the scaled score, so lse = (m2 + log2(l)) *
-// ln 2; a row that saw no key (l = 0) writes -inf.  Serving passes no lse
-// pointer, and the kernel then writes none.
+// ln 2; a row that saw no key (l = 0) writes -inf.  With the lse a
+// training forward also writes o_lo, O's rounding residual: bf16 of the
+// fp32 output less its bf16 O, which the backward's delta pass adds back
+// (csrc/flash_bwd_common.cuh).  Serving passes neither pointer, and the
+// kernel then writes neither.
 //
 // Bound: operations.  At chatglm3-6b's prefill (B 8, S 1024, D 128, causal)
 // each (query, key) pair costs 4*D flops against ~0.5 byte, far above the
@@ -62,8 +65,9 @@
 // 128-byte swizzle, the second box of a row half out of bounds (TMA fills
 // it with zeros) and P V reading one and a half atoms of V - a layout
 // outside the documented canonical ones, for a small difference in time.
-// Registers and spills (nvcc -Xptxas -v, sm_90a): D 64: 104 registers,
-// D 96: 122, D 128: 138, D 256: 201; no spills, no local memory.
+// Registers and spills (nvcc -Xptxas -v, sm_90a, with the o_lo store):
+// D 64: 105 registers, D 96: 122, D 128: 139, D 256: 218 (201 before it);
+// no spills, no local memory.
 #include "hopper.cuh"   // TMA, mbarriers, descriptors, wgmma, tensor maps
 
 namespace {
@@ -77,6 +81,7 @@ struct Params {
   int causal, window, chunk, q_offset, kv_len;
   float scale_log2;                         // 1/sqrt(D) * log2(e)
   float* lse;                               // (B, Hq, Sq) or nullptr
+  __nv_bfloat16* o_lo;                      // like o, or nullptr
 };
 
 // The slots [lo, hi) that a query at a position in [q_first, q_last] can
@@ -302,12 +307,17 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= p.Sq) continue;
-    __nv_bfloat16* orow = o + ((size_t)(b * p.Sq + row) * p.Hq + h) * D;
+    const size_t at = ((size_t)(b * p.Sq + row) * p.Hq + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-          oacc[4 * j + 2 * i] * l_r[i], oacc[4 * j + 2 * i + 1] * l_r[i]);
+      const float x = oacc[4 * j + 2 * i] * l_r[i];
+      const float y = oacc[4 * j + 2 * i + 1] * l_r[i];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+      *reinterpret_cast<__nv_bfloat162*>(o + at + col) = hi;
+      if (p.o_lo)
+        *reinterpret_cast<__nv_bfloat162*>(p.o_lo + at + col) =
+            __floats2bfloat162_rn(x - __low2float(hi), y - __high2float(hi));
     }
   }
 }
@@ -331,7 +341,8 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // q, o (B, Sq, Hq, D), k, v (B, Skv, Hkv, D): bf16, contiguous, 16-byte
 // aligned; D in {64, 96, 128, 256}; Sq > 8 (fewer rows take the split decode
-// kernel); lse: fp32 (B, Hq, Sq) written when not null.  Returns the CUDA error of the launch (0 on
+// kernel); lse: fp32 (B, Hq, Sq) written when not null; o_lo: like o,
+// O's rounding residual, written when not null.  Returns the CUDA error of the launch (0 on
 // success; cudaErrorInvalidValue for another D or a tensor map the driver
 // refuses).
 extern "C" int flash_prefill_tc_fwd(const void* q, const void* k,
@@ -339,14 +350,15 @@ extern "C" int flash_prefill_tc_fwd(const void* q, const void* k,
                                     int Skv, int Hq, int Hkv, int D,
                                     int causal, int window, int chunk,
                                     int q_offset, int kv_len, float scale,
-                                    void* lse, void* stream) {
+                                    void* lse, void* o_lo, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, Hq, D) || !make_map(&tk, k, B, Skv, Hkv, D) ||
       !make_map(&tv, v, B, Skv, Hkv, D))
     return cudaErrorInvalidValue;
   const Params p{Sq, Hq, Hkv, causal, window, chunk, q_offset, kv_len,
-                 scale * 1.4426950408889634f, static_cast<float*>(lse)};
+                 scale * 1.4426950408889634f, static_cast<float*>(lse),
+                 static_cast<__nv_bfloat16*>(o_lo)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

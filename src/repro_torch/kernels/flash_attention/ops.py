@@ -24,7 +24,10 @@ grad goes through ``FlashAttentionFn``.  Its forward is the prefill kernel
 of the plan (``tc_prefill`` or ``simt``; a call of at most 8 query rows
 goes to ``simt``: the decode kernels write no log-sum-exp and never run
 under autograd), which also writes each row's log-sum-exp (counted in
-``flash_attention.lse_launches``); its backward is ``flash_attention_bwd``,
+``flash_attention.lse_launches``) and, on ``tc_prefill``, O's rounding
+residual ``o_lo`` (bf16 of the fp32 output less the bf16 output), so that
+the backward's row deltas are the unrounded output's; its backward is
+``flash_attention_bwd``,
 counted in its ``launches`` and by kernel in its ``impl_launches``, which
 launches the kernel :func:`plan_bwd` names:
 
@@ -233,42 +236,45 @@ def _warp_fn():
 def _tc_fn():
     return _load("flash_prefill_tc", "flash_prefill_tc_fwd",
                  [ctypes.c_void_p] * 4 + [_i] * 11
-                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_void_p] * 3)
 
 
 @functools.cache
 def _bwd_fn():
     return _load("flash_attention_bwd", "flash_attention_bwd",
-                 [ctypes.c_void_p] * 10 + [_i] * 10
+                 [ctypes.c_void_p] * 11 + [_i] * 10
                  + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 @functools.cache
 def _bwd_tc_fn():
     return _load("flash_bwd_tc", "flash_bwd_tc",
-                 [ctypes.c_void_p] * 10 + [_i] * 10
+                 [ctypes.c_void_p] * 11 + [_i] * 10
                  + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention on the card under autograd: the prefill kernel with the
-    log-sum-exp, then the backward kernel from the saved q, k, v, o, lse."""
+    log-sum-exp (and, on ``tc_prefill``, O's rounding residual), then the
+    backward kernel from the saved q, k, v, o, lse and o_lo."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
-        o, lse = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
-                          q_offset=0, kv_len=None, k_pos=None, impl=None,
-                          splits=None, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, o_lo = _forward(q, k, v, causal=causal, window=window,
+                                chunk=chunk, q_offset=0, kv_len=None,
+                                k_pos=None, impl=None, splits=None,
+                                with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, o_lo)
         ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, o_lo = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window, chunk=ctx.chunk)
+                                         window=ctx.window, chunk=ctx.chunk,
+                                         o_lo=o_lo)
         return dq, dk, dv, None, None, None
 
 
@@ -309,8 +315,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
              impl, splits, with_lse):
-    """(o, lse (B, Hq, Sq) fp32 or None): the forward kernel's launch on CUDA
-    tensors (checks included)."""
+    """(o, lse (B, Hq, Sq) fp32 or None, o_lo like o or None): the forward
+    kernel's launch on CUDA tensors (checks included); ``with_lse`` on
+    ``tc_prefill`` also writes o_lo, O's rounding residual."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     kv_len = Skv if kv_len is None else int(kv_len)
@@ -343,6 +350,8 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
     lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
            if with_lse else None)
     lse_ptr = None if lse is None else lse.data_ptr()
+    o_lo = (torch.empty_like(q) if with_lse and how.impl == "tc_prefill"
+            else None)
     kpos = None if k_pos is None else k_pos.data_ptr()
     masks = (int(causal), window, chunk, int(q_offset), kv_len)
     scale = 1.0 / math.sqrt(D)
@@ -365,7 +374,7 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
     elif how.impl == "tc_prefill":
         err = _tc_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        B, Sq, Skv, Hq, Hkv, D, *masks, scale, lse_ptr,
-                       stream)
+                       None if o_lo is None else o_lo.data_ptr(), stream)
         _build.check(err, "flash_prefill_tc_fwd")
     else:
         err = _simt_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -375,16 +384,18 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
     flash_attention.launches += 1
     flash_attention.impl_launches[how.impl] += 1
     flash_attention.lse_launches += with_lse
-    return o, lse
+    return o, lse, o_lo
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, chunk: int = 0,
-                        impl: Optional[str] = None, marks=None):
+                        impl: Optional[str] = None, marks=None,
+                        o_lo: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
     window=window, chunk=chunk)`` whose output was o and log-sum-exp lse
-    (B, Hq, Sq), for the output gradient do.  A CPU tensor takes
-    ``attention_bwd_ref``; a CUDA tensor launches the kernel
+    (B, Hq, Sq), for the output gradient do; ``o_lo``, O's rounding
+    residual where the forward wrote one, goes into the row deltas.  A CPU
+    tensor takes ``attention_bwd_ref``; a CUDA tensor launches the kernel
     :func:`plan_bwd` names (``impl`` forces one), each with its delta, dK/dV
     and dQ passes, adding one to
     ``flash_attention_bwd.launches`` and to its kernel's entry of
@@ -395,7 +406,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kernel."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                 window=window, chunk=chunk)
+                                 window=window, chunk=chunk, o_lo=o_lo)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
@@ -411,18 +422,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             lse.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: q, k, v, o, do share a dtype; "
                         "lse is fp32")
-    tensors = (q, k, v, o, lse, do)
+    if o_lo is not None and (o_lo.shape != q.shape
+                             or o_lo.dtype != q.dtype):
+        raise ValueError("flash_attention_bwd: o_lo must be like o")
+    tensors = (q, k, v, o, lse, do) + (() if o_lo is None else (o_lo,))
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention_bwd: inputs must be contiguous and "
                          "on one device")
-    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do) + tensors[6:]):
         raise ValueError("flash_attention_bwd: inputs must be 16-byte "
                          "aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     fn, name = ((_bwd_tc_fn(), "flash_bwd_tc") if how == "tc"
                 else (_bwd_fn(), "flash_attention_bwd"))
-    err = fn(*(t.data_ptr() for t in tensors + (dq, dk, dv, delta)),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if o_lo is None else o_lo.data_ptr(),
+             *(t.data_ptr() for t in (lse, do, dq, dk, dv, delta)),
              code(q, "flash_attention_bwd q"), B, Sq, Skv, Hq, Hkv, D,
              int(causal), window, chunk, 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream,

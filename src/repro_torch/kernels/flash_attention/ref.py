@@ -64,13 +64,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                      window: int = 0, chunk: int = 0):
+                      window: int = 0, chunk: int = 0, o_lo=None):
     """(dq, dk, dv) of the attention the training path runs (queries from
     position 0, every key slot written; causal, window and chunk masks as
     :func:`attention_ref`'s), by the explicit formulas the
     backward kernel computes, in fp32: P = exp(scale * q.k - lse) over the
     visible keys (0 elsewhere), delta = rowsum(dO * O) over the O the
-    forward returned (rounded to its dtype), dV = P^T dO, dS = P (dO V^T -
+    forward returned (rounded to its dtype; plus ``o_lo``, that rounding's
+    residual, where the forward wrote one), dV = P^T dO, dS = P (dO V^T -
     delta), dQ = scale * dS K, dK = scale * dS^T Q, dK and dV summed over
     the G query heads of a kv head.  q, o, do (B, Sq, Hq, D); k, v (B, Skv,
     Hkv, D); lse (B, Hq, Sq) fp32.  Outputs in the inputs' dtype."""
@@ -85,6 +86,8 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                  chunk=chunk, q_offset=0, kv_len=Skv, k_pos=None)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    if o_lo is not None:
+        of = of + o_lo.float().transpose(1, 2)
     delta = (dof * of).sum(-1)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta[..., None])

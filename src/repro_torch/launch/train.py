@@ -16,7 +16,9 @@ function of (seed, t), so restarting from step k replays nothing (see
 reference's tree (``{"params", "opt": {"adam", "ef"}}``, layers stacked by
 ``convert.params_to_jax``), so either package restores the other's.  The
 loss is read on the host on a logging step only; the watchdog synchronises
-the card before it reads its clock.
+the card before it reads its clock.  Activation recompute is
+``cfg.remat`` (``models/remat.py``), set on the config as the reference's
+dry run sets it; neither CLI takes a flag for it.
 """
 from __future__ import annotations
 
@@ -82,6 +84,27 @@ def load_reference_tree(state: Dict, tree: Dict, cfg: ModelConfig) -> None:
             state["opt"]["ef"][name].copy_(t)
 
 
+def device_batch(cfg: ModelConfig, batch_np: Dict[str, Any],
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+    """The pipeline's numpy batch on ``device``, with the stub frontends'
+    inputs the config takes: (B, img_tokens, d) image embeddings and (B,
+    enc_seq, d) frames, bf16, drawn from generators seeded 0 and 1 on the
+    device (the same for every step)."""
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+    B = batch["tokens"].shape[0]
+    if cfg.img_tokens:
+        g = torch.Generator(device=device).manual_seed(0)
+        batch["img_embeds"] = torch.randn(
+            B, cfg.img_tokens, cfg.d_model, generator=g,
+            device=device).to(torch.bfloat16)
+    if cfg.is_encdec:
+        g = torch.Generator(device=device).manual_seed(1)
+        batch["frames"] = torch.randn(
+            B, cfg.enc_seq, cfg.d_model, generator=g,
+            device=device).to(torch.bfloat16)
+    return batch
+
+
 def train_loop(run: TrainRunConfig, injector=None,
                fault: FaultConfig = FaultConfig(max_restarts=3,
                                                 step_deadline_s=300.0),
@@ -103,24 +126,8 @@ def train_loop(run: TrainRunConfig, injector=None,
             grad_compression=run.grad_compression)
         return {"model": model, "opt": opt_init(), "train_step": train_step}
 
-    def extra_inputs(batch_np):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in batch_np.items()}
-        B = batch["tokens"].shape[0]
-        if cfg.img_tokens:
-            g = torch.Generator(device=device).manual_seed(0)
-            batch["img_embeds"] = torch.randn(
-                B, cfg.img_tokens, cfg.d_model, generator=g,
-                device=device).to(torch.bfloat16)
-        if cfg.is_encdec:
-            g = torch.Generator(device=device).manual_seed(1)
-            batch["frames"] = torch.randn(
-                B, cfg.enc_seq, cfg.d_model, generator=g,
-                device=device).to(torch.bfloat16)
-        return batch
-
     def step_fn(state, step):
-        batch = extra_inputs(data.global_batch_at(step))
+        batch = device_batch(cfg, data.global_batch_at(step), device)
         opt, metrics = state["train_step"](state["opt"], batch)
         if step % run.log_every == 0 or step == run.steps - 1:
             loss = float(metrics["loss"])

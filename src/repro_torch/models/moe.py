@@ -33,6 +33,8 @@ host: one synchronisation a call, counted in ``dispatch.host_syncs``, as
 ``dispatch.kept`` and ``dispatch.dropped`` count the picks (in the style of
 the kernels' launch counters).  The reference computes all of this outside
 any Pallas kernel, and so does the port (``torch.matmul``, ``F.silu``).
+The experts' products run inside ``remat.batched_products``: the
+reference's are batched over E, so a ``selective`` recompute redoes them.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, param
+from repro_torch.models.remat import batched_products
 
 
 def expert(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -101,10 +104,12 @@ def dispatch(x2: torch.Tensor, gate: torch.Tensor, sel: torch.Tensor,
     xs = x2[picks // k]
     out = torch.empty_like(xs)
     a = 0
-    for e, c in enumerate(rows):
-        if c:
-            out[a:a + c] = expert(xs[a:a + c], w_gate[e], w_up[e], w_down[e])
-            a += c
+    with batched_products():      # the reference's einsum over E
+        for e, c in enumerate(rows):
+            if c:
+                out[a:a + c] = expert(xs[a:a + c], w_gate[e], w_up[e],
+                                      w_down[e])
+                a += c
     contrib = torch.zeros(flat.numel(), x2.shape[1], dtype=x2.dtype,
                           device=x2.device)
     contrib[picks] = out * gate.reshape(-1)[picks].to(x2.dtype)[:, None]

@@ -41,14 +41,18 @@ summed over the layers (the reference's ``_run_segments`` sum), and
 ``aux_weight`` times that sum.  On the card, autograd runs through the
 kernels' own backward kernels: RMSNorm, flash attention (windows and head
 dim 256 included), the gated RG-LRU and the Mamba scan; on the CPU through
-the plain versions.  All ten configs train.  ``remat`` is not ported
-(ROADMAP.md A12): a config that sets it is refused.  Other model features
-raise ``NotImplementedError`` naming their slice.
+the plain versions.  All ten configs train.  ``cfg.remat`` (``"full"``,
+``"selective"``) recomputes activations in the backward as the reference's
+``_remat_wrap`` does (``models/remat.py``): one checkpoint around each
+repeat of a segment's layer pattern (``layer_groups``: a layer of qwen2-7b
+or dbrx-132b, a 3-layer pattern of recurrentgemma-2b and its remainder,
+``global_every`` layers of llama4) and around each encoder layer.  Other
+model features raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +66,7 @@ from repro_torch.models.common import (act_fn, apply_rope, dense_init,
                                        rmsnorm)
 from repro_torch.models.mamba import Mamba
 from repro_torch.models.moe import MoE
+from repro_torch.models.remat import remat_wrap
 from repro_torch.models.rglru import RGLRU
 
 _LATER = "a later slice of the port (ROADMAP.md, queue A)"
@@ -81,13 +86,47 @@ def check_ported(cfg: ModelConfig) -> None:
     unported = (
         (f"mlp={cfg.mlp!r}", cfg.mlp not in PORTED_MLPS, _LATER),
         ("attn_logit_softcap", cfg.attn_logit_softcap, _LATER),
-        (f"remat={cfg.remat!r}", cfg.remat != "none",
-         "ROADMAP.md A12 (the reference's _remat_wrap)"),
     )
     for what, present, where in unported:
         if present:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported yet; it comes with {where}")
+
+
+def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """(pattern, reps) of each segment, in layer order: the pattern is the
+    block pattern, llama4's ``global_every`` layers, or else a MoE
+    interleave of ``moe_every`` layers (a multiple of ``moe_every`` in
+    every case, so that a pattern position says whether a layer is MoE)."""
+    kinds = list(cfg.layer_kinds())
+    plen = 1
+    if cfg.block_pattern or (cfg.attn_chunk and cfg.global_every):
+        plen = len(cfg.block_pattern) or cfg.global_every
+    elif cfg.n_experts and cfg.moe_every > 1:
+        plen = cfg.moe_every
+    if cfg.n_experts and plen % cfg.moe_every:
+        raise ValueError(f"{cfg.name}: pattern length {plen} is not a "
+                         f"multiple of moe_every={cfg.moe_every}")
+    if plen > 1:
+        reps = len(kinds) // plen
+        segs = []
+        if reps:
+            segs.append((tuple(kinds[:plen]), reps))
+        if len(kinds) % plen:
+            segs.append((tuple(kinds[reps * plen:]), 1))
+        return segs
+    return [(tuple(kinds[:1]), len(kinds))]
+
+
+def layer_groups(cfg: ModelConfig) -> List[range]:
+    """The layers of each repeat of each segment's pattern, in layer order:
+    the units that ``remat`` wraps, as the reference's scan bodies."""
+    out, i = [], 0
+    for pattern, reps in segments(cfg):
+        for _ in range(reps):
+            out.append(range(i, i + len(pattern)))
+            i += len(pattern)
+    return out
 
 
 LayerCache = Dict[str, torch.Tensor]
@@ -317,6 +356,18 @@ class Layer(nn.Module):
         return x, aux
 
 
+def run_layers(layers: Sequence[Layer], x: torch.Tensor,
+               aux: Optional[torch.Tensor], enc: Optional[torch.Tensor]):
+    """(x after ``layers`` in order, ``aux`` plus their MoE aux losses, or
+    None when ``aux`` is None): the reference's scan body, with its
+    carry."""
+    for layer in layers:
+        x, a = layer.run(x, enc=enc)
+        if aux is not None and a is not None:
+            aux = aux + a
+    return x, aux
+
+
 class Encoder(nn.Module):
     """whisper's encoder (the reference's ``encode``): learned positions
     ``pos_embed`` (enc_seq, d) added to the frames, ``n_enc_layers``
@@ -333,12 +384,14 @@ class Encoder(nn.Module):
             Layer(enc_cfg, "attn_bidir", dtype, device, generator)
             for _ in range(cfg.n_enc_layers))
         self.final_norm = make_norm(cfg, dtype, device)
+        self.remat = cfg.remat
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, d) in the model's dtype, T <= enc_seq."""
         x = frames + self.pos_embed[:frames.shape[1]]
-        for layer in self.layers:
-            x = layer(x)
+        run = remat_wrap(run_layers, self.remat)
+        for layer in self.layers:     # one segment of 1-layer repeats
+            x = run((layer,), x, None, None)[0]
         return self.final_norm(x)
 
 
@@ -372,6 +425,7 @@ class Transformer(nn.Module):
             Layer(cfg, kind, dtype, device, generator,
                   with_cross=cfg.is_encdec, moe=uses_moe(cfg, i))
             for i, kind in enumerate(cfg.layer_kinds()))
+        self.groups = layer_groups(cfg)
         if cfg.img_tokens:
             self.img_proj = param(dense_init(cfg.d_model, cfg.d_model, dtype,
                                              device, generator))
@@ -447,10 +501,9 @@ class Transformer(nn.Module):
         fp32 0-d), as the reference's ``forward``."""
         x, enc = self._inputs(tokens, img_embeds, frames)
         aux = torch.zeros((), device=x.device) if return_aux else None
-        for layer in self.layers:
-            x, a = layer.run(x, enc=enc)
-            if return_aux and a is not None:
-                aux = aux + a
+        run = remat_wrap(run_layers, self.cfg.remat)
+        for group in self.groups:
+            x, aux = run(tuple(self.layers[i] for i in group), x, aux, enc)
         if last is not None:
             x = x[:, -last:].contiguous()
         logits = self._unembed(x)

@@ -6,7 +6,9 @@ terms) against ``jax.grad`` of the reference's attention
 (``repro.kernels.flash_attention.ref.attention_ref``, its plain path: the
 reference differentiates plain JAX on the training path), with and without
 a sliding window and at head_dim 64 to 256, on the same numpy inputs; its distance to the fp32 gradients against the plain path's
-(``attention_bwd_ref``); and the wrappers counting no launch on the CPU.
+(``attention_bwd_ref``); O's rounding residual in the row deltas, which
+keeps a key bias's gradient at the plain path's; and the wrappers counting
+no launch on the CPU.
 
 The emulation is code of this file, not the kernel: it checks that the
 rounding the kernel was designed with (``"ds"``: dS split, P rounded
@@ -53,7 +55,7 @@ def _split(x: torch.Tensor, two: bool) -> list:
 
 
 def tc_bwd_emulated(q, k, v, o, lse, do, *, causal, chunk, split,
-                    window=0):
+                    window=0, o_lo=None):
     """(dq, dk, dv) in bf16 as ``flash_bwd_tc`` computes them: bf16 q, k, v,
     o, do (B, S, H, D), lse fp32 (B, Hq, Sq) in natural-log units, taken to
     log2 units; P = exp2(s * scale * log2 e - lse2) on the visible pairs
@@ -63,7 +65,8 @@ def tc_bwd_emulated(q, k, v, o, lse, do, *, causal, chunk, split,
     summed in fp32, P and dS rounded to bf16 (or split, ``split`` a key of
     ``ROUNDINGS``) before the products that take them.  At head_dim 256 the
     kernel's two warpgroups split D and exchange S's P and dP as fp32
-    tiles: the same values, so the same emulation."""
+    tiles: the same values, so the same emulation.  ``o_lo``: O's rounding
+    residual, which the delta pass adds to O where the forward wrote it."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -71,6 +74,8 @@ def tc_bwd_emulated(q, k, v, o, lse, do, *, causal, chunk, split,
     scale, l2e = 1.0 / math.sqrt(D), 1.0 / math.log(2.0)
     qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))
     kf, vf = (t.float().transpose(1, 2) for t in (k, v))   # B, Hkv, Skv, D
+    if o_lo is not None:
+        of = of + o_lo.float().transpose(1, 2)
     delta = (dof * of).sum(-1)                             # B, Hq, Sq
     lse2 = lse * l2e
     mask = _mask(Sq, Skv, q.device, causal=causal, window=window,
@@ -253,6 +258,52 @@ def test_split_operands_cost_no_error_beyond_the_plain_path():
                 assert r[name] <= 1.05, (split, r)
             else:
                 assert 1.05 < r[name] < 2.0, (split, r)
+
+
+def _output_residual(q, k, v, **masks):
+    """O's rounding residual as ``tc_prefill`` writes it beside O: the fp32
+    output less its bf16 rounding, in bf16 (the fp32 output here is the
+    plain version's on fp32 copies of the inputs)."""
+    o32 = attention_ref(q.float(), k.float(), v.float(), **masks)
+    return (o32 - o32.bfloat16().float()).bfloat16()
+
+
+@pytest.mark.parametrize("case", [(1, 256, 256, 32, 2, 128),
+                                  (1, 256, 256, 28, 4, 128)],
+                         ids=["chatglm3-6b G16", "qwen2-7b G7"])
+def test_output_residual_keeps_the_key_bias_gradient_of_the_plain_path(
+        case):
+    """The row deltas over the rounded O alone miss sum_j P_ij dP_ij by
+    dO . (O's rounding), so the row sums of dS stop being zero and the
+    gradient of a key bias, sum_j dK_j (zero wherever the softmax ignores a
+    shift of a row's scores), grows with the query heads a kv head sums:
+    at chatglm3-6b's head shape the emulated kernel's is ~1.5x the plain
+    path's (autograd through ``attention_ref``).  With the residual
+    ``o_lo`` in the deltas, the plain version and the emulated kernel sit
+    at the plain path's, and so does dk's distance to ``jax.grad``."""
+    q, k, v, do = _inputs(case, seed=3)
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    o_lo = _output_residual(q, k, v)
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+    plain = torch.autograd.grad(attention_ref(qt, kt, vt), (qt, kt, vt), do)
+    exact = _jax_grads(q, k, v, do, True, 0)
+
+    def bias(dk):
+        return dk.float().sum(1).norm().item()
+
+    floor = bias(plain[1])
+    dk_floor = _rel_rms(plain[1], exact[1])
+    assert bias(exact[1]) < 1e-3 * floor
+    for residual in (None, o_lo):
+        for got in (attention_bwd_ref(q, k, v, o, lse, do, o_lo=residual),
+                    tc_bwd_emulated(q, k, v, o, lse, do, causal=True,
+                                    chunk=0, split="ds", o_lo=residual)):
+            ratio = bias(got[1]) / floor
+            dk_ratio = _rel_rms(got[1], exact[1]) / dk_floor
+            if residual is None:
+                assert ratio > 1.2, ratio
+            else:
+                assert ratio < 1.05 and dk_ratio < 1.02, (ratio, dk_ratio)
 
 
 # ---- chip_smoke.py's row check of the backward, on the CPU ----

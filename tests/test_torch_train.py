@@ -280,15 +280,3 @@ def test_train_on_the_card_is_the_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_loop(TrainRunConfig(cfg=get_reduced("qwen2-7b"), steps=1))
 
-
-def test_check_ported_refuses_remat():
-    """``remat`` is not ported (ROADMAP.md A12): a config that sets it is
-    refused, naming A12, rather than trained without recompute."""
-    from repro_torch.models.transformer import check_ported
-    cfg = get_reduced("qwen2-7b")
-    check_ported(cfg)
-    for policy in ("full", "selective"):
-        with pytest.raises(NotImplementedError, match="remat.*A12"):
-            check_ported(dataclasses.replace(cfg, remat=policy))
-        with pytest.raises(NotImplementedError, match="A12"):
-            Transformer(dataclasses.replace(cfg, remat=policy), "cpu")
