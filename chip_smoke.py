@@ -4408,8 +4408,9 @@ def remat_compare(runs: dict, check: dict) -> dict:
             / base["steady_step_ms"]}
         if not (dist[worst] <= limit and gap <= limit):
             raise AssertionError(f"remat {policy} vs none: {out[policy]}")
-    for r in runs.values():
-        r.pop("first_grads", None)
+    for name, r in runs.items():
+        if name != names["none"]:       # phase 10 reads the plain run's
+            r.pop("first_grads", None)
     log(f"[train] remat compare {json.dumps(out)}")
     peaks = [out[p]["peak_mem_gb"] for p in ("none", "selective", "full")]
     if not peaks[0] > peaks[1] > peaks[2]:
@@ -4486,6 +4487,222 @@ def phase_train() -> tuple:
                              and c["remat"] == "none"))
     reference_training_tests()
     return rows, runs
+
+
+# phase 10: the multi-device launch path on a (1, 1) NCCL mesh of the card.
+# Training: phase 9's first run (MESH_TRAIN, its arch, depth, batch, seq,
+# lr and steps) through ``train_loop(run, mesh)``, held bit for bit to that
+# run; serving: phase 4's qwen2-7b (MESH_SERVE) through ``generate`` on the
+# distributed model.  The dry run's two cells (DRYRUN_CELLS) run at full
+# size in subprocesses on fake ranks, started when the phase starts.
+MESH_TRAIN = ("qwen2-7b", 8, 8, 1024, 1e-3, 4)
+MESH_SERVE = ("qwen2-7b", 8, 1024, 32)
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", "single"),
+                ("dbrx-132b", "decode_32k", "multi"))
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+DRYRUN_ARGS = ("--cost-mode", "scanned")   # every layer traced once
+DRYRUN_LIMIT_S = 600
+
+
+def start_dryruns() -> list:
+    """The dry run's cells, each ``python -m repro_torch.launch.dryrun``
+    in its own process (a fake process group: no card)."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        logf = open(DRYRUN_OUT / f"{arch}__{shape}__{mesh}.log", "w")
+        procs.append(((arch, shape, mesh), logf, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, *DRYRUN_ARGS, "--out",
+             str(DRYRUN_OUT)], cwd=ROOT, env=env,
+            stdout=logf, stderr=subprocess.STDOUT), time.perf_counter()))
+    return procs
+
+
+def finish_dryruns(procs) -> dict:
+    """Each cell's artifact once its process ends: per-device GB against
+    the card's 80, FLOPs, collective bytes by kind, the wall time to
+    trace.  A cell that fails or outlives DRYRUN_LIMIT_S fails the run."""
+    out = {}
+    try:
+        for (arch, shape, mesh), logf, proc, t0 in procs:
+            left = DRYRUN_LIMIT_S - (time.perf_counter() - t0)
+            rc = proc.wait(timeout=max(left, 1))
+            wall = time.perf_counter() - t0
+            logf.close()
+            path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
+            art = json.loads(path.read_text()) if path.exists() else {}
+            if rc != 0 or art.get("status") != "ok":
+                why = art.get("error") or art.get("reason", "")
+                raise AssertionError(f"dry run {arch} {shape} {mesh}: rc "
+                                     f"{rc}, {art.get('status')}, "
+                                     f"{why[-2000:]}")
+            mem = art["memory"]
+            res = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "chips": art["chips"],
+                   "argument_gb": mem["argument_size_bytes"] / 1e9,
+                   "temp_gb": mem["temp_size_bytes"] / 1e9,
+                   "per_device_gb": mem["peak_bytes"] / 1e9,
+                   "fits_80gb": mem["peak_bytes"] <= 80e9,
+                   "flops": art["cost"]["flops"],
+                   "bytes_accessed": art["cost"]["bytes accessed"],
+                   "collective_bytes": art["collectives"],
+                   "kernels": art["kernels"], "trace_s": art["trace_s"],
+                   "wall_s": wall, "counts": art["counts"]}
+            log(f"[mesh] dryrun {json.dumps(res)}")
+            out[f"{arch} {shape} {mesh}"] = res
+    finally:
+        for _, logf, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    return out
+
+
+def quiet(*a) -> None:
+    pass
+
+
+def mesh_train(mesh, plain: dict) -> dict:
+    """MESH_TRAIN through ``train_loop(run, mesh)``: one step for the
+    first step's gradients (left in each parameter's ``.grad``), then the
+    run's steps, counts set to 0 before each and read after.  The losses
+    and the gradients must equal ``plain`` (phase 9's run) bit for bit, and
+    the launches be ``expected_train_launches`` a step, on the same
+    kernels."""
+    arch, layers, batch, seq, lr, steps = MESH_TRAIN
+    cfg = train_cfg(arch, layers)
+    run = TrainRunConfig(cfg=cfg, steps=1, global_batch=batch, seq_len=seq,
+                         lr=lr, log_every=1)
+    expect = expected_train_launches(cfg)
+    fwd_want, bwd_want = train_impls(cfg, batch, seq)
+    reset_counts()
+    out = train_loop(run, mesh, log=quiet)
+    got = read_counts()
+    differ = [n for n, p in out["state"]["model"].named_parameters()
+              if not torch.equal(p.grad.to_local().cpu(),
+                                 plain["first_grads"][n])]
+    del out
+    torch.cuda.empty_cache()
+    if got != expect or differ:
+        raise AssertionError(f"mesh train, first step: launches {got} "
+                             f"(want {expect}); gradients not equal to "
+                             f"phase 9's: {differ[:8]}")
+    reset_counts()
+    out = train_loop(dataclasses.replace(run, steps=steps), mesh, log=quiet)
+    launches = read_counts()
+    flash_impls = dict(flash_attention.impl_launches)
+    bwd_impls = dict(flash_attention_bwd.impl_launches)
+    losses = out["history"]["loss"]
+    step_ms = [t * 1e3 for t in out["watchdog"].durations]
+    del out
+    torch.cuda.empty_cache()
+    want = {k: v * steps for k, v in expect.items()}
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "steps": steps, "mesh": [1, 1], "backend": "nccl",
+           "loss": losses, "plain_loss": plain["loss"],
+           "losses_equal_bits": losses == plain["loss"],
+           "first_grads_equal_bits": not differ,
+           "step_ms": step_ms, "steady_step_ms": statistics.mean(step_ms[1:]),
+           "plain_steady_step_ms": plain["steady_step_ms"],
+           "plain_step_ms": plain["step_ms"], "launches": launches,
+           "flash_impls": flash_impls, "bwd_impls": bwd_impls}
+    res["step_ms_over_plain"] = res["steady_step_ms"] / \
+        plain["steady_step_ms"]
+    log(f"[mesh] train {json.dumps(res)}")
+    if launches != want or losses != plain["loss"] or \
+            flash_impls != {n: fwd_want.get(n, 0) * steps
+                            for n in flash_impls} or \
+            bwd_impls != {n: bwd_want.get(n, 0) * steps for n in bwd_impls}:
+        raise AssertionError(f"mesh train: launches {launches} (want "
+                             f"{want}), flash {flash_impls}, backward "
+                             f"{bwd_impls}, losses {losses} vs phase 9's "
+                             f"{plain['loss']}")
+    return res
+
+
+def mesh_serve(mesh) -> dict:
+    """MESH_SERVE's greedy run as phase 4 draws it (weights and prompts
+    from one generator seeded 0), with no mesh, then again on the same
+    model distributed onto ``mesh`` through the sharded prefill and decode
+    steps (each after a short warm-up): the tokens must be equal, and the
+    launches."""
+    from repro_torch.launch.steps import distribute, distribute_model
+    from repro_torch.models.common import BATCH, pspec, use_mesh
+    arch, batch, prompt, new = MESH_SERVE
+    cfg = get_config(arch)
+    g = torch.Generator(device=DEV).manual_seed(0)
+    model = Transformer(cfg, DEV, generator=g)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                            device=DEV)
+    runs = {}
+    for name in ("plain", "mesh"):
+        if name == "mesh":
+            distribute_model(model, mesh)
+            with use_mesh(mesh):
+                prompts = distribute(prompts, mesh, pspec(BATCH, None))
+        generate(model, prompts[:, :16], 2)          # warm-up, not counted
+        reset_counts()
+        out = generate(model, prompts, new)
+        launches = read_counts()
+        runs[name] = {
+            "tokens": out.tokens.full_tensor() if name == "mesh"
+            else out.tokens,
+            "logits": out.logits.full_tensor() if name == "mesh"
+            else out.logits,
+            "prefill_ms": out.prefill_s * 1e3,
+            "decode_ms_per_step": out.decode_s * 1e3 / (new - 1),
+            "launches": launches,
+            "flash_impls": dict(flash_attention.impl_launches)}
+    plain, shard = runs["plain"], runs["mesh"]
+    res = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt, "tokens": new, "mesh": [1, 1],
+           "tokens_equal": bool(torch.equal(plain["tokens"],
+                                            shard["tokens"])),
+           "logits_max_abs_diff": (plain["logits"]
+                                   - shard["logits"]).abs().max().item(),
+           **{f"{k}_{n}": runs[n][k] for n in runs for k in (
+               "prefill_ms", "decode_ms_per_step")},
+           "launches": shard["launches"], "plain_launches": plain["launches"],
+           "flash_impls": shard["flash_impls"]}
+    res["decode_ms_over_plain"] = res["decode_ms_per_step_mesh"] / \
+        res["decode_ms_per_step_plain"]
+    log(f"[mesh] serve {json.dumps(res)}")
+    del model, runs, plain, shard
+    torch.cuda.empty_cache()
+    if not res["tokens_equal"] or res["launches"] != res["plain_launches"]:
+        raise AssertionError(f"mesh serve: tokens equal "
+                             f"{res['tokens_equal']}, launches "
+                             f"{res['launches']} vs {res['plain_launches']}")
+    return res
+
+
+def phase_mesh(train_runs: dict) -> dict:
+    """Phase 10: the dry run's cells started in the background, then
+    ``mesh_train`` against phase 9's MESH_TRAIN run and ``mesh_serve`` on
+    a (1, 1) mesh of the card over NCCL (``make_local_mesh``, a process
+    group of one rank), then the dry runs' results.  Returns the two runs
+    (their launches join the kernels line's) and the dry runs under
+    ``dryrun``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    procs = start_dryruns()
+    try:
+        mesh = make_local_mesh(1, 1)
+        arch, layers = MESH_TRAIN[:2]
+        plain = next(r for r in train_runs.values()
+                     if r["arch"] == arch and r["layers"] == layers
+                     and r["remat"] == "none")
+        runs = {"mesh train": mesh_train(mesh, plain),
+                "mesh serve": mesh_serve(mesh)}
+        plain.pop("first_grads", None)
+    finally:
+        dry = finish_dryruns(procs)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return runs, dry
 
 
 def kernel_line(rows: dict, runs: dict) -> dict:
@@ -4630,6 +4847,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-probe", action="store_true",
                     help="build, then only the peak memory of the training "
                          "runs' configs at a few depths (no contract line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, then only phase 9's first run and phase "
+                         "10, the mesh path (no contract line)")
     ap.add_argument("--rglru-ablate", action="store_true",
                     help="build, then only the gated RG-LRU backward "
                          "kernel's ablations (no contract line)")
@@ -4667,6 +4887,12 @@ def main(argv=None) -> int:
         phase_train()
         log(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.mesh_only:
+        arch, layers, batch, seq, lr, steps = MESH_TRAIN
+        phase_mesh({"plain": train_run(arch, layers, batch, seq, lr, steps,
+                                       keep_grads=True)})
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     timer = Timer()
     rows = phase_kernels(timer)
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
@@ -4686,6 +4912,9 @@ def main(argv=None) -> int:
     train_rows, train_runs = phase_train()
     rows.update(train_rows)
     runs.update(train_runs)
+    log(f"[time] train done at {time.perf_counter() - t0:.1f} s")
+    mesh_runs, _ = phase_mesh(train_runs)
+    runs.update(mesh_runs)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rows, runs)))
     print(smi)

@@ -24,7 +24,10 @@ port writes codec ``raw`` (no ``zstandard`` is needed to write); it reads
 ``zstd`` buffers when ``zstandard`` can be imported and otherwise raises an
 error naming the codec.  A checkpoint written by either package loads in
 the other (``repro_torch.convert.params_to_jax`` gives a model's params the
-reference's tree).
+reference's tree).  The format knows no mesh: a DTensor leaf is saved as its
+full value, and a ``tree_like`` DTensor leaf gets its rank's slice of the
+loaded value, on whatever mesh it lives; a ``tree_like`` meta leaf (a
+shape and a dtype) gets the loaded value on the host.
 """
 from __future__ import annotations
 
@@ -38,6 +41,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.common import full_value, local_slice
 
 _MANIFEST = "manifest.json"
 
@@ -47,8 +53,8 @@ _EXOTIC_STORE = {"bfloat16": (torch.bfloat16, np.uint16)}
 
 def _host(leaf: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array (bf16 as its uint16 view), without
-    copying a CPU tensor."""
-    t = leaf.detach().cpu()
+    copying a CPU tensor; a DTensor's full value."""
+    t = full_value(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -160,7 +166,7 @@ def _tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
 def load_checkpoint(directory: str, tree_like, step: Optional[int] = None):
     """Restore into the structure of ``tree_like`` (a tree of tensors).
     Returns (tree of tensors, each cast to its ``tree_like`` leaf's dtype
-    and on its device, step)."""
+    and on its device, a meta leaf's on the host, step)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -181,7 +187,13 @@ def load_checkpoint(directory: str, tree_like, step: Optional[int] = None):
             raise ValueError(f"shape mismatch for {name}: "
                              f"ckpt {tuple(t.shape)} vs expected "
                              f"{tuple(like.shape)}")
-        out[name] = t.to(device=like.device, dtype=like.dtype)
+        t = t.to(device="cpu" if like.is_meta else like.device,
+                 dtype=like.dtype)
+        if isinstance(like, DTensor):     # this rank's slices, any mesh
+            t = DTensor.from_local(
+                local_slice(t, like.device_mesh, like.placements),
+                like.device_mesh, like.placements, run_check=False)
+        out[name] = t
     return _unflatten_like(tree_like, out), step
 
 
@@ -201,7 +213,7 @@ class CheckpointManager:
         thread."""
         self.wait()
         host_tree = _unflatten_like(tree, {
-            name: leaf.detach().to("cpu", copy=True)
+            name: full_value(leaf).detach().to("cpu", copy=True)
             for name, leaf in _flatten(tree)})
 
         def work():

@@ -26,7 +26,7 @@ the reference's leaf names.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import re
 
@@ -57,9 +57,25 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return out
 
 
-def params_from_jax(np_params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(np_params: Mapping, cfg: ModelConfig,
+                    mesh=None) -> Dict[str, torch.Tensor]:
     """State dict for ``Transformer(cfg)`` from the reference's params (a
-    nested dict of numpy arrays)."""
+    nested dict of numpy arrays); with ``mesh``, each tensor a DTensor of
+    its parameter's spec there (``launch.steps.param_specs``), to load into
+    a model on that mesh (``launch.steps.distribute_model``)."""
+    state = _params_from_jax(np_params, cfg)
+    if mesh is None:
+        return state
+    from repro_torch.launch.steps import param_specs
+    from repro_torch.models.common import use_mesh
+    from repro_torch.models.transformer import distribute
+    with use_mesh(mesh):
+        specs = param_specs(cfg, list(state))
+    return {n: distribute(t, mesh, specs[n]) for n, t in state.items()}
+
+
+def _params_from_jax(np_params: Mapping, cfg: ModelConfig
+                     ) -> Dict[str, torch.Tensor]:
     check_ported(cfg)
     state = {"embed": _tensor(np_params["embed"])}
     for path, leaf in _flatten(np_params["final_norm"], "final_norm.").items():
@@ -131,6 +147,29 @@ def _slot(layout, i: int) -> Tuple[int, int, int]:
     raise ValueError(f"layer {i} beyond the config's {offset} layers")
 
 
+def reference_leaf(name: str, cfg: ModelConfig) -> Tuple[Tuple[str, ...],
+                                                         Optional[int]]:
+    """(the path of the reference leaf that holds the port's parameter (or
+    cache entry) ``name``, the index on its stacked layer axis, or None for
+    an unstacked leaf): ``layers.<i>.<path>`` is repeat r of position p of
+    segment s, ``("segments", "seg<s>", "pos<p>", *path)`` at r; an
+    encoder layer's under ``enc``; any other name is its dotted path."""
+    m = _LAYER.match(name)
+    if m is None:
+        return tuple(name.split(".")), None
+    prefix, i, path = m.group(1) or "", int(m.group(2)), m.group(3)
+    si, pi, r = _slot(_layouts(cfg)[prefix], i)
+    keys = (("enc",) if prefix else ()) + (
+        "segments", f"seg{si}", f"pos{pi}") + tuple(path.split("."))
+    return keys, r
+
+
+def leaf_at(tree: Mapping, keys: Tuple[str, ...]):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
 def _nest(tree: Dict, path: List[str], leaf) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
@@ -148,23 +187,20 @@ def params_to_jax(state: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     check_ported(cfg)
     layouts = _layouts(cfg)
     tree: Dict = {}
-    stacks: Dict[Tuple[str, int, int, str], Dict[int, torch.Tensor]] = {}
+    stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
     for name, t in state.items():
-        m = _LAYER.match(name)
-        if m is None:
-            _nest(tree, name.split("."), t.detach())
-            continue
-        prefix, i, path = m.group(1) or "", int(m.group(2)), m.group(3)
-        si, pi, r = _slot(layouts[prefix], i)
-        stacks.setdefault((prefix, si, pi, path), {})[r] = t.detach()
-    for (prefix, si, pi, path), reps in stacks.items():
-        want = layouts[prefix][si][1]
+        keys, r = reference_leaf(name, cfg)
+        if r is None:
+            _nest(tree, list(keys), t.detach())
+        else:
+            stacks.setdefault(keys, {})[r] = t.detach()
+    for keys, reps in stacks.items():
+        enc = keys[0] == "enc"
+        want = layouts["enc." if enc else ""][int(keys[enc + 1][3:])][1]
         if sorted(reps) != list(range(want)):
-            raise ValueError(f"{prefix}seg{si}/pos{pi}/{path}: repeats "
-                             f"{sorted(reps)}, the config has {want}")
-        keys = (["enc"] if prefix else []) + [
-            "segments", f"seg{si}", f"pos{pi}"] + path.split(".")
-        _nest(tree, keys, torch.stack([reps[r] for r in range(want)]))
+            raise ValueError(f"{'/'.join(keys)}: repeats {sorted(reps)}, "
+                             f"the config has {want}")
+        _nest(tree, list(keys), torch.stack([reps[r] for r in range(want)]))
     return tree
 
 

@@ -55,8 +55,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels._dtypes import code
+from repro_torch.kernels._grad import KernelRefusal
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
@@ -173,13 +174,13 @@ def check_grad_call(D: int, Skv: int, *, window: int = 0,
                     k_pos: bool = False, q_offset: int = 0,
                     kv_len: Optional[int] = None, impl: Optional[str] = None,
                     splits: Optional[int] = None) -> None:
-    """Raise ``NotImplementedError`` for a call under autograd that the
+    """Raise ``KernelRefusal`` for a call under autograd that the
     backward kernels do not take: key positions, ``q_offset`` or ``kv_len``
     short of Skv, a forced decode kernel or splits, a head_dim outside
     ``BWD_HEAD_DIMS``.  A window is taken (by either kernel)."""
     if k_pos or q_offset or kv_len not in (None, Skv) or impl or \
             splits or D not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
+        raise KernelRefusal(
             f"flash_attention under autograd: key positions {k_pos}, "
             f"q_offset {q_offset}, kv_len {kv_len}, forced kernel "
             f"{impl}/{splits} or head_dim {D} is not in the backward "
@@ -297,11 +298,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     grad, a CUDA call goes through ``FlashAttentionFn`` (see the module's
     note) or raises.
     """
-    if q.device.type == "cpu":
+    fake = _fake.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return attention_ref(q, k, v, causal=causal, window=window,
                              chunk=chunk, q_offset=q_offset, kv_len=kv_len,
                              k_pos=k_pos)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         check_grad_call(q.shape[-1], k.shape[1], window=window,
@@ -321,6 +323,17 @@ def _forward(q, k, v, *, causal, window, chunk, q_offset, kv_len, k_pos,
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     kv_len = Skv if kv_len is None else int(kv_len)
+    if _fake.is_fake(q):
+        how = plan(B, Sq, Hq, Hkv, D, q.dtype, kv_len, k_pos is not None,
+                   impl, splits, with_lse)
+        _fake.flash(q, k, causal=causal, window=window, chunk=chunk,
+                    q_offset=q_offset, kv_len=kv_len,
+                    rolling=k_pos is not None, impl=how.impl)
+        lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+               if with_lse else None)
+        o_lo = (torch.empty_like(q) if with_lse and how.impl == "tc_prefill"
+                else None)
+        return torch.empty_like(q), lse, o_lo
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -404,6 +417,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     delta pass and after each pass, so that chip_smoke.py times the passes
     apart.  A build or launch error raises: no call falls back to the other
     kernel."""
+    if _fake.is_fake(q):
+        how = plan_bwd(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3], q.dtype, impl)
+        _fake.flash_bwd(q, k, causal=causal, window=window, chunk=chunk,
+                        o_lo=o_lo is not None, impl=how)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window, chunk=chunk, o_lo=o_lo)

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels._dtypes import code
 from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_ref,
                                                 mamba_scan_ref)
@@ -70,9 +70,11 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor,
     ``h[-1] = 0`` and ``y[t, d] = sum_n h[t, d, n] * c[t, n]``.  Under grad
     mode with an input requiring grad, a CUDA call goes through
     ``MambaScanFn`` (backward: :func:`mamba_scan_bwd`)."""
-    if da.device.type == "cpu":
+    fake = _fake.is_fake(da)
+    if da.device.type == "cpu" and not fake:
         return mamba_scan_ref(da, dbx, c)
-    _check(da, dbx, c)
+    if not fake:
+        _check(da, dbx, c)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (da, dbx, c)):
         return MambaScanFn.apply(da, dbx, c)
     return _forward(da, dbx, c)
@@ -80,9 +82,13 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor,
 
 def _forward(da, dbx, c):
     """The forward kernel's launch on checked CUDA tensors."""
+    B, S, Di, N = da.shape
+    if _fake.is_fake(da):
+        _fake.mamba_scan(da, c)
+        return (torch.empty(B, S, Di, dtype=da.dtype, device=da.device),
+                torch.empty(B, Di, N, dtype=torch.float32, device=da.device))
     if da.data_ptr() % 16 or dbx.data_ptr() % 16:
         raise ValueError("mamba_scan: da and dbx must be 16-byte aligned")
-    B, S, Di, N = da.shape
     y = torch.empty(B, S, Di, dtype=da.dtype, device=da.device)
     h_last = torch.empty(B, Di, N, dtype=torch.float32, device=da.device)
     err = _fns().mamba_scan_fwd(
@@ -128,6 +134,10 @@ def mamba_scan_bwd(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
     ``_build.event_marks``) recorded before the fold launch (and its
     scratch's memset) and after each launch, so that chip_smoke.py times
     the fold, grads and dc launches apart."""
+    if _fake.is_fake(da):
+        _fake.mamba_scan_bwd(da)
+        f32 = lambda t: torch.empty_like(t, dtype=torch.float32)
+        return f32(da), f32(dbx), f32(c)
     if da.device.type == "cpu":
         return mamba_scan_bwd_ref(da, dbx, c, dy, dh_last)
     _check(da, dbx, c)

@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels._dtypes import code
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.rglru_scan.ref import (rglru_gated_bwd_ref,
@@ -280,9 +280,11 @@ def rglru_gated(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
     if grad and states_every:
         raise ValueError("rglru_gated: under autograd the states are "
                          "RGLRUGatedFn's")
-    how = plan(B, S, W, xc.dtype, gated=True, align=_align((xa, xi, xc)),
+    fake = _fake.is_fake(xc)
+    how = plan(B, S, W, xc.dtype, gated=True,
+               align=16 if fake else _align((xa, xi, xc)),
                tile=tile, states=BWD_STEPS if grad else states_every)
-    if xc.device.type == "cpu":
+    if xc.device.type == "cpu" and not fake:
         out = rglru_gated_ref(xa, xi, xc, b_a, b_i, lam, h0)
         if states_every:
             return (*out, rglru_states_ref(xa, xi, xc, b_a, b_i, lam, h0,
@@ -312,6 +314,9 @@ def _gated_fwd(xa, xi, xc, b_a, b_i, lam, h0, how: Plan, every: int = 0):
     h_last = torch.empty(B, W, dtype=torch.float32, device=xc.device)
     states = (torch.empty(B, _cdiv(S, every), W, dtype=torch.float32,
                           device=xc.device) if every else None)
+    if _fake.is_fake(xc):
+        _fake.rglru_gated(xc, h0)
+        return h, h_last, states
     err = _fns().rglru_gated_fwd(
         xa.data_ptr(), xi.data_ptr(), xc.data_ptr(), b_a.data_ptr(),
         b_i.data_ptr(), lam.data_ptr(),
@@ -374,6 +379,12 @@ def rglru_gated_bwd(xa: torch.Tensor, xi: torch.Tensor, xc: torch.Tensor,
            {"b_a": b_a, "b_i": b_i, "lam": lam}, h0, states, BWD_STEPS)
     if dh_last is not None:
         _check("rglru_gated_bwd", xc, {}, {}, dh_last)
+    if _fake.is_fake(xc):
+        _fake.rglru_gated_bwd(xc, h0, dh_last, BWD_STEPS)
+        f32 = lambda: torch.empty_like(lam)
+        return (torch.empty_like(xc), torch.empty_like(xc),
+                torch.empty_like(xc), f32(), f32(), f32(),
+                None if h0 is None else torch.empty_like(h0))
     if xc.device.type == "cpu":
         return rglru_gated_bwd_ref(xa, xi, xc, b_a, b_i, lam, h0, dh,
                                    dh_last, states, BWD_STEPS)

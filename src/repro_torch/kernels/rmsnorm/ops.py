@@ -29,8 +29,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels._dtypes import code
+from repro_torch.kernels._grad import KernelRefusal
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _vp = ctypes.c_void_p
@@ -158,14 +159,15 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
     requiring grad, the plain form goes through ``RMSNormFn`` (the residual
     form raises)."""
     _check(variant)
-    if x.device.type == "cpu":
+    fake = _fake.is_fake(x)
+    if x.device.type == "cpu" and not fake:
         return rmsnorm_ref(x, w, residual, eps=eps)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"fused_rmsnorm: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, residual)):
         if residual is not None:
-            raise NotImplementedError(
+            raise KernelRefusal(
                 "fused_rmsnorm: the residual form has no backward kernel (it "
                 "is on no model path: ROADMAP.md B7)")
         return RMSNormFn.apply(x, w, eps, variant)
@@ -174,6 +176,10 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
 
 def _launch(x, w, residual, eps, variant):
     """The forward kernel's launch on CUDA tensors (checks included)."""
+    if _fake.is_fake(x):
+        _fake.rmsnorm(x)
+        y = torch.empty_like(x)
+        return y if residual is None else (y, torch.empty_like(x))
     D = x.shape[-1]
     if w.shape != (D,):
         raise ValueError(f"fused_rmsnorm: w {tuple(w.shape)} != ({D},)")
@@ -219,6 +225,9 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
     ``rmsnorm_bwd`` (two kernels: dx with per-block fp64 partial dw rows,
     then their sum in block order), adding one to
     ``rmsnorm_bwd.launches``."""
+    if _fake.is_fake(x):
+        _fake.rmsnorm_bwd(x)
+        return torch.empty_like(x), torch.empty_like(w)
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, w, dy, eps=eps)
     if x.device.type != "cuda":

@@ -9,12 +9,21 @@ Counterpart: ``repro/launch/train.py`` (``TrainRunConfig``, ``train_loop``,
 ``main``), with the reference's CLI plus ``--layers N`` (the first N layers
 of the published config, as ``launch/serve.py`` takes it) and ``--device``
 (default: the CUDA card, an error without one; ``--device cpu`` runs the
-plain path).  The loop is deterministic-resumable: batch t is a pure
+plain path) and ``--mesh DATAxMODEL`` (under torchrun: a mesh of the
+launched ranks).  The loop is deterministic-resumable: batch t is a pure
 function of (seed, t), so restarting from step k replays nothing (see
-``repro_torch/data/pipeline.py``).  One card: no mesh.  The state is
-``{"model", "opt", "train_step"}``; a checkpoint holds it in the
-reference's tree (``{"params", "opt": {"adam", "ef"}}``, layers stacked by
-``convert.params_to_jax``), so either package restores the other's.  The
+``repro_torch/data/pipeline.py``).  The state is ``{"model", "opt",
+"train_step"}``; a checkpoint holds it in the reference's tree
+(``{"params", "opt": {"adam", "ef"}}``, layers stacked by
+``convert.params_to_jax``), so either package restores the other's.
+
+``train_loop(run, mesh)`` trains on a ``DeviceMesh`` (``launch/mesh.py``):
+every rank builds the model from ``run.seed`` as the plain path does, then
+keeps its slices of the parameters (``steps.distribute_model``) and of each
+batch.  Checkpoints stay mesh-agnostic: a save gathers every leaf's full
+value (all ranks take part; rank 0 writes), and a restore, on any mesh,
+gives each rank its slices of the loaded leaves.  With no mesh nothing
+makes a DTensor.  The
 loss is read on the host on a logging step only; the watchdog synchronises
 the card before it reads its clock.  Activation recompute is
 ``cfg.remat`` (``models/remat.py``), set on the config as the reference's
@@ -29,6 +38,8 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_reduced
@@ -37,6 +48,8 @@ from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.common import full_value, local_slice, use_mesh
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import FaultConfig, run_with_restarts
@@ -58,30 +71,60 @@ class TrainRunConfig:
     device: DeviceLike = None       # None: the CUDA card
 
 
-def reference_tree(state: Dict, cfg: ModelConfig) -> Dict:
-    """The training state in the reference's checkpoint tree."""
+def _full(tree: Dict) -> Dict:
+    """Each tensor of a flat dict at its full value.  A DTensor's is
+    gathered (a collective: every rank calls it) and moved to the host
+    before the next leaf's, so that no device holds more than one leaf at
+    its full size."""
+    return {n: full_value(t).cpu() if isinstance(t, DTensor) else t
+            for n, t in tree.items()}
+
+
+def _shapes(tree: Dict) -> Dict:
+    """Each tensor of a flat dict as a meta tensor of its full shape and
+    dtype: a restore's ``tree_like``, which loads onto the host."""
+    return {n: torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for n, t in tree.items()}
+
+
+def reference_tree(state: Dict, cfg: ModelConfig, leaves=_full) -> Dict:
+    """The training state in the reference's checkpoint tree, each flat
+    dict of it through ``leaves`` first (default: full values, on a mesh
+    gathered to the host a leaf at a time)."""
     adam = state["opt"]["adam"]
-    opt = {"adam": {"mu": params_to_jax(adam["mu"], cfg),
-                    "nu": params_to_jax(adam["nu"], cfg),
-                    "step": adam["step"]}}
+    tree = lambda d: params_to_jax(leaves(d), cfg)
+    opt = {"adam": {"mu": tree(adam["mu"]), "nu": tree(adam["nu"]),
+                    "step": leaves({"step": adam["step"]})["step"]}}
     if "ef" in state["opt"]:
-        opt["ef"] = params_to_jax(state["opt"]["ef"], cfg)
-    return {"params": params_to_jax(state["model"].state_dict(), cfg),
-            "opt": opt}
+        opt["ef"] = tree(state["opt"]["ef"])
+    return {"params": tree(state["model"].state_dict()), "opt": opt}
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst's values from the full tensor src (on the host): a DTensor
+    takes its slice, cut before it moves to the device."""
+    if isinstance(dst, DTensor):
+        dst.to_local().copy_(local_slice(src, dst.device_mesh,
+                                         dst.placements).to(dst.device))
+    else:
+        dst.copy_(src)
 
 
 @torch.no_grad()
 def load_reference_tree(state: Dict, tree: Dict, cfg: ModelConfig) -> None:
-    """Copy a restored reference tree into ``state`` in place."""
-    state["model"].load_state_dict(params_from_jax(tree["params"], cfg))
+    """Copy a restored reference tree (full values, on the host) into
+    ``state`` in place, on a mesh each rank its slices."""
+    params = dict(state["model"].named_parameters())
+    for name, t in params_from_jax(tree["params"], cfg).items():
+        _assign(params[name], t)
     adam = state["opt"]["adam"]
     for key in ("mu", "nu"):
         for name, t in params_from_jax(tree["opt"]["adam"][key], cfg).items():
-            adam[key][name].copy_(t)
-    adam["step"] = tree["opt"]["adam"]["step"]
+            _assign(adam[key][name], t)
+    adam["step"] = tree["opt"]["adam"]["step"].to(adam["step"].device)
     if "ef" in state["opt"]:
         for name, t in params_from_jax(tree["opt"]["ef"], cfg).items():
-            state["opt"]["ef"][name].copy_(t)
+            _assign(state["opt"]["ef"][name], t)
 
 
 def device_batch(cfg: ModelConfig, batch_np: Dict[str, Any],
@@ -105,13 +148,17 @@ def device_batch(cfg: ModelConfig, batch_np: Dict[str, Any],
     return batch
 
 
-def train_loop(run: TrainRunConfig, injector=None,
+def train_loop(run: TrainRunConfig, mesh=None, injector=None,
                fault: FaultConfig = FaultConfig(max_restarts=3,
                                                 step_deadline_s=300.0),
                log=print) -> Dict[str, Any]:
-    """Run the supervised training loop; returns final state + history."""
+    """Run the supervised training loop; returns final state + history.
+    ``mesh``: a ``DeviceMesh`` to train on (its device type must be the
+    run's device's); None trains the plain model."""
     cfg = run.cfg
     device = resolve_device(run.device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a run on {device}")
     data = SyntheticTokenPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=run.seq_len, global_batch=run.global_batch,
         seed=run.seed + 1))
@@ -121,6 +168,8 @@ def train_loop(run: TrainRunConfig, injector=None,
 
     def init_state():
         model = Transformer(cfg, device, seed=run.seed, trainable=True)
+        if mesh is not None:
+            steps_lib.distribute_model(model, mesh)
         train_step, opt_init = steps_lib.make_train_step(
             model, opt_cfg, microbatches=run.microbatches,
             grad_compression=run.grad_compression)
@@ -128,6 +177,10 @@ def train_loop(run: TrainRunConfig, injector=None,
 
     def step_fn(state, step):
         batch = device_batch(cfg, data.global_batch_at(step), device)
+        if mesh is not None:
+            with use_mesh(mesh):
+                batch = steps_lib.distribute_batch(
+                    batch, steps_lib.train_batch_pspecs(cfg), mesh)
         opt, metrics = state["train_step"](state["opt"], batch)
         if step % run.log_every == 0 or step == run.steps - 1:
             loss = float(metrics["loss"])
@@ -139,24 +192,34 @@ def train_loop(run: TrainRunConfig, injector=None,
 
     def save_fn(state, step):
         if mgr is not None:
-            mgr.save_async(step, reference_tree(state, cfg))
+            tree = reference_tree(state, cfg)
+            if mesh is None or dist.get_rank() == 0:    # one writer
+                mgr.save_async(step, tree)
 
     def restore_fn():
-        if mgr is None or mgr.latest_step() is None:
+        if mgr is None:
             return None
         mgr.wait()
+        if mesh is not None:
+            dist.barrier()        # rank 0's last save is committed
+        if mgr.latest_step() is None:
+            return None
         state = init_state()
-        tree, step = mgr.restore(reference_tree(state, cfg))
+        tree, step = mgr.restore(reference_tree(state, cfg, _shapes))
         load_reference_tree(state, tree, cfg)
         return state, step
 
-    out = run_with_restarts(
-        total_steps=run.steps, init_state=init_state, step_fn=step_fn,
-        save_fn=save_fn, restore_fn=restore_fn,
-        save_every=run.save_every, fault=fault, injector=injector,
-        sync=torch.cuda.synchronize if device.type == "cuda" else None)
-    if mgr is not None:
-        mgr.wait()
+    try:
+        out = run_with_restarts(
+            total_steps=run.steps, init_state=init_state, step_fn=step_fn,
+            save_fn=save_fn, restore_fn=restore_fn,
+            save_every=run.save_every, fault=fault, injector=injector,
+            sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    finally:
+        if mgr is not None:
+            mgr.wait()
+            if mesh is not None:
+                dist.barrier()
     out["history"] = history
     return out
 
@@ -179,6 +242,9 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises when there is no card)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train on a (data, model) mesh of the ranks that "
+                         "torchrun launched, e.g. 2x4")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -193,8 +259,16 @@ def main(argv=None) -> Dict[str, Any]:
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    mesh = None
+    if args.mesh:
+        data, model = (int(n) for n in args.mesh.lower().split("x"))
+        mesh = make_local_mesh(data, model, device=args.device)
     t0 = time.time()
-    out = train_loop(run)
+    try:
+        out = train_loop(run, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     secs = time.time() - t0
     print(f"done: {out['completed_steps']} steps, {out['restarts']} "
           f"restarts, {secs:.1f}s; final loss {out['history']['loss'][-1]:.4f}")
@@ -205,6 +279,7 @@ def main(argv=None) -> Dict[str, Any]:
                         if device.type == "cuda" else "cpu"),
         "batch": args.batch, "seq": args.seq, "steps": out["completed_steps"],
         "restarts": out["restarts"], "loss": out["history"]["loss"],
+        "mesh": args.mesh,
         "step_ms": [t * 1e3 for t in steps_s],
         # the first step builds the kernels and warms the allocator
         "tokens_per_s": (args.batch * args.seq * (len(steps_s) - 1)

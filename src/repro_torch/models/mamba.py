@@ -19,9 +19,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
-from repro_torch.models.common import dense_init, param
+from repro_torch.models.common import (BATCH, HEADS, SEQ, channelwise,
+                                       dense_init, gathered, param, pspec,
+                                       shard)
 
 Cache = Dict[str, torch.Tensor]
+
+
+def mamba_param_specs(cfg) -> Dict:
+    """The reference's ``mamba_param_specs``: the inner channels over
+    ``model``."""
+    fsdp = ("pod", "data")
+    return {
+        "in_proj": pspec(fsdp, "model"),
+        "conv_w": pspec(None, "model"),
+        "conv_b": pspec("model"),
+        "x_proj": pspec("model", None),
+        "dt_proj": pspec(None, "model"),
+        "dt_bias": pspec("model"),
+        "a_log": pspec("model", None),
+        "d_skip": pspec("model"),
+        "out_proj": pspec("model", fsdp),
+    }
 
 
 def _with_history(x: torch.Tensor, history: Optional[torch.Tensor],
@@ -117,25 +136,34 @@ class Mamba(nn.Module):
         state = hist = None
         if cache is not None and S == 1:
             state, hist = cache["ssm"], cache["conv"]
-        xin, z = (x @ self.in_proj).chunk(2, dim=-1)
-        xc = F.silu(causal_conv(xin, self.conv_w, self.conv_b, hist))
-        dt, bmat, cmat = torch.split(xc @ self.x_proj, [r, n, n], dim=-1)
-        dt = F.softplus((dt @ self.dt_proj).float() + self.dt_bias)  # B,S,Di
+        xin, z = (x @ gathered(self.in_proj)).chunk(2, dim=-1)
+        xin = shard(xin, BATCH, SEQ, HEADS)
+        xc = F.silu(channelwise(causal_conv, xin, [
+            (xin, True, -1), (self.conv_w, False, -1),
+            (self.conv_b, False, -1), (hist, True, -1)], [(3, -1)]))
+        dt, bmat, cmat = torch.split(xc @ gathered(self.x_proj), [r, n, n], dim=-1)
+        dt = F.softplus((dt @ gathered(self.dt_proj)).float() + self.dt_bias)  # B,S,Di
         a = -torch.exp(self.a_log)                                    # Di,N
         # (B, S, Di, N) fp32 coefficients, in place: 4.3 GB each at 8 x 1024
         # tokens of falcon-mamba-7b (autograd keeps both: da for exp_ and
         # the scan, dbx for the scan)
         da = (dt[..., None] * a).exp_()
-        dbx = DiscretiseBx.apply(dt, bmat, xc)
+        dbx = channelwise(DiscretiseBx.apply, xc, [
+            (dt, True, -1), (bmat, True, None), (xc, True, -1)], [(4, 2)])
         if S == 1:
             h0 = torch.zeros_like(da[:, 0]) if state is None else state
             h_last = da[:, 0] * h0 + dbx[:, 0]
             y = (h_last * cmat[:, 0, None, :].float()).sum(-1)[:, None]
         else:
-            y, h_last = mamba_scan(da, dbx, cmat.float().contiguous())
+            y, h_last = channelwise(mamba_scan, xc, [
+                (da, True, 2), (dbx, True, 2),
+                (cmat.float().contiguous(), True, None)], [(3, -1), (3, 1)])
         del da, dbx
         y = (y + self.d_skip * xc.float()).to(x.dtype) * F.silu(z)
         if cache is not None:
             cache["ssm"] = h_last
-            cache["conv"] = conv_history(xin, hist, K).to(cache["conv"].dtype)
-        return y @ self.out_proj
+            cache["conv"] = channelwise(
+                lambda xin, hist: conv_history(xin, hist, K), xin,
+                [(xin, True, -1), (hist, True, -1)], [(3, -1)]).to(
+                    cache["conv"].dtype)
+        return y @ gathered(self.out_proj)

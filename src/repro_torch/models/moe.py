@@ -39,14 +39,17 @@ reference's are batched over E, so a ``selective`` recompute redoes them.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, param
+from repro_torch.models.common import (_axis_size, dense_init, gathered,
+                                       local_call, param, pspec, reshape,
+                                       shard)
 from repro_torch.models.remat import batched_products
 
 
@@ -56,7 +59,8 @@ def expert(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     dtype (no copy in a model, whose weights are in that dtype already; an
     fp32 pass over bf16 weights casts one expert at a time)."""
     dt = x.dtype
-    return (F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))) @ w_down.to(dt)
+    return (F.silu(x @ gathered(w_gate).to(dt))
+            * (x @ gathered(w_up).to(dt))) @ gathered(w_down).to(dt)
 
 
 def route(x2: torch.Tensor, router: torch.Tensor, k: int):
@@ -121,6 +125,25 @@ dispatch.kept = 0
 dispatch.dropped = 0
 
 
+def moe_param_specs(cfg) -> Dict:
+    """The reference's ``moe_param_specs``: experts over ``model``, FSDP
+    over the batch axes."""
+    fsdp = ("pod", "data")
+    specs = {
+        "router": pspec(None, "model"),
+        "w_gate": pspec("model", fsdp, None),
+        "w_up": pspec("model", fsdp, None),
+        "w_down": pspec("model", None, fsdp),
+    }
+    if cfg.n_shared_experts:
+        specs["shared"] = {
+            "w_gate": pspec(fsdp, "model"),
+            "w_up": pspec(fsdp, "model"),
+            "w_down": pspec("model", fsdp),
+        }
+    return specs
+
+
 def _experts(e: int, d_in: int, d_out: int, dtype, device,
              generator) -> torch.Tensor:
     """(E, d_in, d_out) expert weights, normal with std 1/sqrt(d_in), drawn
@@ -175,7 +198,10 @@ class MoE(nn.Module):
         return route(x2, self.router, self.top_k)
 
     def forward(self, x: torch.Tensor):
-        """x (B, S, d) -> (y (B, S, d), aux loss (fp32 scalar))."""
+        """x (B, S, d) -> (y (B, S, d), aux loss (fp32 scalar)); on a mesh
+        ``moe_on_mesh``."""
+        if isinstance(x, DTensor):
+            return moe_on_mesh(self, x)
         B, S, D = x.shape
         x2 = x.reshape(B * S, D)
         probs, gate, sel = self.route(x2)
@@ -184,6 +210,43 @@ class MoE(nn.Module):
         if hasattr(self, "shared"):
             y = y + self.shared(x2)
         return y.view(B, S, D), aux_loss(probs, sel, self.n_experts)
+
+
+def _slots(xt: torch.Tensor, gate: torch.Tensor, sel: torch.Tensor, e: int,
+           cap: int):
+    """One group's slot buffer, the reference's ``_moe_apply_a2a`` for a
+    group: the picks of the tokens xt (n, d), sorted by expert, scattered
+    into (E * cap + 1, d) slots whose last row bins the dropped ones.
+    Returns (buf (E, cap, d), slot, keep, token, gate_sorted: (n K,) each,
+    in sorted order, and ``order``, the sort)."""
+    m = sel.numel()
+    flat_e = sel.reshape(m)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    idx = torch.arange(m, device=xt.device)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=xt.device),
+                          sorted_e[1:] != sorted_e[:-1]])
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
+    pos = idx - seg_start                                 # rank in expert
+    keep = pos < cap
+    slot = torch.where(keep, sorted_e * cap + pos, e * cap)
+    token = order // sel.shape[1]
+    upd = torch.where(keep[:, None], xt[token], 0).to(xt.dtype)
+    buf = torch.zeros(e * cap + 1, xt.shape[1], dtype=xt.dtype,
+                      device=xt.device)
+    buf = buf.index_add_(0, slot, upd)[:-1].view(e, cap, xt.shape[1])
+    return buf, slot, keep, token, gate.reshape(m)[order], order
+
+
+def _combine(rows: torch.Tensor, slot, keep, token, gate_sorted,
+             n: int) -> torch.Tensor:
+    """The experts' rows (E * cap, d) gathered back by slot, gated and
+    added onto their tokens: (n, d)."""
+    vals = rows[slot.clamp(0, rows.shape[0] - 1)]
+    contrib = torch.where(keep[:, None], vals, 0) \
+        * gate_sorted[:, None].to(rows.dtype)
+    y = torch.zeros(n, rows.shape[1], dtype=rows.dtype, device=rows.device)
+    return y.index_add_(0, token, contrib)
 
 
 def moe_slots_ref(moe: MoE, x: torch.Tensor):
@@ -195,33 +258,122 @@ def moe_slots_ref(moe: MoE, x: torch.Tensor):
     order, so only within rounding of the port's fixed order).  Returns
     (y (B, S, d), aux loss, the kept picks as ``dispatch`` orders them)."""
     B, S, D = x.shape
-    E, K = moe.n_experts, moe.top_k
-    N, M = B * S, B * S * moe.top_k
+    E = moe.n_experts
+    N = B * S
     cap = moe.capacity(N)
     xt = x.reshape(N, D)
     probs, gate, sel = moe.route(xt)
-    flat_e = sel.reshape(M)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    idx = torch.arange(M, device=x.device)
-    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=x.device),
-                          sorted_e[1:] != sorted_e[:-1]])
-    seg_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
-    pos = idx - seg_start                                 # rank in expert
-    keep = pos < cap
-    slot = torch.where(keep, sorted_e * cap + pos, E * cap)
-    token = order // K
-    upd = torch.where(keep[:, None], xt[token], 0).to(x.dtype)
-    buf = torch.zeros(E * cap + 1, D, dtype=x.dtype, device=x.device)
-    buf = buf.index_add_(0, slot, upd)[:-1].view(E, cap, D)
+    buf, slot, keep, token, gate_sorted, order = _slots(xt, gate, sel, E,
+                                                        cap)
     h = F.silu(torch.bmm(buf, moe.w_gate)) * torch.bmm(buf, moe.w_up)
     rows = torch.bmm(h, moe.w_down).reshape(E * cap, D)
-    vals = rows[slot.clamp(0, E * cap - 1)]
-    gate_sorted = gate.reshape(M)[order]
-    contrib = torch.where(keep[:, None], vals, 0) \
-        * gate_sorted[:, None].to(x.dtype)
-    y = torch.zeros(N, D, dtype=x.dtype, device=x.device)
-    y = y.index_add_(0, token, contrib)
+    y = _combine(rows, slot, keep, token, gate_sorted, N)
     if hasattr(moe, "shared"):
         y = y + moe.shared(xt)
     return y.view(B, S, D), aux_loss(probs, sel, E), order[keep]
+
+
+class MeshRoute(NamedTuple):
+    """The routing half of ``moe_on_mesh``: G groups of ``nl`` tokens at
+    ``cap`` slots an expert; DTensors split by group over the batch axes
+    (``grp``): the slot buffers (G, E, cap, d), and per group in the
+    sorted order of its nl K picks: ``slot``, ``keep``, ``token``, the
+    gates ``gs`` and ``order`` (the sort: pick ``order[g, i]`` is token
+    ``// K``, choice ``% K`` of group g); and per group ``n_first`` and
+    ``p_sum`` (G, E), its tokens' first picks of each expert and their
+    probabilities' sums."""
+    G: int
+    nl: int
+    cap: int
+    grp: tuple
+    buf: DTensor
+    slot: DTensor
+    keep: DTensor
+    token: DTensor
+    gs: DTensor
+    order: DTensor
+    n_first: DTensor
+    p_sum: DTensor
+
+
+def route_on_mesh(moe: MoE, x: DTensor) -> MeshRoute:
+    """The reference's ``_moe_apply_a2a`` up to its all-to-all: the tokens
+    form G groups, G the product of the batch axes (1 where it does not
+    divide the tokens), each routed on its own ranks at the group's
+    capacity ``ceil(capacity_factor * N/G * K / E)`` into an (E, cap, d)
+    slot buffer."""
+    B, S, D = x.shape
+    E, K = moe.n_experts, moe.top_k
+    N = B * S
+    G = max(_axis_size("pod") * _axis_size("data"), 1)
+    if N % G:
+        G = 1
+    nl = N // G
+    cap = int(math.ceil(moe.capacity_factor * nl * K / E))
+    xt = shard(reshape(x, G, nl, D), ("pod", "data"), None, None)
+    mesh = xt.device_mesh
+    grp = tuple(p if p.is_shard(0) else Replicate() for p in xt.placements)
+    rep = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if p.is_shard(0) else Replicate() for p in grp)
+
+    def route_groups(xt, router):
+        bufs, rest = [], []
+        for g in range(xt.shape[0]):
+            probs, gate, sel = route(xt[g], router, K)
+            buf, slot, keep, token, gs, order = _slots(xt[g], gate, sel, E,
+                                                       cap)
+            first = F.one_hot(sel[:, 0], E).float()
+            bufs.append(buf)
+            rest.append((slot, keep, token, gs, order, first.sum(0),
+                         probs.sum(0)))
+        return (torch.stack(bufs),) + tuple(torch.stack(r) for r in
+                                            zip(*rest))
+    out = local_call(route_groups, (grp,) * 8,
+                     (xt, moe.router), (grp, rep), (grp, part))
+    return MeshRoute(G, nl, cap, grp, *out)
+
+
+def moe_on_mesh(moe: MoE, x: DTensor):
+    """The MoE FFN on a mesh: the reference's ``_moe_apply_a2a``.  After
+    ``route_on_mesh`` the slot buffers are resharded group -> expert (the
+    experts over ``model``), each rank runs its experts' products, and the
+    rows go back expert -> group to be combined.  Static shapes throughout
+    (no host sync), so the picks are the reference's on every mesh."""
+    B, S, D = x.shape
+    E = moe.n_experts
+    N = B * S
+    r = route_on_mesh(moe, x)
+    nl, cap, grp = r.nl, r.cap, r.grp
+    buf, slot, keep, token, gs = r.buf, r.slot, r.keep, r.token, r.gs
+    # group -> expert reshard: the all-to-all (each rank its E-slice)
+    buf = shard(buf, ("pod", "data"), "model", None, None)
+    ep = tuple(buf.placements)
+    wpl = tuple(Shard(0) if p.is_shard(1) else Replicate() for p in ep)
+    wgrad = tuple(Shard(0) if p.is_shard(1) else
+                  Partial() if p.is_shard(0) else Replicate() for p in ep)
+    def gate_up(buf, wg, wu):
+        with batched_products():
+            return F.silu(torch.einsum("gecd,edf->gecf", buf, wg)) \
+                * torch.einsum("gecd,edf->gecf", buf, wu)
+    h = local_call(gate_up, ep, (buf, moe.w_gate, moe.w_up),
+                   (ep, wpl, wpl), (ep, wgrad, wgrad))
+    h = shard(h, ("pod", "data"), "model", None, None)
+
+    def down(h, wd):
+        with batched_products():
+            return torch.einsum("gecf,efd->gecd", h, wd)
+    out = local_call(down, tuple(h.placements), (h, moe.w_down),
+                     (tuple(h.placements), wpl), (tuple(h.placements), wgrad))
+    # expert -> group reshard back (the return all-to-all)
+    out = shard(out, ("pod", "data"), None, None, None)
+
+    def combine(out, slot, keep, token, gs):
+        return torch.stack([
+            _combine(out[g].reshape(E * cap, D), slot[g], keep[g], token[g],
+                     gs[g], nl) for g in range(out.shape[0])])
+    y = reshape(local_call(combine, grp, (out, slot, keep, token, gs),
+                           (grp,) * 5, (grp,) * 5), B, S, D)
+    if hasattr(moe, "shared"):
+        y = y + reshape(moe.shared(reshape(x, N, D)), B, S, D)
+    aux = E * ((r.n_first.sum(0) / N) * (r.p_sum.sum(0) / N)).sum()
+    return y, aux

@@ -23,8 +23,28 @@ from torch import nn
 
 from repro_torch.kernels.rglru_scan.ops import rglru_gated
 from repro_torch.kernels.rglru_scan.ref import C
-from repro_torch.models.common import act_fn, dense_init, param
+from repro_torch.models.common import (BATCH, HEADS, SEQ, act_fn,
+                                       channelwise, dense_init, gathered,
+                                       param, pspec, shard)
 from repro_torch.models.mamba import causal_conv, conv_history
+
+
+def rglru_param_specs(cfg) -> Dict:
+    """The reference's ``rglru_param_specs``: the recurrence's channels
+    over ``model``."""
+    fsdp = ("pod", "data")
+    return {
+        "in_x": pspec(fsdp, "model"),
+        "in_gate": pspec(fsdp, "model"),
+        "conv_w": pspec(None, "model"),
+        "conv_b": pspec("model"),
+        "w_a": pspec(None, "model"),
+        "b_a": pspec("model"),
+        "w_i": pspec(None, "model"),
+        "b_i": pspec("model"),
+        "lambda": pspec("model"),
+        "out_proj": pspec("model", fsdp),
+    }
 
 
 class RGLRU(nn.Module):
@@ -62,14 +82,23 @@ class RGLRU(nn.Module):
         state = hist = None
         if cache is not None and S == 1:
             state, hist = cache["h"], cache["conv"]
-        xb = x @ self.in_x
-        gate = act_fn("gelu")(x @ self.in_gate)
-        xc = causal_conv(xb, self.conv_w, self.conv_b, hist)
+        xb = shard(x @ gathered(self.in_x), BATCH, SEQ, HEADS)
+        gate = act_fn("gelu")(x @ gathered(self.in_gate))
+        xc = channelwise(causal_conv, xb, [
+            (xb, True, -1), (self.conv_w, False, -1),
+            (self.conv_b, False, -1), (hist, True, -1)], [(3, -1)])
         # h in x's dtype; h_last, the fp32 state after the last step
-        h, h_last = rglru_gated(xc @ self.w_a, xc @ self.w_i, xc, self.b_a,
-                                self.b_i, self.get_parameter("lambda"), state)
+        h, h_last = channelwise(rglru_gated, xc, [
+            (xc @ gathered(self.w_a), True, -1),
+            (xc @ gathered(self.w_i), True, -1),
+            (xc, True, -1), (self.b_a, False, -1), (self.b_i, False, -1),
+            (self.get_parameter("lambda"), False, -1), (state, True, -1)],
+            [(3, -1), (2, -1)])
         if cache is not None:
             cache["h"] = h_last
-            cache["conv"] = conv_history(xb, hist, self.cfg.ssm_conv).to(
-                cache["conv"].dtype)
-        return (h * gate) @ self.out_proj
+            K = self.cfg.ssm_conv
+            cache["conv"] = channelwise(
+                lambda xb, hist: conv_history(xb, hist, K), xb,
+                [(xb, True, -1), (hist, True, -1)], [(3, -1)]).to(
+                    cache["conv"].dtype)
+        return (h * gate) @ gathered(self.out_proj)

@@ -48,6 +48,20 @@ repeat of a segment's layer pattern (``layer_groups``: a layer of qwen2-7b
 or dbrx-132b, a 3-layer pattern of recurrentgemma-2b and its remainder,
 ``global_every`` layers of llama4) and around each encoder layer.  Other
 model features raise ``NotImplementedError`` naming their slice.
+
+On a mesh (``launch.steps.distribute_model``: every parameter a DTensor of
+its reference leaf's spec, ``param_pspecs`` without the layer axis) the
+same modules run on DTensors.  ``shard`` pins the activations where the
+reference constrains them (the embeddings, q/k/v, the MLP's hidden, each
+layer's output, the logits; and the sums of the learned positions, which
+DTensor's propagation would otherwise split along the sequence), DTensor
+carries the products and elementwise ops, and each kernel runs on local
+shards through ``local_map``: the norms by rows, attention by batch and
+heads (``models/attention.py``), the recurrent blocks' convolutions and
+scans by batch and channels, the MoE as the reference's grouped slot
+buffers (``models/moe.py:moe_on_mesh``).  ``init_cache`` then makes
+DTensor caches of ``cache_specs`` (``cache_pspecs`` without the layer
+axis), which ``write_cache_shards`` fills rank by rank.
 """
 from __future__ import annotations
 
@@ -55,19 +69,23 @@ from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attention
-from repro_torch.models.common import (act_fn, apply_rope, dense_init,
-                                       dtype_of, embed_init, layernorm, param,
-                                       rmsnorm)
-from repro_torch.models.mamba import Mamba
-from repro_torch.models.moe import MoE
+from repro_torch.models.common import (
+    BATCH, HEADS, SEQ, PSpec, _axis_size, _mesh_sizes, act_fn, apply_rope,
+    dense_init, dtype_of, embed_init, fit_entries, gathered, layernorm,
+    local_call,
+    local_slice, lookup, merge_heads, param, placements, pspec, replicated,
+    rmsnorm, rows_placements, shard, shard_index, sharding_mode, split_heads,
+    use_mesh)
+from repro_torch.models.mamba import Mamba, mamba_param_specs
+from repro_torch.models.moe import MoE, moe_param_specs
 from repro_torch.models.remat import remat_wrap
-from repro_torch.models.rglru import RGLRU
+from repro_torch.models.rglru import RGLRU, rglru_param_specs
 
 _LATER = "a later slice of the port (ROADMAP.md, queue A)"
 PORTED_KINDS = ("attn", "attn_local", "attn_chunk", "attn_global",
@@ -129,6 +147,172 @@ def layer_groups(cfg: ModelConfig) -> List[range]:
     return out
 
 
+# ---- sharding specs (the reference's, in its stacked tree) ----
+
+FSDP = BATCH   # parameter sharding axes (ZeRO-3 over the data axes)
+
+
+def _norm_specs(cfg: ModelConfig) -> Dict:
+    return {k: pspec(None) for k in
+            (("scale", "bias") if cfg.norm == "layernorm" else ("scale",))}
+
+
+def _attn_specs(cfg: ModelConfig) -> Dict:
+    p = {"wq": pspec(FSDP, "model"), "wk": pspec(FSDP, "model"),
+         "wv": pspec(FSDP, "model"), "wo": pspec("model", FSDP)}
+    if cfg.qkv_bias:
+        p.update(bq=pspec("model"), bk=pspec("model"), bv=pspec("model"))
+    return p
+
+
+def _mlp_specs(cfg: ModelConfig) -> Dict:
+    p = {"w_up": pspec(FSDP, "model"), "w_down": pspec("model", FSDP)}
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["w_gate"] = pspec(FSDP, "model")
+    return p
+
+
+def _layer_specs(kind: str, cfg: ModelConfig, with_cross=False,
+                 pattern_pos: int = 0) -> Dict:
+    p: Dict = {"norm1": _norm_specs(cfg)}
+    if kind.startswith("attn"):
+        p["attn"] = _attn_specs(cfg)
+    elif kind == "mamba":
+        p["mamba"] = mamba_param_specs(cfg)
+    elif kind == "rglru":
+        p["rglru"] = rglru_param_specs(cfg)
+    if with_cross:
+        p["norm_cross"] = _norm_specs(cfg)
+        p["cross"] = _attn_specs(cfg)
+    if cfg.family != "ssm":
+        p["norm2"] = _norm_specs(cfg)
+        if uses_moe(cfg, pattern_pos):
+            p["moe"] = moe_param_specs(cfg)
+        else:
+            p["mlp"] = _mlp_specs(cfg)
+    return p
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def param_pspecs(cfg: ModelConfig) -> Dict:
+    """The reference's ``param_pspecs``: a spec for every leaf of its
+    params tree, the stacked leaves with an unsharded leading layer axis;
+    in ``fsdp`` mode every parameter of two or more dims sharded on dim 0
+    over all the mesh's axes and the vectors replicated.  The port's
+    parameters take these without the layer axis
+    (``launch.steps.param_specs``)."""
+    specs: Dict = {"embed": pspec("model", FSDP),
+                   "final_norm": _norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = pspec(FSDP, "model")
+
+    def seg_specs(pattern, with_cross=False):
+        return {f"pos{pi}": _layer_specs(kind, cfg, with_cross,
+                                         pattern_pos=pi)
+                for pi, kind in enumerate(pattern)}
+
+    specs["segments"] = {f"seg{si}": seg_specs(pat, cfg.is_encdec)
+                         for si, (pat, _) in enumerate(segments(cfg))}
+    if cfg.is_encdec:
+        specs["enc"] = {"pos_embed": pspec(None, FSDP),
+                        "segments": {"seg0": seg_specs(("attn_bidir",))},
+                        "final_norm": _norm_specs(cfg)}
+        specs["dec_pos_embed"] = pspec(None, FSDP)
+    if cfg.img_tokens:
+        specs["img_proj"] = pspec(FSDP, "model")
+    if sharding_mode() == "fsdp":
+        all_ax = ("pod", "data", "model")
+
+        def to_fsdp(s: PSpec) -> PSpec:
+            if len(s) < 2:
+                return pspec(None) if len(s) else s
+            return pspec(all_ax, *([None] * (len(s) - 1)))
+        specs = _map_specs(to_fsdp, specs)
+
+    def add_layer_axis(tree):
+        return _map_specs(lambda s: PSpec(None, *s), tree)
+    specs["segments"] = add_layer_axis(specs["segments"])
+    if cfg.is_encdec:
+        specs["enc"]["segments"] = add_layer_axis(specs["enc"]["segments"])
+    return specs
+
+
+def cache_pspecs(cfg: ModelConfig, *, shard_seq: bool = False) -> Dict:
+    """The reference's ``cache_pspecs``, in its stacked cache tree: batch
+    over (pod, data); the KV heads over ``model`` where they divide it,
+    else the sequence takes ``model``; ``shard_seq`` (a batch of one) puts
+    the batch axes on the sequence too."""
+    msz = _axis_size("model")
+    heads_shardable = msz > 1 and cfg.n_kv_heads % msz == 0
+    batch_ax = None if shard_seq else BATCH
+    seq_axes: list = ["pod", "data"] if shard_seq else []
+    if not heads_shardable and msz > 1:
+        seq_axes.append("model")
+    seq_ax = tuple(seq_axes) if seq_axes else None
+    head_ax = "model" if heads_shardable else None
+    state_ax = tuple(seq_axes + (["model"] if heads_shardable else [])) \
+        if shard_seq else "model"
+    spec_for = {
+        "k": pspec(None, batch_ax, seq_ax, head_ax, None),
+        "kpos": pspec(None, None),
+        "ssm": pspec(None, batch_ax, state_ax, None),
+        "h": pspec(None, batch_ax, state_ax),
+        "conv": pspec(None, batch_ax, None, state_ax)}
+    spec_for["v"] = spec_for["k"]
+    tree: Dict = {}
+    for si, (pattern, _) in enumerate(segments(cfg)):
+        seg = {}
+        for pi, kind in enumerate(pattern):
+            if kind.startswith("attn"):
+                names = {"attn": ("k", "v", "kpos")}
+            elif kind == "mamba":
+                names = {None: ("ssm", "conv")}
+            else:
+                names = {None: ("h", "conv")}
+            pos = {}
+            for group, leaves in names.items():
+                d = {n: spec_for[n] for n in leaves}
+                pos.update({group: d} if group else d)
+            seg[f"pos{pi}"] = pos
+        tree[f"seg{si}"] = seg
+    return tree
+
+
+def cache_specs(cfg: ModelConfig, *, shard_seq: bool = False
+                ) -> List[Dict[str, PSpec]]:
+    """The spec of each entry of each layer's cache (``Cache.layers``):
+    the reference's cache leaf's without the stacked layer axis; an
+    encoder-decoder's cross K/V (which the reference recomputes from
+    ``enc_out``) as the self K/V with the sequence unsharded."""
+    from repro_torch.convert import leaf_at, reference_leaf
+    tree = cache_pspecs(cfg, shard_seq=shard_seq)
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        keys, r = reference_leaf(f"layers.{i}.x", cfg)
+        pos = leaf_at({"segments": tree}, keys[:-1])
+        leaves = dict(pos.get("attn", pos))
+        specs = {n: PSpec(*s[1:]) for n, s in leaves.items()}
+        if cfg.is_encdec:
+            k = specs["k"]
+            specs["cross_k"] = specs["cross_v"] = PSpec(k[0], None, *k[2:])
+        out.append(specs)
+    return out
+
+
+def distribute(t: torch.Tensor, mesh, spec) -> DTensor:
+    """``t`` (the same on every rank) as a DTensor of ``spec`` fitted to
+    its shape: each rank keeps a copy of its own slice, split in mesh-dim
+    order as DTensor splits, with no communication."""
+    pl = placements(fit_entries(spec, t.shape, _mesh_sizes(mesh)), mesh)
+    return DTensor.from_local(local_slice(t, mesh, pl), mesh, pl,
+                              run_check=False)
+
+
 LayerCache = Dict[str, torch.Tensor]
 
 
@@ -184,6 +368,44 @@ def uses_moe(cfg: ModelConfig, i: int) -> bool:
     return bool(cfg.n_experts) and (i + 1) % cfg.moe_every == 0
 
 
+@torch.no_grad()
+def write_cache_shards(cache: LayerCache, k: DTensor, v: DTensor,
+                       positions: torch.Tensor, pos: int) -> None:
+    """Write the K/V of positions ``pos ..`` into a cache of DTensors, each
+    rank its own slots: the new K/V are brought to the cache's placements
+    (the sequence whole), and a rank whose slots are split along the
+    sequence writes those of its range.  Slots follow the plain path's
+    rule: position p in slot p, or p % L in a rolling buffer, a prompt
+    longer than the buffer leaving its last L positions."""
+    ck, cv, kpos = cache["k"], cache["v"], cache.get("kpos")
+    mesh, L, S = ck.device_mesh, ck.shape[1], k.shape[1]
+    if kpos is None and pos + S > L:
+        raise ValueError(f"cache of {L} slots is full at position "
+                         f"{pos + S - 1}")
+    want = tuple(p if not p.is_shard(1) else Replicate()
+                 for p in ck.placements)
+    kl = k.redistribute(mesh, want).to_local()
+    vl = v.redistribute(mesh, want).to_local()
+    ckl, cvl = ck.to_local(), cv.to_local()
+    n = ckl.shape[1]
+    lo = shard_index(mesh, ck.placements, 1)[0] * n
+    if S <= L:
+        slot = pos % L
+        a, b = max(slot, lo), min(slot + S, lo + n)
+        if a < b:
+            ckl[:, a - lo:b - lo] = kl[:, a - slot:b - slot]
+            cvl[:, a - lo:b - lo] = vl[:, a - slot:b - slot]
+        if kpos is not None:
+            kpos.to_local()[slot:slot + S] = positions.to(kpos.dtype)
+    else:
+        # slot s holds the last-L position p with p % L == s
+        rows = (torch.arange(lo, lo + n, device=kl.device)
+                - (pos + S - L)) % L + (S - L)
+        ckl.copy_(kl[:, rows])
+        cvl.copy_(vl[:, rows])
+        kpos.to_local()[positions[-L:] % L] = positions[-L:].to(kpos.dtype)
+
+
 class Attention(nn.Module):
     """Self-attention of a layer kind: ``attn`` and ``attn_global``
     (causal), ``attn_local`` (causal, sliding window), ``attn_chunk``
@@ -213,7 +435,7 @@ class Attention(nn.Module):
                     width * hd, dtype=dtype, device=device)))
 
     def _proj(self, x, w, bias_name):
-        y = x @ w
+        y = x @ gathered(w)
         return y + getattr(self, bias_name) if self.cfg.qkv_bias else y
 
     def forward(self, x, pos: int = 0, cache: Optional[LayerCache] = None):
@@ -225,9 +447,12 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        q = self._proj(x, self.wq, "bq").view(B, S, hq, hd)
-        k = self._proj(x, self.wk, "bk").view(B, S, hkv, hd)
-        v = self._proj(x, self.wv, "bv").view(B, S, hkv, hd)
+        q = shard(split_heads(self._proj(x, self.wq, "bq"), hq, hd),
+                  BATCH, SEQ, HEADS, None)
+        k = shard(split_heads(self._proj(x, self.wk, "bk"), hkv, hd),
+                  BATCH, SEQ, HEADS, None)
+        v = shard(split_heads(self._proj(x, self.wv, "bv"), hkv, hd),
+                  BATCH, SEQ, HEADS, None)
         positions = torch.arange(pos, pos + S, device=x.device)
         if self.rope:
             q = apply_rope(q, positions, fraction=cfg.rope_fraction,
@@ -239,7 +464,14 @@ class Attention(nn.Module):
                 raise ValueError("a multi-token call starts at position 0")
             out = attention(q, k, v, causal=self.causal, window=self.window,
                             chunk=self.chunk)
-        if cache is not None:
+        if cache is not None and isinstance(cache["k"], DTensor):
+            write_cache_shards(cache, k, v, positions, pos)
+            if S == 1:
+                out = attention(q, cache["k"], cache["v"], q_offset=pos,
+                                kv_len=min(pos + 1, cache["k"].shape[1]),
+                                k_pos=cache.get("kpos"), window=self.window,
+                                chunk=self.chunk)
+        elif cache is not None:
             ck, cv, kpos = cache["k"], cache["v"], cache.get("kpos")
             L = ck.shape[1]
             if kpos is None and pos + S > L:
@@ -260,23 +492,23 @@ class Attention(nn.Module):
                 out = attention(q, ck, cv, q_offset=pos,
                                 kv_len=min(pos + 1, L), k_pos=kpos,
                                 window=self.window, chunk=self.chunk)
-        return out.reshape(B, S, hq * hd) @ self.wo
+        return merge_heads(out) @ gathered(self.wo)
 
     def kv_from(self, src: torch.Tensor):
         """Cross attention's K and V (B, T, Hkv, D) from the encoder states
         src (B, T, d), without ``bk``/``bv`` (the reference's ``kv_src``)."""
-        B, T, _ = src.shape
-        shape = (B, T, self.cfg.n_kv_heads, self.cfg.resolved_head_dim)
-        return (src @ self.wk).view(shape), (src @ self.wv).view(shape)
+        hkv, hd = self.cfg.n_kv_heads, self.cfg.resolved_head_dim
+        return (split_heads(src @ gathered(self.wk), hkv, hd),
+                split_heads(src @ gathered(self.wv), hkv, hd))
 
     def attend(self, x, k, v):
         """Cross attention of x (B, S, d) over every key of ``kv_from``."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self._proj(x, self.wq, "bq").view(B, S, cfg.n_heads,
-                                              cfg.resolved_head_dim)
+        q = split_heads(self._proj(x, self.wq, "bq"), cfg.n_heads,
+                        cfg.resolved_head_dim)
         out = attention(q, k, v, causal=False)
-        return out.reshape(B, S, -1) @ self.wo
+        return merge_heads(out) @ gathered(self.wo)
 
 
 class MLP(nn.Module):
@@ -294,8 +526,11 @@ class MLP(nn.Module):
 
     def forward(self, x):
         if not hasattr(self, "w_gate"):
-            return self.act(x @ self.w_up) @ self.w_down
-        return (self.act(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+            h = self.act(x @ gathered(self.w_up))
+        else:
+            h = self.act(x @ gathered(self.w_gate)) * (
+                x @ gathered(self.w_up))
+        return shard(h, BATCH, SEQ, HEADS) @ gathered(self.w_down)
 
 
 class Layer(nn.Module):
@@ -353,7 +588,7 @@ class Layer(nn.Module):
         elif hasattr(self, "moe"):
             y, aux = self.moe(self.norm2(x))
             x = x + y
-        return x, aux
+        return shard(x, BATCH, SEQ, None), aux
 
 
 def run_layers(layers: Sequence[Layer], x: torch.Tensor,
@@ -388,7 +623,10 @@ class Encoder(nn.Module):
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, d) in the model's dtype, T <= enc_seq."""
-        x = frames + self.pos_embed[:frames.shape[1]]
+        # pinned as the layers' outputs are: DTensor's propagation may split
+        # T over ``model`` here, where XLA's keeps the reference's layout
+        x = shard(frames + self.pos_embed[:frames.shape[1]], BATCH, SEQ,
+                  None)
         run = remat_wrap(run_layers, self.remat)
         for layer in self.layers:     # one segment of 1-layer repeats
             x = run((layer,), x, None, None)[0]
@@ -443,7 +681,7 @@ class Transformer(nn.Module):
                img_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         """Token embeddings (B, S, d), after the projected image embeddings
         (B, N, d) for an ``img_tokens`` config: (B, N + S, d)."""
-        x = F.embedding(tokens, self.embed)
+        x = shard(lookup(self.embed, tokens), BATCH, SEQ, None)
         if not self.cfg.img_tokens:
             if img_embeds is not None:
                 raise ValueError(f"{self.cfg.name} takes no image embeddings")
@@ -456,7 +694,7 @@ class Transformer(nn.Module):
                 or img_embeds.shape[2] != self.cfg.d_model:
             raise ValueError(f"img_embeds {tuple(img_embeds.shape)}: want "
                              f"({B}, N, {self.cfg.d_model})")
-        img = img_embeds.to(x.dtype) @ self.img_proj
+        img = img_embeds.to(x.dtype) @ gathered(self.img_proj)
         return torch.cat([img, x], 1)
 
     def _inputs(self, tokens: torch.Tensor,
@@ -480,13 +718,13 @@ class Transformer(nn.Module):
                 or not 0 < frames.shape[1] <= cfg.enc_seq:
             raise ValueError(f"frames {tuple(frames.shape)}: want ({B}, T, "
                              f"{cfg.d_model}), T <= {cfg.enc_seq}")
-        x = x + self.dec_pos_embed[:x.shape[1]]
+        x = shard(x + self.dec_pos_embed[:x.shape[1]], BATCH, SEQ, None)
         return x, self.enc(frames.to(self.dtype))
 
     def _unembed(self, x):
         x = self.final_norm(x)
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
-        return (x @ w).float()
+        return shard((x @ gathered(w)).float(), BATCH, SEQ, HEADS)
 
     def forward(self, tokens: torch.Tensor, last: Optional[int] = None,
                 img_embeds: Optional[torch.Tensor] = None,
@@ -500,7 +738,8 @@ class Transformer(nn.Module):
         ``return_aux``: (logits, the MoE aux loss summed over the layers,
         fp32 0-d), as the reference's ``forward``."""
         x, enc = self._inputs(tokens, img_embeds, frames)
-        aux = torch.zeros((), device=x.device) if return_aux else None
+        aux = replicated(torch.zeros((), device=x.device), x) \
+            if return_aux else None
         run = remat_wrap(run_layers, self.cfg.remat)
         for group in self.groups:
             x, aux = run(tuple(self.layers[i] for i in group), x, aux, enc)
@@ -532,6 +771,12 @@ class Transformer(nn.Module):
                      "conv": torch.zeros(batch, cfg.ssm_conv - 1, width,
                                          dtype=dt, device=dev)}
             layers.append(c)
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            with use_mesh(mesh):
+                specs = cache_specs(cfg, shard_seq=batch == 1)
+            layers = [{n: distribute(t, mesh, specs[i][n])
+                       for n, t in c.items()} for i, c in enumerate(layers)]
         return Cache(layers)
 
     def prefill(self, tokens: torch.Tensor, max_len: int,
@@ -560,13 +805,67 @@ class Transformer(nn.Module):
         if pos != cache.length:
             raise ValueError(f"decode at position {pos} but the cache holds "
                              f"{cache.length} positions")
-        x = F.embedding(token, self.embed)
+        x = shard(lookup(self.embed, token), BATCH, SEQ, None)
         if self.cfg.is_encdec:
-            x = x + self.dec_pos_embed[pos]
+            x = shard(x + self.dec_pos_embed[pos], BATCH, SEQ, None)
         for layer, c in zip(self.layers, cache.layers):
             x = layer(x, pos, c)
         cache.length = pos + 1
         return self._unembed(x), cache
+
+
+def _token_logprobs(logits: torch.Tensor, labels: torch.Tensor):
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
+def token_logprobs(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """log_softmax(logits)[..., label] (fp32), each (batch, position) row
+    on its own.  On a mesh each rank keeps its rows; where ranks split the
+    vocab (the logits' ``HEADS`` split), each takes the log-sum-exp terms
+    and the label's logit of its own columns and the ranks sum them
+    (``vocab_logprobs``), so no rank holds a row's whole vocab; else the
+    rows run whole, locally.  (DTensor's own ``log_softmax`` gathers the
+    vocab, and its gradient of ``gather`` makes zeros of the global logits'
+    shape on every rank.)"""
+    if not isinstance(logits, DTensor):
+        return _token_logprobs(logits, labels)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    keep = tuple(p if p.is_shard() and (p.dim in (0, 1) or (
+        p.dim == last and mesh.size(m) > 1)) else Replicate()
+        for m, p in enumerate(logits.placements))
+    lab = tuple(p if p.is_shard() and p.dim < last else Replicate()
+                for p in keep)
+    if keep == lab:                     # the vocab whole on every rank
+        return local_call(_token_logprobs, lab, (logits, labels),
+                          (keep, lab), (keep, lab))
+    return vocab_logprobs(logits, labels, keep, lab)
+
+
+def vocab_logprobs(logits, labels, keep, lab):
+    """``token_logprobs`` over a vocab split by ``keep``'s mesh dims: lse =
+    m + log(sum over ranks of sum exp(x - m)), m the row's largest logit
+    (a constant to autograd), and the label's logit from the rank whose
+    columns hold it."""
+    mesh = logits.device_mesh
+    first, _ = shard_index(mesh, keep, logits.ndim - 1)
+    vmax = tuple(Partial("max") if q != p else p for p, q in zip(keep, lab))
+    vsum = tuple(Partial() if q != p else p for p, q in zip(keep, lab))
+    m = local_call(lambda x: x.detach().amax(-1), vmax, (logits,), (keep,),
+                   (keep,)).redistribute(mesh, lab)
+
+    def parts(x, m, labels):
+        n = x.shape[-1]
+        ids = labels.long() - first * n
+        hit = (ids >= 0) & (ids < n)
+        pick = torch.gather(x, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+        return (x - m[..., None]).exp().sum(-1), torch.where(hit, pick, 0.0)
+    total, target = local_call(parts, (vsum, vsum), (logits, m, labels),
+                               (keep, lab, lab), (keep, lab, lab))
+    total = total.redistribute(mesh, lab)
+    target = target.redistribute(mesh, lab)
+    return target - (m + total.log())
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
@@ -583,8 +882,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     if model.cfg.img_tokens:                  # drop image positions
         logits = logits[:, model.cfg.img_tokens:]
     mask = batch.get("loss_mask")
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    ll = token_logprobs(logits, labels)
     if mask is not None:
         ll = ll * mask
         denom = torch.clamp(mask.sum(), min=1.0)

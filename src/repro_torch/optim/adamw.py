@@ -13,6 +13,11 @@ here ``adamw_update`` writes the params and the moments in place, under
 ``torch.no_grad()``, a slice of at most ``CHUNK`` elements at a time, so the
 fp32 temporaries of a large embedding stay small (every step of the update
 after the global norm is elementwise, so slicing changes no result).
+
+On a mesh the params, grads and moments are DTensors of one placement each
+(the train step brings every gradient to its parameter's): the update runs
+on the local shards, sliced there, and the global norm counts every
+element once (``global_norm``).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Mapping, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models.common import dtype_of
 
@@ -43,25 +49,64 @@ def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> Dict:
     ``"step"``: an int32 0-d tensor on the params' device."""
     dt = dtype_of(cfg.moment_dtype)
     device = next(iter(params.values())).device if params else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=dt)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
     return {"mu": {n: zeros(p) for n, p in params.items()},
             "nu": {n: zeros(p) for n, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
-    flat = t.view(-1)
+    """Slices of t's elements (of a DTensor's local shard)."""
+    t = _local(t)
+    flat = t.view(-1) if t.is_contiguous() else t.reshape(-1)
     for i in range(0, flat.numel(), CHUNK):
         yield flat[i:i + CHUNK]
 
 
+def mesh_reduce(values: Dict[str, torch.Tensor],
+                like: Mapping[str, torch.Tensor], op: str = "sum"
+                ) -> Dict[str, torch.Tensor]:
+    """Each 0-d local value of a DTensor ``like[name]`` reduced (``op``:
+    sum or max) over the mesh dims that split its tensor, so that every
+    element counts once; the values of plain tensors as they are.  One
+    collective for the values of each placement."""
+    groups: Dict = {}
+    for name, val in values.items():
+        t = like[name]
+        if isinstance(t, DTensor):
+            key = (id(t.device_mesh), tuple(t.placements))
+            groups.setdefault(key, (t, []))[1].append(name)
+    out = dict(values)
+    for t, names in groups.values():
+        pending = [Partial(op) if p.is_shard() else Replicate()
+                   for p in t.placements]
+        vec = torch.stack([values[n] for n in names])
+        vec = DTensor.from_local(vec, t.device_mesh, pending,
+                                 run_check=False).full_tensor()
+        out.update(zip(names, vec.unbind(0)))
+    return out
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (0-d): each
-    tensor's norm reduced in fp32 without an fp32 copy, squared, summed."""
+    tensor's norm reduced in fp32 without an fp32 copy, squared, summed in
+    the tree's order.  A DTensor's square is summed over the ranks that
+    split it (``mesh_reduce``) before it joins the sum."""
+    squares = {n: torch.linalg.vector_norm(_local(t), dtype=torch.float32
+                                           ).square()
+               for n, t in tree.items()}
+    squares = mesh_reduce(squares, tree)
     total = torch.zeros(())
-    for t in tree.values():
-        total = total.to(t.device) + torch.linalg.vector_norm(
-            t, dtype=torch.float32).square()
+    for n, t in tree.items():
+        total = total.to(squares[n].device) + squares[n]
     return torch.sqrt(total)
 
 

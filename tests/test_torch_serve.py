@@ -157,4 +157,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels.rmsnorm.ops"):
         assert name in out["modules"], name
+    # the multi-device launch path: meshes, the dry run, the kernels'
+    # counted route under it
+    for name in ("repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                 "repro_torch.kernels._fake"):
+        assert name in out["modules"], name
     assert out["bad"] == []
